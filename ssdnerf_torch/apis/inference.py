@@ -9,8 +9,9 @@ from ..registry import build_model
 def init_model(config, device='cuda', seed=0):
     """Build the model of ``config`` (a path or a Config) with parameters
     drawn from ``torch.Generator().manual_seed(seed)`` in the JAX package's
-    init scheme, in eval mode on ``device``.  Weights from the JAX package
-    are loaded afterwards with ``convert.load_jax_params``."""
+    init scheme, in eval mode on ``device``; the EMA modules start as copies
+    of the live ones.  Weights from the JAX package are loaded afterwards
+    with ``convert.load_jax_params``."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     with torch.device('meta'):
@@ -19,5 +20,6 @@ def init_model(config, device='cuda', seed=0):
     model = model.to_empty(device='cpu')
     generator = torch.Generator().manual_seed(seed)
     model.decoder.init_weights(generator)
-    model.diffusion.denoising.init_weights(generator)
+    model.diffusion.init_weights(generator)
+    model.reset_ema()
     return model.to(device).eval()

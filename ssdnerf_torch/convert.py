@@ -62,8 +62,22 @@ def load_params(module, params):
 
 
 def load_jax_params(model, tree):
-    """Fill a DiffusionNeRF from the JAX state's ``decoder_ema`` and
-    ``diffusion_ema`` trees (the weights evaluation uses)."""
-    load_params(model.decoder, tree['decoder_ema'])
-    load_params(model.diffusion.denoising, tree['diffusion_ema'])
+    """Fill a DiffusionNeRF from whichever of the JAX state's ``decoder``,
+    ``decoder_ema``, ``diffusion`` and ``diffusion_ema`` trees ``tree``
+    holds: the live modules train, the EMA modules generate and render.
+    A tree whose module the model does not keep, or no such tree at all,
+    raises."""
+    targets = dict(decoder=model.decoder, decoder_ema=model.decoder_ema,
+                   diffusion=model.diffusion,
+                   diffusion_ema=model.diffusion_ema)
+    found = [name for name in targets if name in tree]
+    if not found:
+        raise KeyError(f'none of {list(targets)} in the JAX state')
+    for name in found:
+        module = targets[name]
+        if module is None:
+            raise KeyError(f'{name}: the model keeps no such module')
+        if name.startswith('diffusion'):
+            module = module.denoising
+        load_params(module, tree[name])
     return model

@@ -138,6 +138,9 @@ class DenoisingUnet(nn.Module):
         if groups != 1 or not downsample_conv or not upsample_conv:
             raise ValueError('DenoisingUnet: only groups=1 with conv '
                              'down/up-sampling is ported')
+        if dropout > 0:
+            raise NotImplementedError('DenoisingUnet: dropout > 0 is not '
+                                      'ported')
         if isinstance(image_size, int):
             image_size = (image_size, image_size)
         self.in_channels = in_channels

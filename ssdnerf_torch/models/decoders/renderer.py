@@ -4,7 +4,10 @@ path ``_volume_render_fused``): march kernel -> per-ray compaction ->
 cross-ray packing -> decode kernel -> composite.
 
 There is no backend switch: each kernel wrapper takes its plain version for
-CPU tensors and launches its kernel for CUDA tensors.
+CPU tensors and launches its kernel for CUDA tensors.  ``volume_render`` is
+differentiable with respect to the codes and the decoder's parameters (the
+decode kernel's backward); the march, compaction and packing carry no
+gradient.
 """
 import torch
 
@@ -17,10 +20,9 @@ from ...ops.marching import SQRT3
 GROUP_RAYS = 16
 
 
-@torch.no_grad()
 def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
-                  dt_gamma=0.0, T_thresh=1e-4):
-    """Render a batch of rays for a batch of scenes (no start-t jitter).
+                  dt_gamma=0.0, perturb=None, T_thresh=1e-4):
+    """Render a batch of rays for a batch of scenes.
 
     Args:
         decoder: TriPlaneDecoder (parameters plus the march fields
@@ -30,6 +32,9 @@ def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
         rays_o, rays_d: (S, N, 3).
         density_bitfield: (S, grid_size**3 // 8) uint8.
         dt_gamma: scalar or (S,) cone-stepping factors.
+        perturb: (S, N) start-t jitter in [0, 1) (None: no jitter), applied
+            as ``t0 = near + clamp(near * dt_gamma, dt_min, dt_max) *
+            perturb``.
 
     Returns:
         dict(weights_sum=(S, N), depth=(S, N), image=(S, N, 3)).
@@ -59,10 +64,15 @@ def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
     dt_min = 2.0 * SQRT3 / max_steps
     dt_max = 2.0 * SQRT3 / grid_size
     t0 = nears
-    valid = march_valid_mask(rays_o, rays_d, t0, fars, density_bitfield,
-                             dt_gamma, num_slots, grid_size, bound, max_steps)
-    K = decoder.compact_steps
-    comp_step, comp_valid = compact_samples(valid, K)
+    if perturb is not None:
+        t0 = nears + torch.clamp(nears * dt_gamma[:, None], dt_min,
+                                 dt_max) * perturb
+    with torch.no_grad():
+        valid = march_valid_mask(rays_o, rays_d, t0, fars, density_bitfield,
+                                 dt_gamma, num_slots, grid_size, bound,
+                                 max_steps)
+        K = decoder.compact_steps
+        comp_step, comp_valid = compact_samples(valid, K)
 
     planes = decoder.planes(code)
     dir_out = decoder.dir_out(rays_d)                         # (S, N, hidden)
@@ -71,7 +81,9 @@ def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
     if P is not None and P % 8 == 0 and K % 8 == 0 and N % GR == 0:
         # cross-ray packing: 16-ray groups share P decode slots
         G = N // GR
-        pstep, pvalid, prid, soffs = pack_groups(comp_step, comp_valid, P, GR)
+        with torch.no_grad():
+            pstep, pvalid, prid, soffs = pack_groups(comp_step, comp_valid,
+                                                     P, GR)
         ray = (prid + GR * torch.arange(G, device=dev)[:, None]
                ).reshape(S, G * P)
 

@@ -32,6 +32,8 @@ class TriPlaneDecoder(nn.Module):
                  activation: str = 'silu',
                  sigma_activation: str = 'trunc_exp',
                  sigmoid_saturation: float = 0.001,
+                 code_dropout: float = 0.0,
+                 scene_base_size=None,
                  flip_z: bool = False,
                  bound: float = 1.0,
                  min_near: float = 0.2,
@@ -53,6 +55,9 @@ class TriPlaneDecoder(nn.Module):
             raise ValueError('TriPlaneDecoder: only the single-Linear SiLU '
                              'decoder with an SH-4 direction branch is '
                              'ported')
+        if code_dropout > 0 or scene_base_size is not None:
+            raise NotImplementedError('TriPlaneDecoder: code_dropout and '
+                                      'scene_base_size are not ported')
         self.hidden = hidden
         self.sigmoid_saturation = sigmoid_saturation
         self.flip_z = flip_z

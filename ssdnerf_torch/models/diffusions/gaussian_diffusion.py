@@ -1,27 +1,35 @@
-"""DDIM sampling (port of the sampling half of
-``ssdnerf_tpu/models/diffusions/gaussian_diffusion.py``).
+"""Diffusion training loss and DDIM sampling (port of
+``ssdnerf_tpu/models/diffusions/gaussian_diffusion.py``: ``q_sample``,
+``forward_train`` and deterministic DDIM).
 
 Diffusion-space tensors are NCHW ``(B, C, H, W)``, the layout of
 ``code_diff_pr``.  The chain is a Python loop over the timestep sequence.
+The running scale-norm factor of the loss is the buffer ``norm_factor``.
 """
 import numpy as np
 import torch
 from torch import nn
 
 from ..architecture.unet import DenoisingUnet
+from ..losses import build_ddpm_loss
+from .sampler import build_timestep_sampler
 from .schedules import make_schedule
 
 
 class GaussianDiffusion(nn.Module):
 
-    def __init__(self, denoising, schedule, num_timesteps=1000,
-                 denoising_mean_mode='V', sample_method='ddim'):
+    def __init__(self, denoising, schedule, timestep_sampler, ddpm_loss,
+                 num_timesteps=1000, denoising_mean_mode='V',
+                 sample_method='ddim'):
         super().__init__()
         self.denoising = denoising
         self.schedule = schedule
+        self.timestep_sampler = timestep_sampler
+        self.ddpm_loss = ddpm_loss
         self.num_timesteps = num_timesteps
         self.denoising_mean_mode = denoising_mean_mode.upper()
         self.sample_method = sample_method.lower()
+        self.register_buffer('norm_factor', torch.ones(1))
 
     @staticmethod
     def from_cfg(cfg):
@@ -29,13 +37,25 @@ class GaussianDiffusion(nn.Module):
         num_timesteps = cfg.get('num_timesteps', 1000)
         schedule = make_schedule(cfg.get('betas_cfg', {'type': 'cosine'}),
                                  num_timesteps)
+        mean_mode = cfg.get('denoising_mean_mode', 'V')
+        sampler = build_timestep_sampler(
+            cfg.get('timestep_sampler', {'type': 'UniformTimeStepSampler'}),
+            schedule, mean_mode)
+        loss = build_ddpm_loss(
+            cfg.get('ddpm_loss', {'type': 'DDPMMSELossMod'}), sampler,
+            num_timesteps)
         den_cfg = dict(cfg['denoising'])
         den_cfg.pop('type', None)
         unet = DenoisingUnet(num_timesteps=num_timesteps, **den_cfg)
         return GaussianDiffusion(
-            unet, schedule, num_timesteps,
-            cfg.get('denoising_mean_mode', 'V'),
+            unet, schedule, sampler, loss, num_timesteps, mean_mode,
             cfg.get('sample_method', 'ddim'))
+
+    def init_weights(self, generator):
+        """The UNet's JAX-package init and a scale-norm factor of 1."""
+        self.denoising.init_weights(generator)
+        with torch.no_grad():
+            self.norm_factor.fill_(1.0)
 
     def _at(self, name, t, x):
         """Schedule array ``name`` at integer timesteps t (B,), as f32
@@ -43,6 +63,50 @@ class GaussianDiffusion(nn.Module):
         arr = torch.as_tensor(getattr(self.schedule, name),
                               dtype=torch.float32, device=x.device)
         return arr[t].reshape((-1,) + (1,) * (x.dim() - 1))
+
+    def q_sample(self, x_0, t, noise):
+        """x_t = sqrt(ab_t) x_0 + sqrt(1 - ab_t) noise; returns (x_t, mean,
+        std) with mean and std shaped (B, 1, 1, 1)."""
+        mean = self._at('sqrt_alphas_bar', t, x_0)
+        std = self._at('sqrt_one_minus_alphas_bar', t, x_0)
+        return x_0 * mean + noise * std, mean, std
+
+    def forward_train(self, x_0, t=None, noise=None, generator=None,
+                      update_norm=True):
+        """One diffusion training loss evaluation (gradients flow to the
+        UNet and to ``x_0``).
+
+        Args:
+            x_0: (B, C, H, W) clean codes in diffusion layout.
+            t: (B,) int64 timesteps; drawn from the timestep sampler with
+                ``generator`` when None.
+            noise: like x_0; drawn N(0, 1) from ``generator`` when None.
+            update_norm: update the running ``norm_factor`` first (it
+                divides the loss either way).
+
+        Returns (loss, log_vars).
+        """
+        B = x_0.shape[0]
+        if t is None:
+            t = self.timestep_sampler.sample(B, generator, x_0.device)
+        if noise is None:
+            noise = torch.randn(x_0.shape, generator=generator,
+                                device=x_0.device)
+        x_t, mean, std = self.q_sample(x_0, t, noise)
+        out = self.denoising(x_t, t)
+        mode = self.denoising_mean_mode
+        if mode == 'EPS':
+            target = noise
+        elif mode == 'START_X':
+            target = x_0
+        else:  # V
+            target = mean * noise - std * x_0
+        loss, new_norm, log_vars = self.ddpm_loss(
+            out, target, t, x_0, self.norm_factor, update_norm)
+        if new_norm is not None:
+            with torch.no_grad():
+                self.norm_factor.copy_(new_norm)
+        return loss, log_vars
 
     def _x0_from_output(self, x_t, out, sqrt_ab, sqrt_1mab):
         mode = self.denoising_mean_mode

@@ -27,7 +27,9 @@ _SIGNATURES = {
     'march_occupancy': [_P, _P, _P, _I, _I, _I, _P],
     'triplane_decode': [_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
-    'attention_fwd': [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+    'triplane_decode_bwd': [_P] * 10 + [_I] * 6 + [_P],
+    'attention_fwd': [_P] * 5 + [_I, _I, _I, ctypes.c_float, _P],
+    'attention_bwd': [_P] * 10 + [_I, _I, _I, ctypes.c_float, _P],
 }
 
 

@@ -51,8 +51,9 @@ def models():
 
 
 def test_unet_forward_matches_flax(models):
-    """DenoisingUnet through load_jax_params vs the Flax UNet (NHWC):
-    atol 1e-4 on outputs of order 1."""
+    """DenoisingUnet through load_jax_params (the EMA UNet, which
+    generation uses) vs the Flax UNet (NHWC): atol 1e-4 on outputs of
+    order 1."""
     jm, state, tm = models
     x = np.random.RandomState(1).randn(2, 12, 16, 16).astype(np.float32)
     t = np.array([3, 17])
@@ -60,20 +61,23 @@ def test_unet_forward_matches_flax(models):
         state['diffusion_ema'], jnp.asarray(x.transpose(0, 2, 3, 1)),
         jnp.asarray(t))
     with torch.no_grad():
-        out = tm.diffusion.denoising(torch.from_numpy(x), torch.from_numpy(t))
+        out = tm.diffusion_ema.denoising(torch.from_numpy(x),
+                                        torch.from_numpy(t))
     np.testing.assert_allclose(out.numpy().transpose(0, 2, 3, 1),
                                np.asarray(ref), atol=1e-4)
     assert np.abs(np.asarray(ref)).max() > 0.1
 
 
 def test_ddim_chain_matches_jax(models):
-    """4 deterministic DDIM steps from the same noise: atol 1e-4."""
+    """4 deterministic DDIM steps of the EMA diffusion from the same
+    noise: atol 1e-4."""
     jm, state, tm = models
     noise = np.random.RandomState(2).randn(2, 12, 16, 16).astype(np.float32)
     ref, _ = jm.diffusion.ddim_sample(state['diffusion_ema'],
                                       jnp.asarray(noise),
                                       jax.random.PRNGKey(0), cfg=TEST_CFG)
-    out = tm.diffusion.sample_from_noise(torch.from_numpy(noise), TEST_CFG)
+    out = tm.diffusion_ema.sample_from_noise(torch.from_numpy(noise),
+                                             TEST_CFG)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
 
 
