@@ -9,17 +9,26 @@ runs six phases, any failure of which exits non-zero:
 1. device: a CUDA card is present; TF32 is switched off for matmuls and
    convolutions, so every plain f32 reference is full f32;
 2. each kernel vs its plain PyTorch version on the card, at the shapes of
-   the flagship path (max error, and median times by CUDA events): march,
-   decode and attention forward, and the decode and attention backward at
-   the training shapes;
+   the flagship path (max error, median times by CUDA events, the least
+   time the card could take for the same work, and the time of one
+   PyTorch call computing the same function where there is one): march,
+   decode and attention forward, the decode and attention backward at the
+   training shapes, and the fused decode + composite and the banded decode
+   on the packed layouts of a coherent render (a ball seen by 4 look-at
+   views of 128x128 per scene, where the banded guard holds);
 3. the unconditional-generation slice at flagship width
    (configs/paper_cfgs/ssdnerf_cars_uncond.py, random seeded weights):
    50-step DDIM on 8 scenes, the 8-sweep density rebuild, and a render of
    4 orbit views of 128x128 per scene; outputs are checked and each
-   kernel's launch count must have grown;
+   kernel's launch count must have grown.  Then the render variants: the
+   same scenes rendered with the decoder fields ``fused_composite`` and
+   ``banded_decode`` against the split render, and the same codes over the
+   ball of phase 2, where the banded guard must engage; the wall times and
+   the guard's outcomes are printed, and both kernels must have launched;
 4. the same slice at 1 scene (2 DDIM steps, 1 density sweep, 1 view), on
    the card and on the CPU (plain versions) with the same weights, noise
-   and jitter, compared within stated tolerances;
+   and jitter, compared within stated tolerances, and the two render
+   variants of one ball view on the card and on the CPU;
 5. the single-stage training slice at flagship width: 6 ``train_step``s
    of 8 scenes held in a device scene bank of ``cache_size`` rows, on
    synthetic posed images (the port's render of the phase-3 scenes from
@@ -55,25 +64,41 @@ from ssdnerf_torch.ops.kernels import _build  # noqa: E402
 from ssdnerf_torch.ops.kernels import attention as k_attn  # noqa: E402
 from ssdnerf_torch.ops.kernels import decode as k_dec  # noqa: E402
 from ssdnerf_torch.ops.kernels import march as k_march  # noqa: E402
-from ssdnerf_torch.ops import get_cam_rays, near_far_from_aabb  # noqa: E402
+from ssdnerf_torch.ops import (  # noqa: E402
+    get_cam_rays, near_far_from_aabb, packbits, t_at_step)
+from ssdnerf_torch.ops.packing import (  # noqa: E402
+    band_keys_and_payload, banded_windows, pack_groups_banded)
 from ssdnerf_torch.models.autodecoders.base import adam_init  # noqa: E402
 from ssdnerf_torch.models.decoders.renderer import (  # noqa: E402
-    density_jitter)
+    GROUP_RAYS, density_jitter, dt_bounds, march_samples, slot_samples,
+    volume_render)
+from ssdnerf_torch.models.decoders.triplane import (  # noqa: E402
+    TriPlaneDecoder)
 from ssdnerf_torch.runner.optim import build_optimizers  # noqa: E402
 
 CONFIG = ROOT / 'configs' / 'paper_cfgs' / 'ssdnerf_cars_uncond.py'
 SEED = 0
 SRN_INTRINSICS = (131.25, 131.25, 64.0, 64.0)
+# H100 SXM peaks the bounds are taken against (NVIDIA's data sheet): f32
+# outside the tensor cores (every kernel of the port is f32 FMA) and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 WRAPPERS = {'march': k_march.occupancy_lookup,
             'decode': k_dec.triplane_decode,
             'decode_bwd': k_dec.triplane_decode_backward,
+            'decode_composite': k_dec.triplane_decode_composite,
+            'decode_banded': k_dec.triplane_decode_banded,
             'attention': k_attn.attention,
             'attention_bwd': k_attn.attention_backward}
 SERVING = ('march', 'decode', 'attention')
+VARIANTS = {'decode_composite': 'fused_composite',
+            'decode_banded': 'banded_decode'}
 TRAIN_PARTS = ('train_step.diffusion', 'train_step.inverse',
                'train_step.decoder')
 # (group, substring of the kernel's name), most specific first
 PORT_KERNELS = (('decode_bwd', 'triplane_decode_bwd'),
+                ('decode_composite', 'triplane_decode_composite'),
+                ('decode_banded', 'triplane_decode_banded'),
                 ('decode', 'triplane_decode_kernel'),
                 ('attention_bwd', 'attention_bwd'),
                 ('attention', 'attention_fwd'),
@@ -85,6 +110,10 @@ KERNEL_META = {
                'ssdnerf_tpu/ops/pallas/decode.py:138'),
     'decode_bwd': ('ssdnerf_torch/csrc/decode.cu',
                    'ssdnerf_tpu/ops/pallas/decode.py:169'),
+    'decode_composite': ('ssdnerf_torch/csrc/decode_composite.cu',
+                         'ssdnerf_tpu/ops/pallas/decode.py:513'),
+    'decode_banded': ('ssdnerf_torch/csrc/decode_banded.cu',
+                      'ssdnerf_tpu/ops/pallas/decode.py:650'),
     'attention': ('ssdnerf_torch/csrc/attention.cu',
                   'ssdnerf_tpu/ops/pallas/attention.py:44'),
     'attention_bwd': ('ssdnerf_torch/csrc/attention.cu',
@@ -144,6 +173,98 @@ def orbit_cameras(num_scenes, num_views, device):
     return poses.contiguous().to(device), intr.contiguous().to(device)
 
 
+def sdpa(q, k, v, scale):
+    """torch's scaled_dot_product_attention on (G, T, hd): the library
+    yardstick of the attention kernels, which the port never calls."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, None], k[:, None], v[:, None], scale=scale)[:, 0]
+
+
+def bound_ms(flops, moved):
+    """The least time the card could take for work of ``flops`` f32
+    operations moving ``moved`` bytes (each input read once, each output
+    written once): the larger of the two times; and which one it is."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, moved / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def decode_flops(C, hidden, colour=True):
+    """f32 operations of one point's decode: the 4-tap bilinear samples of
+    3 planes x C channels (9 each), the base Linear (2 a MAC, plus bias),
+    SiLU (4) and the density head (2 a MAC); colour adds the dir_out add, a
+    second SiLU and the 3-wide head."""
+    ops = 27 * C + hidden * (2 * 3 * C + 1) + 4 * hidden + 2 * hidden
+    return ops + (hidden + 4 * hidden + 6 * hidden if colour else 0)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def look_at_views(num_scenes, angles_deg, device, radius=2.55,
+                  height=0.6):
+    """Look-at poses around the origin at ``radius`` (SRN-cars
+    intrinsics): (S, V, 4, 4) and (S, V, 4)."""
+    a = np.radians(angles_deg)
+    poses = np.stack([look_at_pose([radius * math.cos(t), height,
+                                    radius * math.sin(t)]) for t in a])
+    poses = torch.from_numpy(poses).expand(num_scenes, -1, -1, -1)
+    intr = torch.tensor(SRN_INTRINSICS).expand(num_scenes, len(a), 4)
+    return poses.contiguous().to(device), intr.contiguous().to(device)
+
+
+# four views around the ball whose every 128-slot tile of the band layout
+# fits its plane windows (the banded guard holds; 135 and 180 degrees it
+# does not)
+BALL_VIEWS = (45, 90, 225, 270)
+
+
+def ball_bitfield(num_scenes, grid, device):
+    """Occupancy of a ball of radius 0.35 grid (the JAX package's banded
+    test scene, tests/test_packing.py:_camera_scene)."""
+    c = torch.arange(grid) - grid / 2 + 0.5
+    occ = (c[:, None, None] ** 2 + c[None, :, None] ** 2
+           + c[None, None, :] ** 2) < (0.35 * grid) ** 2
+    return packbits(occ.reshape(1, -1).float().expand(num_scenes, -1)
+                    .contiguous(), 0.5).to(device)
+
+
+def ball_layouts(dec, num_scenes, grid, res, device):
+    """The packed layouts of a render of the ball from BALL_VIEWS at
+    128x128, as ``volume_render`` builds them for ``banded_decode``: the
+    ray layout's slots (positions, ray ids, t, dt, validity, segment
+    starts) and the band layout's (positions, ray ids, validity, tile
+    windows and the guard)."""
+    poses, intr = look_at_views(num_scenes, BALL_VIEWS, device)
+    rays_o, rays_d = get_cam_rays(poses, intr, 128, 128)
+    rays_o = rays_o.reshape(num_scenes, -1, 3)
+    rays_d = rays_d.reshape(num_scenes, -1, 3)
+    bitfield = ball_bitfield(num_scenes, grid, device)
+    dt_min, dt_max = dt_bounds(dec.max_steps, grid)
+    with torch.no_grad():
+        t0, dtg, cstep, cvalid = march_samples(dec, rays_o, rays_d,
+                                               bitfield, grid)
+        ts = t_at_step(t0, cstep, dtg[:, None, None], dt_min, dt_max)
+        bandk, payload = band_keys_and_payload(rays_o, rays_d, ts, cvalid,
+                                               dec.bound, res)
+        ray_l, band_l, _, payload_b = pack_groups_banded(
+            cstep, cvalid, bandk, dec.pack_slots, GROUP_RAYS, payload)
+        win, ok = banded_windows(payload_b, res, k_dec.BAND_W, k_dec.TILE)
+        pstep, pvalid, prid, soffs = ray_l
+        pt, pdt, xyz, ray = slot_samples(rays_o, rays_d, t0, dtg, pstep,
+                                         prid, dt_min, dt_max, dec.bound)
+        _, _, xyz_b, ray_b = slot_samples(rays_o, rays_d, t0, dtg,
+                                          band_l[0], band_l[2], dt_min,
+                                          dt_max, dec.bound)
+    S, G, P = pt.shape
+    return dict(rays_d=rays_d, xyz=xyz.reshape(S, G * P, 3).contiguous(),
+                rid=ray, pt=pt, pdt=pdt, pvalid=pvalid,
+                soffs=soffs.to(torch.int32),
+                xyz_b=xyz_b.reshape(S, G * P, 3).contiguous(), rid_b=ray_b,
+                pvalid_b=band_l[1], win=win, ok=bool(ok))
+
+
 # ---------------------------------------------------------------- phases
 def phase_device():
     check(torch.cuda.is_available(), 'no CUDA device')
@@ -161,28 +282,41 @@ def phase_kernels(dev):
     g = torch.Generator().manual_seed(SEED + 11)
     results = {}
 
-    def compare(name, tag, kernel, plain, tol, relative=False):
-        """max |kernel - plain| <= tol, or with ``relative`` each output's
-        max |kernel - plain| / max |plain| <= tol."""
+    def compare(name, tag, kernel, plain, tol, flops, moved,
+                relative=False, library=None):
+        """max |kernel - plain| <= tol (a number, or one per output), or
+        with ``relative`` each output's max |kernel - plain| / max |plain|
+        <= tol; the times of kernel, plain and ``library`` (one PyTorch
+        call computing the same function), and the bound of ``flops``
+        operations moving ``moved`` bytes."""
         out, ref = kernel(), plain()
         out = out if isinstance(out, tuple) else (out,)
         ref = ref if isinstance(ref, tuple) else (ref,)
         pairs = [(o.float(), r.float()) for o, r in zip(out, ref)
                  if o is not None]
-        err = max((o - r).abs().max().item() for o, r in pairs)
-        rel = max(((o - r).abs().max() / r.abs().max()).item()
-                  for o, r in pairs)
+        tols = tol if isinstance(tol, tuple) else (tol,) * len(pairs)
+        errs = [(o - r).abs().max().item() for o, r in pairs]
+        rels = [((o - r).abs().max() / r.abs().max()).item()
+                for o, r in pairs]
         for o, _ in pairs:
             check(torch.isfinite(o).all().item(),
                   f'{tag}: non-finite kernel output')
         ms, plain_ms = time_ms(kernel), time_ms(plain)
-        shown = rel if relative else err
-        log(f'phase 2 {tag}: max_abs_err={err:.3e} max_rel_err={rel:.3e} '
-            f'(tol {tol:g} {"relative" if relative else "absolute"}) '
-            f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms')
-        check(shown <= tol, f'{tag}: error {shown} > {tol}')
-        results.setdefault(name, dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, shape=tag))
+        lib_ms = None if library is None else time_ms(library)
+        b_ms, b_by = bound_ms(flops, moved)
+        shown = rels if relative else errs
+        log(f'phase 2 {tag}: max_abs_err={max(errs):.3e} max_rel_err='
+            f'{max(rels):.3e} (tol {tol} {"relative" if relative else "absolute"}) '
+            f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms library='
+            f'{"none" if lib_ms is None else f"{lib_ms:.4f} ms"} '
+            f'bound={b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, '
+            f'{moved / 1e6:.1f} MB)')
+        for e, t in zip(shown, tols):
+            check(e <= t, f'{tag}: error {e} > {t}')
+        results.setdefault(name, dict(max_abs_err=max(errs), ms=ms,
+                                      plain_ms=plain_ms, library_ms=lib_ms,
+                                      bound_ms=b_ms, bound_by=b_by,
+                                      shape=tag))
 
     # march: S=8 scenes, R=4*128^2 rays, T=128 slots; real orbit rays and
     # a random 10%-occupancy bitfield
@@ -201,7 +335,8 @@ def phase_kernels(dev):
         torch.uint8).to(dev)
     compare('march', f'march S={S} R={ro.shape[1]} T={T}',
             lambda: k_march.occupancy_lookup(idx, bitfield),
-            lambda: k_march.occupancy_lookup_plain(idx, bitfield), 0.0)
+            lambda: k_march.occupancy_lookup_plain(idx, bitfield), 0.0,
+            2 * idx.numel(), nbytes(idx, bitfield) + idx.numel())
 
     # decode: flagship planes (3 x 6 x 128^2), hidden 64
     C, res, hidden = 6, 128, 64
@@ -217,31 +352,45 @@ def phase_kernels(dev):
             lambda: k_dec.triplane_decode(planes, xyz, params, hidden, rid,
                                           dir_out),
             lambda: k_dec.triplane_decode_plain(planes, xyz, params, hidden,
-                                                rid, dir_out), 1e-5)
+                                                rid, dir_out), 1e-5,
+            S * M * decode_flops(C, hidden),
+            nbytes(planes, xyz, params, rid, dir_out) + S * M * 16)
     xyz_d = (torch.rand((S, H ** 3, 3), generator=g) * 2 - 1).to(dev)
     compare('decode', f'decode density-only S={S} M={H ** 3}',
             lambda: k_dec.triplane_decode(planes, xyz_d, params, hidden),
             lambda: k_dec.triplane_decode_plain(planes, xyz_d, params,
-                                                hidden), 1e-5)
+                                                hidden), 1e-5,
+            S * H ** 3 * decode_flops(C, hidden, colour=False),
+            nbytes(planes, xyz_d, params) + S * H ** 3 * 4)
 
     # attention: G = batch 8 x 4 heads at the 32^2, 16^2 and 8^2 levels
     for T_, hd in ((1024, 64), (256, 128), (64, 128)):
         q, k, v = (torch.randn((32, T_, hd), generator=g).to(dev)
                    for _ in range(3))
         scale = 1.0 / math.sqrt(hd)
+        # library: one f32 scaled_dot_product_attention call (TF32 off)
         compare('attention', f'attention G=32 T={T_} hd={hd}',
                 lambda: k_attn.attention(q, k, v, scale),
-                lambda: k_attn.attention_plain(q, k, v, scale), 2e-5)
+                lambda: k_attn.attention_plain(q, k, v, scale), 2e-5,
+                32 * T_ * T_ * (4 * hd + 4), 4 * nbytes(q),
+                library=lambda: sdpa(q, k, v, scale))
         # backward: dq, dk, dv from the forward kernel's own output and
         # row log-sum-exps; no atomics, so an absolute bound as in
         # tests/test_torch_gpu.py
         do = torch.randn((32, T_, hd), generator=g).to(dev)
         o, lse = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+        # library: the backward of that call (its forward run once, before)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_lib = sdpa(*leaves, scale)
         compare('attention_bwd', f'attention backward G=32 T={T_} hd={hd}',
                 lambda: k_attn.attention_backward(q, k, v, o, lse, do,
                                                   scale),
                 lambda: k_attn.attention_backward_plain(q, k, v, do, scale),
-                1e-4)
+                1e-4, 32 * T_ * T_ * (10 * hd + 8),
+                nbytes(q, k, v, o, lse, do) + 3 * nbytes(q),
+                library=lambda: torch.autograd.grad(out_lib, leaves, do,
+                                                    retain_graph=True))
+        del leaves, out_lib
 
     # decode forward and backward at the training shapes: 8 scenes x 4096
     # rays x K=64 compacted samples, per-ray ray ids, samples 1/74 apart
@@ -255,11 +404,14 @@ def phase_kernels(dev):
     rid_b = torch.arange(n_rays, dtype=torch.int32).repeat_interleave(
         K).expand(S, -1).contiguous().to(dev)
     dir_b = (torch.randn((S, n_rays, hidden), generator=g) * 0.3).to(dev)
+    n_b = S * n_rays * K
     compare('decode', f'decode colour S={S} M={n_rays * K} (per-ray, K={K})',
             lambda: k_dec.triplane_decode(planes, xyz_b, params, hidden,
                                           rid_b, dir_b),
             lambda: k_dec.triplane_decode_plain(planes, xyz_b, params,
-                                                hidden, rid_b, dir_b), 1e-5)
+                                                hidden, rid_b, dir_b), 1e-5,
+            n_b * decode_flops(C, hidden),
+            nbytes(planes, xyz_b, params, rid_b, dir_b) + n_b * 16)
     # f32 atomics sum in a run-dependent order, so the backward's bound is
     # relative to each gradient's largest entry
     g_sig = torch.randn((S, n_rays * K), generator=g).to(dev)
@@ -270,7 +422,39 @@ def phase_kernels(dev):
                 planes, xyz_b, params, hidden, rid_b, dir_b, g_sig, g_rgb),
             lambda: k_dec.triplane_decode_backward_plain(
                 planes, xyz_b, params, hidden, rid_b, dir_b, g_sig, g_rgb),
-            1e-5, relative=True)
+            1e-5, 3 * n_b * decode_flops(C, hidden),
+            nbytes(planes, xyz_b, params, rid_b, dir_b, g_sig, g_rgb)
+            + nbytes(planes, params, dir_b), relative=True)
+
+    # the render variants' kernels on the packed layouts of a coherent
+    # render: the ball from BALL_VIEWS, 4 x 128^2 rays a scene, P=512 (4096
+    # groups a scene).  Work and slot bytes are counted on valid slots.
+    dec = TriPlaneDecoder(compact_steps=64, march_slots=128, pack_slots=512)
+    lay = ball_layouts(dec, S, H, res, dev)
+    check(lay['ok'], 'phase 2: the banded guard does not hold on the ball')
+    n_rays = 4 * 128 * 128
+    dir_l = (torch.randn((S, n_rays, hidden), generator=g) * 0.3).to(dev)
+    n_valid = int(lay['pvalid'].sum())
+    check(n_valid == int(lay['pvalid_b'].sum()), 'band layout sample count')
+    M_l = lay['xyz'].shape[1]
+    comp = (planes, lay['xyz'], params, hidden, lay['rid'], dir_l, lay['pt'],
+            lay['pdt'], lay['pvalid'], lay['soffs'], GROUP_RAYS, 0.001, 1e-4)
+    # tolerances: weights_sum, depth (sums of w t, t ~ 2), image
+    compare('decode_composite', f'decode+composite S={S} slots={M_l} '
+            f'(valid {n_valid}, P=512)',
+            lambda: k_dec.triplane_decode_composite(*comp),
+            lambda: k_dec.triplane_decode_composite_plain(*comp),
+            (1e-5, 5e-5, 1e-5), n_valid * (decode_flops(C, hidden) + 40),
+            nbytes(planes, params, dir_l, lay['soffs'], lay['pvalid'])
+            + n_valid * 24 + S * n_rays * 20)
+    band = (planes, lay['xyz_b'], params, hidden, lay['rid_b'], dir_l,
+            lay['win'])
+    compare('decode_banded', f'decode banded S={S} slots={M_l} '
+            f'(valid {n_valid}, P=512)',
+            lambda: k_dec.triplane_decode_banded(*band),
+            lambda: k_dec.triplane_decode_banded_plain(*band), 1e-5,
+            n_valid * decode_flops(C, hidden),
+            nbytes(planes, params, dir_l, lay['win']) + n_valid * 32)
     return results
 
 
@@ -344,6 +528,140 @@ def phase_slice(model, dev):
                                           render_s=t3 - t2)
 
 
+def render_decoder(model, **fields):
+    """The EMA decoder as ``MultiSceneNeRF.render`` uses it (test_cfg's
+    ``march_slots`` / ``pack_slots``), with the decoder ``fields`` set: a
+    shallow copy that shares the parameters."""
+    dec = copy.copy(model.ema_decoder)
+    for key in ('march_slots', 'pack_slots'):
+        if key in model.test_cfg:
+            setattr(dec, key, model.test_cfg[key])
+    for key, value in fields.items():
+        setattr(dec, key, value)
+    return dec
+
+
+def render_outputs(model, decoder, code, bitfield, poses, intr):
+    """``volume_render`` of ``decoder`` on the 128x128 rays of ``poses``, as
+    ``render_views`` calls it (test_cfg's dt_gamma): weights_sum, depth
+    and image before the background blend."""
+    S = code.shape[0]
+    rays_o, rays_d = get_cam_rays(poses, intr, 128, 128)
+    dt_gamma = model.test_cfg.get('dt_gamma_scale', 0.0) * 2 / (
+        intr[..., 0] + intr[..., 1]).mean(dim=-1)
+    with torch.no_grad():
+        return volume_render(decoder, code, rays_o.reshape(S, -1, 3),
+                             rays_d.reshape(S, -1, 3), bitfield,
+                             model.grid_size, dt_gamma=dt_gamma)
+
+
+def phase_variants(model, code, bitfield, dev):
+    """The render variants of the phase-3 scenes: the generated scenes from
+    the orbit views, and the same codes over the ball from BALL_VIEWS
+    (4 x 128^2 rays a scene each), rendered split, with
+    ``fused_composite`` and with ``banded_decode``; each variant against
+    the split render of the same scene within 1e-4.  The second of two
+    renders of each is timed."""
+    S = code.shape[0]
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    volume_render.banded_engaged = volume_render.banded_declined = 0
+    scenes = {'generated, orbit views': (bitfield,) + orbit_cameras(S, 4,
+                                                                     dev),
+              'ball, look-at views': (ball_bitfield(S, model.grid_size, dev),)
+              + look_at_views(S, BALL_VIEWS, dev)}
+    walls, guards = {}, {}
+    for scene, (bf, poses, intr) in scenes.items():
+        outs = {}
+        for variant in ('split', 'fused_composite', 'banded_decode'):
+            dec = render_decoder(model, **({} if variant == 'split'
+                                           else {variant: True}))
+            engaged = volume_render.banded_engaged
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[variant] = render_outputs(model, dec, code, bf, poses,
+                                               intr)
+                torch.cuda.synchronize()
+            walls[f'{scene}: {variant}'] = time.perf_counter() - t0
+            if variant == 'banded_decode':
+                guards[scene] = ('engaged' if volume_render.banded_engaged
+                                 - engaged == 2 else 'declined')
+        split = outs['split']
+        for k, t in split.items():
+            check(torch.isfinite(t).all().item(), f'{scene}: {k} not finite')
+        check(split['weights_sum'].max().item() > 0.05,
+              f'{scene}: renders empty')
+        for variant in VARIANTS.values():
+            errs = {k: (outs[variant][k] - split[k]).abs().max().item()
+                    for k in ('weights_sum', 'depth', 'image')}
+            log(f'phase 3 variant {variant} vs split ({scene}): '
+                + ' '.join(f'{k} max_abs_err={e:.3e}'
+                           for k, e in errs.items()) + ' (tol 1e-4)')
+            check(max(errs.values()) <= 1e-4, f'{scene}: {variant} vs split')
+        log(f'phase 3 render {S}x4x128x128 ({scene}): ' + ', '.join(
+            f'{v} {walls[f"{scene}: {v}"]:.4f} s'
+            for v in ('split', 'fused_composite', 'banded_decode'))
+            + f'; banded guard {guards[scene]}')
+    # where each variant's render time goes, on the ball (guard engaged)
+    profiles = {}
+    bf, poses, intr = scenes['ball, look-at views']
+    for variant in ('split', 'fused_composite', 'banded_decode'):
+        dec = render_decoder(model, **({} if variant == 'split'
+                                       else {variant: True}))
+        wall_ms, dev_ms, _, groups, _ = profile_step(
+            lambda: render_outputs(model, dec, code, bf, poses, intr),
+            ranges=(), group_of=render_group)
+        ports = {k: v for k, v in groups.items() if k in WRAPPERS}
+        top = sorted((kv for kv in groups.items() if kv[0] not in WRAPPERS),
+                     key=lambda kv: -kv[1])[:8]
+        log(f'phase 3 profiled render ({variant}, ball): wall {wall_ms:.1f} '
+            f'ms, device {dev_ms:.1f} ms; kernels: ' + ', '.join(
+                f'{k} {v:.2f}' for k, v in ports.items())
+            + '; top torch ops: ' + ', '.join(f'{k} {v:.2f}'
+                                              for k, v in top))
+        profiles[variant] = dict(wall_ms=wall_ms, device_ms=dev_ms,
+                                 kernels_ms=ports, top_ops_ms=dict(top))
+    launches = {n: WRAPPERS[n].launches for n in VARIANTS}
+    log(f'phase 3 variants: launches {launches}; guard {guards}')
+    check(guards['ball, look-at views'] == 'engaged',
+          'the banded guard did not engage on the ball')
+    for name, n in launches.items():
+        check(n > 0, f'kernel {name} was not launched by the variant renders')
+    return launches, dict(render_s=walls, banded_guard=guards,
+                          profiled_render=profiles)
+
+
+def phase_variants_card_vs_cpu(model_cpu, model_dev, code, dev):
+    """One scene, one ball view at 128x128: each render variant on the card
+    against the CPU's plain versions, same weights and code, at phase 4's
+    image tolerances."""
+    bf = ball_bitfield(1, model_cpu.grid_size, 'cpu')
+    poses, intr = look_at_views(1, BALL_VIEWS[:1], 'cpu')
+    code = code[:1].cpu()
+    for variant in VARIANTS.values():
+        imgs, guard = {}, {}
+        for tag, model, d in (('card', model_dev, dev),
+                              ('cpu', model_cpu, 'cpu')):
+            engaged = volume_render.banded_engaged
+            out = render_outputs(model, render_decoder(model, **{variant: True}),
+                                 code.to(d), bf.to(d), poses.to(d),
+                                 intr.to(d))
+            imgs[tag] = (out['image'] + model.bg_color
+                         * (1 - out['weights_sum'][..., None])).cpu()
+            guard[tag] = volume_render.banded_engaged - engaged
+        diff = (imgs['card'] - imgs['cpu']).abs()
+        log(f'phase 4 {variant} card vs cpu: image max_abs_err='
+            f'{diff.max().item():.3e} (tol 2e-2) mean={diff.mean().item():.3e}'
+            f' (tol 1e-3)' + (f'; banded guard engaged card/cpu '
+                              f'{guard["card"]}/{guard["cpu"]}'
+                              if variant == 'banded_decode' else ''))
+        check(diff.max().item() <= 2e-2 and diff.mean().item() <= 1e-3,
+              f'card vs cpu: {variant} image')
+        if variant == 'banded_decode':
+            check(guard == {'card': 1, 'cpu': 1}, 'card vs cpu: banded guard')
+
+
 def phase_card_vs_cpu(model_cpu, model_dev, dev):
     """1 scene, 2 DDIM steps, 1 density sweep, 1 view: the card against
     the CPU's plain versions, same weights, noise and jitter."""
@@ -403,8 +721,9 @@ def training_data(model, code, bitfield, dev, num_views=50, chunk=5):
 
 
 def kernel_group(name, event):
-    """The group of a device kernel launched under profiler ``event``: the
-    port's kernels by name, the rest by the op that launched them."""
+    """The group of a device kernel launched under profiler ``event`` (None
+    for none): the port's kernels by name, the rest by the op that
+    launched them."""
     for group, key in PORT_KERNELS:
         if key in name:
             return group
@@ -421,12 +740,21 @@ def kernel_group(name, event):
     return 'other torch'
 
 
-def profile_step(run):
+def render_group(name, event):
+    """The group of a device kernel of a render: the port's kernels by
+    name, the rest by the torch op that launched them."""
+    for group, key in PORT_KERNELS:
+        if key in name:
+            return group
+    return 'no torch op' if event is None else event.name
+
+
+def profile_step(run, ranges=TRAIN_PARTS, group_of=kernel_group):
     """Runs ``run`` once under ``torch.profiler`` and splits the device
     time of what it launched (kernels, memcpy, memset), each counted once
-    under the op that launched it: by the ``train_step.*`` range whose host
-    span holds the launch (autograd's backward thread launches inside the
-    span of the ``autograd.grad`` call), and by :func:`kernel_group`.
+    under the op that launched it: by the profiler range of ``ranges``
+    whose host span holds the launch (autograd's backward thread launches
+    inside the span of the ``autograd.grad`` call), and by ``group_of``.
     Returns (profiled wall ms, device ms, parts, groups, top kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -439,8 +767,8 @@ def profile_step(run):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
-             if e.name in TRAIN_PARTS]
-    check(len(spans) == len(TRAIN_PARTS), f'profile: ranges {spans}')
+             if e.name in ranges]
+    check(len(spans) == len(ranges), f'profile: ranges {spans}')
     # a range's device-side annotation shares its name: not a kernel
     annotations = {e.name for e in events}
     parts, groups, kernels = {}, {}, {}
@@ -452,10 +780,25 @@ def profile_step(run):
             part = next((n for n, a, b in spans
                          if a <= e.time_range.start <= b), 'outside')
             parts[part] = parts.get(part, 0.0) + ms
-            group = kernel_group(k.name, e)
+            group = group_of(k.name, e)
             groups[group] = groups.get(group, 0.0) + ms
             n, t = kernels.get(k.name, (0, 0.0))
             kernels[k.name] = (n + 1, t + ms)
+    # a kernel launched outside any torch op (a port kernel called without
+    # autograd) is linked to no CPU event: count it from the trace's
+    # device events, under a part of its own
+    device = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name not in annotations:
+            n, t = device.get(e.name, (0, 0.0))
+            device[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    for name, (n, ms) in device.items():
+        n0, ms0 = kernels.get(name, (0, 0.0))
+        if n > n0:
+            parts['no torch op'] = parts.get('no torch op', 0.0) + ms - ms0
+            group = group_of(name, None)
+            groups[group] = groups.get(group, 0.0) + ms - ms0
+            kernels[name] = (n, ms)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     return wall_ms, sum(parts.values()), parts, groups, top
 
@@ -536,7 +879,8 @@ def phase_train(model, cfg, data, code, dev, timed=4):
     check(counters == [steps * (ess + 1)] * S, 'Adam step counters')
     check(0.0 < occ < 1.0, 'density grids entirely empty or full')
     for name, n in launches.items():
-        check(n > 0, f'kernel {name} was not launched by the train steps')
+        check(n > 0 or name in VARIANTS,
+              f'kernel {name} was not launched by the train steps')
     return launches, dict(step_s=times, median_step_s=median,
                           profiled_wall_ms=wall_ms, device_ms=dev_ms,
                           device_ms_by_part=parts, device_ms_by_group=groups,
@@ -624,7 +968,10 @@ def main():
     model_cpu = make_model(SEED)
     model_dev = copy.deepcopy(model_cpu).to(dev)
     serve_launches, code, bitfield, times = phase_slice(model_dev, dev)
+    variant_launches, variants = phase_variants(model_dev, code, bitfield,
+                                                dev)
     phase_card_vs_cpu(model_cpu, model_dev, dev)
+    phase_variants_card_vs_cpu(model_cpu, model_dev, code, dev)
     data = training_data(model_dev, code, bitfield, dev)
     train_launches, train_times = phase_train(model_dev, cfg, data, code,
                                                dev)
@@ -632,17 +979,20 @@ def main():
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev)
 
-    # launches: the serving kernels' counts from phase 3, the backward
-    # kernels' from phase 5 (the path that runs them)
-    launches = {n: serve_launches[n] if n in SERVING else train_launches[n]
+    # launches: the generation kernels' counts from the phase-3 slice, the
+    # render variants' from the phase-3 variant renders, the backward
+    # kernels' from phase 5 (the paths that run them)
+    launches = {n: serve_launches[n] if n in SERVING else
+                variant_launches[n] if n in VARIANTS else train_launches[n]
                 for n in WRAPPERS}
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
     report = [dict(name=name, route='cuda', source=KERNEL_META[name][0],
                    replaces=KERNEL_META[name][1], launches=launches[name],
-                   max_abs_err=kernels[name]['max_abs_err'],
-                   ms=kernels[name]['ms'], plain_ms=kernels[name]['plain_ms'])
+                   **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
-                    'train': train_times}))
+                    'variants': variants, 'train': train_times}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

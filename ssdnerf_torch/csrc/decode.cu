@@ -44,61 +44,12 @@
 // At the end the block adds its parameter-gradient partials once
 // (atomicAdd).  All atomics are f32 sums in a run-dependent order.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "triplane.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBwdTile = 256;  // samples per tile = threads per block
-
-__device__ __forceinline__ float silu(float x) {
-  return x / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ void pixel(float c, int res, int& i0, int& i1,
-                                      float& w) {
-  float f = (c + 1.0f) * (res * 0.5f) - 0.5f;
-  f = fminf(fmaxf(f, 0.0f), res - 1.0f);
-  i0 = (int)floorf(f);
-  i1 = min(i0 + 1, res - 1);
-  w = f - (float)i0;
-}
-
-// Plane p samples (u, v) = (x, y), (x, z), (y, z); u indexes W, v indexes H.
-__device__ __forceinline__ void plane_uv(int p, float x, float y, float z,
-                                         float& cu, float& cv) {
-  cu = p < 2 ? x : y;
-  cv = p == 0 ? y : z;
-}
-
-// The 3C bilinear features of one point, column order c * 3 + p.
-// planes_s: one scene's (3, res, res, C) channels-last planes.
-template <int C>
-__device__ __forceinline__ void sample_features(
-    const float* __restrict__ planes_s, float x, float y, float z, int res,
-    float* feat) {
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    float cu, cv;
-    plane_uv(p, x, y, z, cu, cv);
-    int u0, u1, v0, v1;
-    float wu, wv;
-    pixel(cu, res, u0, u1, wu);
-    pixel(cv, res, v0, v1, wv);
-    const float* P = planes_s + (size_t)p * res * res * C;
-    const float* p00 = P + ((size_t)v0 * res + u0) * C;
-    const float* p01 = P + ((size_t)v0 * res + u1) * C;
-    const float* p10 = P + ((size_t)v1 * res + u0) * C;
-    const float* p11 = P + ((size_t)v1 * res + u1) * C;
-    const float au = 1.0f - wu, av = 1.0f - wv;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      feat[c * 3 + p] = av * (au * p00[c] + wu * p01[c]) +
-                        wv * (au * p10[c] + wu * p11[c]);
-    }
-  }
-}
 
 // Adjoint of sample_features: adds d_feat through the 4 taps of each plane
 // into one scene's (3, res, res, C) gradient.  C is even, so each tap's C
@@ -150,12 +101,6 @@ triplane_decode_kernel(const float* __restrict__ planes,
   const int n_params = hidden * F + 5 * hidden + 4;
   for (int i = threadIdx.x; i < n_params; i += blockDim.x) w[i] = params[i];
   __syncthreads();
-  // parameter block layout (see ops/kernels/decode.py:pack_params)
-  const float* wb = w;                    // (hidden, F)
-  const float* bb = wb + hidden * F;      // (hidden,)
-  const float* wd = bb + hidden;          // (hidden,)
-  const float* wc = wd + hidden;          // (3, hidden)
-  const float* bd_bc = wc + 3 * hidden;   // [bd, bc0, bc1, bc2]
 
   const int s = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -168,25 +113,13 @@ triplane_decode_kernel(const float* __restrict__ planes,
   const bool colour = rgb != nullptr;
   const float* dir = colour ? dir_out + ((size_t)s * n_rays + rid[si]) * hidden
                             : nullptr;
-  float sig = bd_bc[0];
-  float r = bd_bc[1], g = bd_bc[2], b = bd_bc[3];
-  for (int h = 0; h < hidden; ++h) {
-    float a = bb[h];
-#pragma unroll
-    for (int f = 0; f < F; ++f) a += wb[h * F + f] * feat[f];
-    sig += wd[h] * silu(a);
-    if (colour) {
-      const float cx = silu(a + dir[h]);
-      r += wc[h] * cx;
-      g += wc[hidden + h] * cx;
-      b += wc[2 * hidden + h] * cx;
-    }
-  }
-  sigma[si] = sig;
+  float out[4];
+  mlp_forward<C>(w, hidden, feat, dir, out);
+  sigma[si] = out[0];
   if (colour) {
-    rgb[si * 3 + 0] = r;
-    rgb[si * 3 + 1] = g;
-    rgb[si * 3 + 2] = b;
+    rgb[si * 3 + 0] = out[1];
+    rgb[si * 3 + 1] = out[2];
+    rgb[si * 3 + 2] = out[3];
   }
 }
 
@@ -379,12 +312,8 @@ int launch(const void* planes, const void* xyz, const void* rid,
            int S, int M, int n_rays, int res, int hidden,
            cudaStream_t stream) {
   const int smem = (hidden * 3 * C + 5 * hidden + 4) * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        triplane_decode_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem(triplane_decode_kernel<C>, smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((M + kThreads - 1) / kThreads, S);
   triplane_decode_kernel<C><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(xyz),

@@ -1,45 +1,47 @@
 """Volume rendering and occupancy-grid maintenance (port of
 ``ssdnerf_tpu/models/decoders/renderer.py``, in the structure of its fused
 path ``_volume_render_fused``): march kernel -> per-ray compaction ->
-cross-ray packing -> decode kernel -> composite.
+cross-ray packing -> decode kernel -> composite.  The packed render has two
+forward-only variants, chosen by decoder fields as in the JAX package: the
+decode fused with the composite (``fused_composite``), and the banded
+decode (``banded_decode``), which decodes a band-sorted copy of the packed
+layout where every tile's taps fit a plane window.
 
 There is no backend switch: each kernel wrapper takes its plain version for
 CPU tensors and launches its kernel for CUDA tensors.  ``volume_render`` is
 differentiable with respect to the codes and the decoder's parameters (the
-decode kernel's backward); the march, compaction and packing carry no
-gradient.
+decode kernel's backward) unless a forward-only variant is on; the march,
+compaction and packing carry no gradient.
 """
 import torch
 
 from ...ops import (compact_samples, composite_packed, composite_rays,
                     get_cam_rays, near_far_from_aabb, occupied_aabb,
                     pack_groups, packbits, t_at_step)
+from ...ops.kernels.decode import BAND_W, TILE
 from ...ops.kernels.march import march_valid_mask
 from ...ops.marching import SQRT3
+from ...ops.packing import (band_keys_and_payload, banded_windows,
+                            pack_groups_banded, route_back)
 
 GROUP_RAYS = 16
+CHUNK = 1024   # slots of the JAX package's decode chunk, which the packed
+               # branch's shape conditions are stated in
 
 
-def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
-                  dt_gamma=0.0, perturb=None, T_thresh=1e-4):
-    """Render a batch of rays for a batch of scenes.
+def dt_bounds(max_steps, grid_size):
+    """(dt_min, dt_max) of the march recurrence."""
+    return 2.0 * SQRT3 / max_steps, 2.0 * SQRT3 / grid_size
 
-    Args:
-        decoder: TriPlaneDecoder (parameters plus the march fields
-            ``max_steps``, ``march_slots``, ``compact_steps``,
-            ``pack_slots``).
-        code: (S, 3, C, H, W) activated codes.
-        rays_o, rays_d: (S, N, 3).
-        density_bitfield: (S, grid_size**3 // 8) uint8.
-        dt_gamma: scalar or (S,) cone-stepping factors.
-        perturb: (S, N) start-t jitter in [0, 1) (None: no jitter), applied
-            as ``t0 = near + clamp(near * dt_gamma, dt_min, dt_max) *
-            perturb``.
 
-    Returns:
-        dict(weights_sum=(S, N), depth=(S, N), image=(S, N, 3)).
-    """
-    S, N = rays_o.shape[:2]
+def march_samples(decoder, rays_o, rays_d, density_bitfield, grid_size,
+                  dt_gamma=0.0, perturb=None):
+    """The march of :func:`volume_render` and the per-ray compaction.
+
+    Returns t0 (S, N) start t of each ray (perturbed), dt_gamma (S,),
+    comp_step (S, N, K) f32 step indices and comp_valid (S, N, K) bool of
+    each ray's first K = ``decoder.compact_steps`` occupied samples."""
+    S = rays_o.shape[0]
     dev = rays_o.device
     bound = decoder.bound
     max_steps = decoder.max_steps
@@ -61,8 +63,7 @@ def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
         fars = torch.minimum(fars, fb)
         num_slots = march_slots
 
-    dt_min = 2.0 * SQRT3 / max_steps
-    dt_max = 2.0 * SQRT3 / grid_size
+    dt_min, dt_max = dt_bounds(max_steps, grid_size)
     t0 = nears
     if perturb is not None:
         t0 = nears + torch.clamp(nears * dt_gamma[:, None], dt_min,
@@ -71,34 +72,128 @@ def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
         valid = march_valid_mask(rays_o, rays_d, t0, fars, density_bitfield,
                                  dt_gamma, num_slots, grid_size, bound,
                                  max_steps)
-        K = decoder.compact_steps
-        comp_step, comp_valid = compact_samples(valid, K)
+        comp_step, comp_valid = compact_samples(valid, decoder.compact_steps)
+    return t0, dt_gamma, comp_step, comp_valid
+
+
+def slot_samples(rays_o, rays_d, t0, dt_gamma, pstep, prid, dt_min, dt_max,
+                 bound):
+    """Per-slot samples of a packed layout (``prep`` of JAX's packed
+    branch): t, dt (S, G, P), positions (S, G, P, 3) and the global ray
+    index (S, G * P) int32 of each slot."""
+    S, G, P = pstep.shape
+    ray = (prid + GROUP_RAYS * torch.arange(G, device=prid.device)[:, None]
+           ).reshape(S, G * P)
+
+    def per_slot(v):                                          # (S, N) -> slot
+        return torch.gather(v, 1, ray).reshape(S, G, P)
+
+    pt = t_at_step(per_slot(t0), pstep[..., None],
+                   dt_gamma[:, None, None, None], dt_min, dt_max)[..., 0]
+    pdt = torch.clamp(pt * dt_gamma[:, None, None], dt_min, dt_max)
+    xyz = torch.stack(
+        [torch.clamp(per_slot(rays_o[..., c]) + pt
+                     * per_slot(rays_d[..., c]), -bound, bound)
+         for c in range(3)], dim=-1)
+    return pt, pdt, xyz, ray.to(torch.int32)
+
+
+def packed_branch(P, K, N):
+    """The JAX package's condition for the cross-ray packed render
+    (``_volume_render_fused``): 16-ray groups whose P-slot budgets tile the
+    1024-slot decode chunks."""
+    return (P is not None and P % 8 == 0 and K % 8 == 0
+            and N % GROUP_RAYS == 0 and P <= CHUNK and CHUNK % P == 0
+            and (N // GROUP_RAYS) * P % CHUNK == 0)
+
+
+def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
+                  dt_gamma=0.0, perturb=None, T_thresh=1e-4):
+    """Render a batch of rays for a batch of scenes.
+
+    Args:
+        decoder: TriPlaneDecoder (parameters plus the march fields
+            ``max_steps``, ``march_slots``, ``compact_steps``,
+            ``pack_slots`` and the variant fields ``fused_composite``,
+            ``banded_decode``).
+        code: (S, 3, C, H, W) activated codes.
+        rays_o, rays_d: (S, N, 3).
+        density_bitfield: (S, grid_size**3 // 8) uint8.
+        dt_gamma: scalar or (S,) cone-stepping factors.
+        perturb: (S, N) start-t jitter in [0, 1) (None: no jitter), applied
+            as ``t0 = near + clamp(near * dt_gamma, dt_min, dt_max) *
+            perturb``.
+
+    Returns:
+        dict(weights_sum=(S, N), depth=(S, N), image=(S, N, 3)).
+
+    The banded variant reads its exactness guard on the host once per
+    render; ``volume_render.banded_engaged`` / ``.banded_declined`` count
+    the renders the banded kernel decoded and those it left to the full
+    decode because a tile's taps overflowed its window.
+    """
+    S, N = rays_o.shape[:2]
+    dev = rays_o.device
+    bound = decoder.bound
+    dt_min, dt_max = dt_bounds(decoder.max_steps, grid_size)
+    t0, dt_gamma, comp_step, comp_valid = march_samples(
+        decoder, rays_o, rays_d, density_bitfield, grid_size, dt_gamma,
+        perturb)
+    K = decoder.compact_steps
 
     planes = decoder.planes(code)
     dir_out = decoder.dir_out(rays_d)                         # (S, N, hidden)
     P = decoder.pack_slots
     GR = GROUP_RAYS
-    if P is not None and P % 8 == 0 and K % 8 == 0 and N % GR == 0:
+    if packed_branch(P, K, N):
         # cross-ray packing: 16-ray groups share P decode slots
         G = N // GR
+        banded = (decoder.banded_decode and P % TILE == 0
+                  and (G * (P // TILE)) % (CHUNK // TILE) == 0)
+        fused = (decoder.fused_composite and not banded
+                 and P & (P - 1) == 0 and (CHUNK // P) * GR <= 128)
         with torch.no_grad():
-            pstep, pvalid, prid, soffs = pack_groups(comp_step, comp_valid,
-                                                     P, GR)
-        ray = (prid + GR * torch.arange(G, device=dev)[:, None]
-               ).reshape(S, G * P)
-
-        def per_slot(v):                                      # (S, N) -> slot
-            return torch.gather(v, 1, ray).reshape(S, G, P)
-
-        pt = t_at_step(per_slot(t0), pstep[..., None],
-                       dt_gamma[:, None, None, None], dt_min, dt_max)[..., 0]
-        pdt = torch.clamp(pt * dt_gamma[:, None, None], dt_min, dt_max)
-        xyz = torch.stack(
-            [torch.clamp(per_slot(rays_o[..., c]) + pt
-                         * per_slot(rays_d[..., c]), -bound, bound)
-             for c in range(3)], dim=-1)                      # (S, G, P, 3)
-        sigmas, rgbs = decoder.decode(planes, xyz.reshape(S, G * P, 3),
-                                      ray.to(torch.int32), dir_out)
+            if banded:
+                # band keys and hat-row extents from the source layout
+                ts_src = t_at_step(t0, comp_step, dt_gamma[:, None, None],
+                                   dt_min, dt_max)
+                bandk, payload = band_keys_and_payload(
+                    rays_o, rays_d, ts_src, comp_valid, bound,
+                    planes.shape[3])
+                ray_l, band_l, conv, payload_b = pack_groups_banded(
+                    comp_step, comp_valid, bandk, P, GR, payload)
+                pstep, pvalid, prid, soffs = ray_l
+            else:
+                pstep, pvalid, prid, soffs = pack_groups(
+                    comp_step, comp_valid, P, GR)
+        pt, pdt, xyz, ray = slot_samples(rays_o, rays_d, t0, dt_gamma,
+                                         pstep, prid, dt_min, dt_max, bound)
+        if fused:
+            weights_sum, depth, image = decoder.decode_composite(
+                planes, xyz.reshape(S, G * P, 3), ray, dir_out, pt, pdt,
+                pvalid, soffs.to(torch.int32), GR, T_thresh)
+            return dict(weights_sum=weights_sum, depth=depth, image=image)
+        engage = False
+        if banded:
+            win, ok = banded_windows(payload_b, planes.shape[3], BAND_W, TILE)
+            engage = bool(ok)
+            if engage:
+                volume_render.banded_engaged += 1
+            else:
+                volume_render.banded_declined += 1
+        if engage:
+            pstep_b, _, prid_b = band_l
+            _, _, xyz_b, ray_b = slot_samples(rays_o, rays_d, t0, dt_gamma,
+                                              pstep_b, prid_b, dt_min,
+                                              dt_max, bound)
+            sig_b, rgb_b = decoder.decode(planes, xyz_b.reshape(S, G * P, 3),
+                                          ray_b, dir_out, win=win)
+            # exact: every live ray-layout block is one band-layout block
+            sigmas, rgbs = route_back(conv, [sig_b.reshape(S, G, P),
+                                             rgb_b.reshape(S, G, P, 3)])
+        else:
+            sigmas, rgbs = decoder.decode(planes, xyz.reshape(S, G * P, 3),
+                                          ray, dir_out)
         weights_sum, depth, image = composite_packed(
             sigmas.reshape(S, G, P), rgbs.reshape(S, G, P, 3), pdt, pt,
             pvalid, prid, soffs, GR, K, T_thresh)
@@ -116,6 +211,10 @@ def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
             sigmas.reshape(S, N, K), rgbs.reshape(S, N, K, 3), comp_dts,
             comp_ts, comp_valid, T_thresh)
     return dict(weights_sum=weights_sum, depth=depth, image=image)
+
+
+volume_render.banded_engaged = 0
+volume_render.banded_declined = 0
 
 
 def density_jitter(grid_size, bound, density_step, generator, device):

@@ -4,15 +4,20 @@ The module holds the decoder's parameters and the volume-renderer fields of
 the config.  Decoding runs through the decode kernel
 (``ops/kernels/decode.py``), which supports the decoder shape every shipped
 config uses: one Linear per net, SiLU, trunc_exp density, SH-4 direction
-branch added to the base features.
+branch added to the base features.  Two forward-only fields pick variants
+of the packed render (``renderer.volume_render``): ``fused_composite``
+(decode and composite in one kernel) and ``banded_decode`` (decode of the
+band-sorted layout with per-tile plane windows).
 """
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from ...ops import sh_encode, trunc_exp
-from ...ops.kernels.decode import pack_params, triplane_decode
+from ...ops import sh_encode
+from ...ops.kernels.decode import (activate, pack_params, triplane_decode,
+                                   triplane_decode_banded,
+                                   triplane_decode_composite)
 
 
 def _dense(n_in, n_out):
@@ -40,7 +45,9 @@ class TriPlaneDecoder(nn.Module):
                  max_steps: int = 256,
                  compact_steps: int = 64,
                  march_slots: Optional[int] = None,
-                 pack_slots: Optional[int] = None):
+                 pack_slots: Optional[int] = None,
+                 banded_decode: bool = False,
+                 fused_composite: bool = False):
         super().__init__()
         hidden = base_layers[-1]
         supported = (
@@ -67,6 +74,8 @@ class TriPlaneDecoder(nn.Module):
         self.compact_steps = compact_steps
         self.march_slots = march_slots
         self.pack_slots = pack_slots
+        self.banded_decode = banded_decode
+        self.fused_composite = fused_composite
         self.base_net = _dense(base_layers[0], hidden)
         self.density_net = _dense(hidden, 1)
         self.color_net = _dense(hidden, 3)
@@ -95,22 +104,30 @@ class TriPlaneDecoder(nn.Module):
         """Per-ray direction branch: SH_4(dirs) @ W_dir + b."""
         return self.dir_net.dense_0(sh_encode(dirs, degree=4)).contiguous()
 
-    def decode(self, planes, xyz, rid=None, dir_out=None):
-        """Activated density (S, M) and colour (S, M, 3) (None when
-        ``dir_out`` is None) at points xyz (S, M, 3)."""
+    def _points(self, xyz):
         if self.flip_z:
             xyz = xyz * xyz.new_tensor([1.0, 1.0, -1.0])
-        sig_raw, rgb_raw = triplane_decode(
-            planes, xyz.float().contiguous(), self.kernel_params(),
-            self.hidden, rid, dir_out)
-        sigmas = trunc_exp(sig_raw)
-        if rgb_raw is None:
-            return sigmas, None
-        rgbs = torch.sigmoid(rgb_raw)
-        if self.sigmoid_saturation > 0:
-            rgbs = rgbs * (1 + self.sigmoid_saturation * 2) \
-                - self.sigmoid_saturation
-        return sigmas, rgbs
+        return xyz.float().contiguous()
+
+    def decode(self, planes, xyz, rid=None, dir_out=None, win=None):
+        """Activated density (S, M) and colour (S, M, 3) (None when
+        ``dir_out`` is None) at points xyz (S, M, 3).  With ``win`` (the
+        per-tile windows of ``ops/packing.py:banded_windows``) the points
+        are a band layout and the banded kernel decodes them."""
+        args = (planes, self._points(xyz), self.kernel_params(), self.hidden,
+                rid, dir_out)
+        raw = (triplane_decode(*args) if win is None
+               else triplane_decode_banded(*args, win))
+        return activate(*raw, self.sigmoid_saturation)
+
+    def decode_composite(self, planes, xyz, rid, dir_out, pt, pdt, pvalid,
+                         soffs, group_rays, T_thresh):
+        """Decode a packed layout and composite it per ray in one kernel
+        (``triplane_decode_composite``): weights_sum, depth, image."""
+        return triplane_decode_composite(
+            planes, self._points(xyz), self.kernel_params(), self.hidden,
+            rid, dir_out, pt, pdt, pvalid, soffs, group_rays,
+            self.sigmoid_saturation, T_thresh)
 
     def forward(self, code, xyzs, dirs=None, density_only=False):
         """Per-point decode, the Flax module's ``__call__``: code (S, 3, C,

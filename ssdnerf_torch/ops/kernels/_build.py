@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``ssdnerf_torch/csrc/*.cu`` have a plain C interface.  On
-first use they are compiled with ``nvcc`` into one shared library under
+first use each is compiled by its own ``nvcc``, all started together, and
+the objects are linked into one shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) and
 loaded with ``ctypes``.  The library's file name carries a hash of the
-sources, so an edited source is never served by a stale build.
+sources and their headers (``csrc/*.cuh``), so an edited source is never
+served by a stale build.
 """
 import ctypes
 import functools
@@ -19,17 +21,20 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     'march_occupancy': [_P, _P, _P, _I, _I, _I, _P],
     'triplane_decode': [_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
     'triplane_decode_bwd': [_P] * 10 + [_I] * 6 + [_P],
-    'attention_fwd': [_P] * 5 + [_I, _I, _I, ctypes.c_float, _P],
-    'attention_bwd': [_P] * 10 + [_I, _I, _I, ctypes.c_float, _P],
+    'triplane_decode_composite': [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P],
+    'triplane_decode_banded': [_P] * 8 + [_I] * 8 + [_P],
+    'attention_fwd': [_P] * 5 + [_I, _I, _I, _F, _P],
+    'attention_bwd': [_P] * 10 + [_I, _I, _I, _F, _P],
 }
 
 
@@ -51,7 +56,8 @@ def build_info():
     """Compile the kernels if needed; returns (library path, seconds spent
     compiling (0.0 when a current build existed), compiler log)."""
     srcs = _sources()
-    digest = hashlib.sha256(b''.join(p.read_bytes() for p in srcs)
+    hashed = srcs + sorted(CSRC.glob('*.cuh'))
+    digest = hashlib.sha256(b''.join(p.read_bytes() for p in hashed)
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f'libssdnerf_kernels_{digest}.so'
     log_path = lib.with_suffix('.log')
@@ -59,13 +65,26 @@ def build_info():
         return lib, 0.0, log_path.read_text() if log_path.exists() else ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, srcs)]
+    objs = [tmp.with_name(f'{tmp.name}.{src.stem}.o') for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-c', '-o', str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = ''.join(logs)
+    failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode]
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], '-shared', '-o',
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        failed = ['link'] if link.returncode else []
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f'nvcc failed ({", ".join(failed)}):\n{log}')
     log_path.write_text(log)
     os.replace(tmp, lib)
     return lib, seconds, log

@@ -1,7 +1,11 @@
 """Triplane decode: kernel wrappers and plain versions.
 
 Port of ``ssdnerf_tpu/ops/pallas/decode.py:triplane_decode`` (a custom VJP)
-and of its backward.
+and of its backward, and of the two forward-only variants of the packed
+render: ``triplane_decode_composite`` (decode fused with the packed alpha
+composite, ``csrc/decode_composite.cu``) and ``triplane_decode_banded``
+(decode of the band-sorted layout with per-tile plane windows,
+``csrc/decode_banded.cu``).
 Per sample: bilinear features of the three planes (border clamp,
 ``align_corners=False``), in column order ``c * 3 + p`` (the order of the
 reference decoder and of the JAX XLA path, so ``base_net`` weights load
@@ -15,7 +19,12 @@ backward kernel: gradients of the planes, the parameter block and
 import torch
 import torch.nn.functional as F
 
+from ..activations import trunc_exp
+from ..packing import composite_packed
 from . import _build
+
+TILE = 128    # slots of a tile of the band layout, each with its own window
+BAND_W = 64   # u rows of a tile's plane window
 
 
 def pack_params(base, density, color):
@@ -42,9 +51,10 @@ def _taps(c, res):
     return i0, torch.clamp(i0 + 1, max=res - 1), w
 
 
-def triplane_decode_plain(planes, xyz, params, hidden, rid=None,
-                          dir_out=None):
-    """Plain version of :func:`triplane_decode` (same arguments)."""
+def _decode_plain(planes, xyz, params, hidden, rid, dir_out, u_lo=None):
+    """The decode; with ``u_lo`` = (x window, y window) per-sample window
+    starts, a tap whose u index lies outside [lo, lo + BAND_W) (the x
+    window for planes xy and xz, the y window for yz) has weight 0."""
     S, _, res, _, C = planes.shape
     M = xyz.shape[1]
     x, y, z = xyz.unbind(-1)
@@ -58,7 +68,12 @@ def triplane_decode_plain(planes, xyz, params, hidden, rid=None,
             i = (vi * res + ui)[..., None].expand(S, M, C)
             return torch.gather(flat, 1, i)
 
-        au, av = (1.0 - wu)[..., None], (1.0 - wv)[..., None]
+        au = 1.0 - wu
+        if u_lo is not None:
+            lo = u_lo[0 if p < 2 else 1]
+            au = au * ((u0 >= lo) & (u0 < lo + BAND_W))
+            wu = wu * ((u1 >= lo) & (u1 < lo + BAND_W))
+        au, av = au[..., None], (1.0 - wv)[..., None]
         wu, wv = wu[..., None], wv[..., None]
         feats.append(av * (au * tap(v0, u0) + wu * tap(v0, u1))
                      + wv * (au * tap(v1, u0) + wu * tap(v1, u1)))
@@ -71,6 +86,25 @@ def triplane_decode_plain(planes, xyz, params, hidden, rid=None,
     d = torch.gather(dir_out, 1, rid.long()[..., None].expand(S, M, hidden))
     rgb = F.silu(base + d) @ wc.T + bc
     return sigma, rgb
+
+
+def triplane_decode_plain(planes, xyz, params, hidden, rid=None,
+                          dir_out=None):
+    """Plain version of :func:`triplane_decode` (same arguments)."""
+    return _decode_plain(planes, xyz, params, hidden, rid, dir_out)
+
+
+def activate(sig_raw, rgb_raw, sigmoid_saturation):
+    """Raw decoder outputs -> density trunc_exp(sigma_raw) and colour
+    sigmoid(rgb_raw), widened by the saturation (rgb_raw None: density
+    only)."""
+    sigmas = trunc_exp(sig_raw)
+    if rgb_raw is None:
+        return sigmas, None
+    rgbs = torch.sigmoid(rgb_raw)
+    if sigmoid_saturation > 0:
+        rgbs = rgbs * (1 + sigmoid_saturation * 2) - sigmoid_saturation
+    return sigmas, rgbs
 
 
 def triplane_decode_backward_plain(planes, xyz, params, hidden, rid,
@@ -220,5 +254,149 @@ def triplane_decode(planes, xyz, params, hidden, rid=None, dir_out=None):
     return _decode_fwd(planes, xyz, params, hidden, rid, dir_out)
 
 
+def _forward_only(name, *tensors):
+    """The fused and banded kernels have no backward, as in the JAX
+    package: raise where autograd would need one."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f'{name} is forward only (it has no backward kernel): the codes '
+            'and the decoder parameters must not need a gradient here; '
+            'render under torch.no_grad() or turn the decoder field off')
+
+
+def triplane_decode_composite_plain(planes, xyz, params, hidden, rid,
+                                    dir_out, pt, pdt, pvalid, soffs,
+                                    group_rays, sigmoid_saturation,
+                                    T_thresh):
+    """Plain version of :func:`triplane_decode_composite`: the port's split
+    path, :func:`triplane_decode_plain` -> :func:`activate` ->
+    ``composite_packed``."""
+    S, G, P = pt.shape
+    sigmas, rgbs = activate(*triplane_decode_plain(
+        planes, xyz, params, hidden, rid, dir_out), sigmoid_saturation)
+    soffs = soffs.long()
+    prid = rid.long().reshape(S, G, P) - group_rays * torch.arange(
+        G, device=rid.device)[:, None]
+    # the longest segment bounds each slot's position in its ray
+    ends = torch.cat([soffs[..., 1:], torch.full_like(soffs[..., :1], P)],
+                     dim=-1)
+    ray_slots = max(int((ends - soffs).max()), 1)
+    return composite_packed(sigmas.reshape(S, G, P),
+                            rgbs.reshape(S, G, P, 3), pdt, pt, pvalid, prid,
+                            soffs, group_rays, ray_slots, T_thresh)
+
+
+def triplane_decode_composite(planes, xyz, params, hidden, rid, dir_out, pt,
+                              pdt, pvalid, soffs, group_rays,
+                              sigmoid_saturation, T_thresh):
+    """Decode and alpha-composite a packed sample stream (forward only).
+
+    Args:
+        planes, params, hidden, dir_out: as :func:`triplane_decode`, with
+            dir_out (S, G * group_rays, hidden).
+        xyz: (S, G * P, 3) f32 slot positions of the packed layout
+            (``ops/packing.py:pack_groups``); rid: (S, G * P) int32 ray of
+            each slot, ``g * group_rays + prid``.
+        pt, pdt: (S, G, P) f32 slot t and dt; pvalid: (S, G, P) bool.
+        soffs: (S, G, group_rays) int32 first slot of each ray's segment.
+        sigmoid_saturation, T_thresh: the colour head's saturation and the
+            composite's transmittance cut.
+
+    Returns:
+        weights_sum, depth (S, G * group_rays) and image (S, G *
+        group_rays, 3) f32, the per-ray sums of ``composite_packed``.  CPU
+        tensors take the plain version; CUDA tensors launch
+        ``csrc/decode_composite.cu`` (or raise).  Raises where autograd
+        would need a gradient of planes, params or dir_out.
+    """
+    _forward_only('triplane_decode_composite', planes, params, dir_out)
+    if planes.device.type == 'cpu':
+        return triplane_decode_composite_plain(
+            planes, xyz, params, hidden, rid, dir_out, pt, pdt, pvalid,
+            soffs, group_rays, sigmoid_saturation, T_thresh)
+    S, M, res, C, n_rays = _check_operands('triplane_decode_composite',
+                                           planes, xyz, params, hidden, rid,
+                                           dir_out)
+    _build.check_cuda('triplane_decode_composite', pt, pdt,
+                      dtype=torch.float32)
+    _build.check_cuda('triplane_decode_composite', pvalid, dtype=torch.bool)
+    _build.check_cuda('triplane_decode_composite', soffs, dtype=torch.int32)
+    G, P = pt.shape[1:]
+    if (pdt.shape != pt.shape or pvalid.shape != pt.shape or G * P != M
+            or soffs.shape != (S, G, group_rays)
+            or G * group_rays != n_rays or P % 8 or P > 4096):
+        raise ValueError('triplane_decode_composite: needs pt, pdt, pvalid '
+                         '(S, G, P) with P a multiple of 8 up to 4096, xyz '
+                         '(S, G * P, 3), soffs (S, G, group_rays) and '
+                         'dir_out (S, G * group_rays, hidden)')
+    dev = planes.device
+    weights_sum = torch.empty((S, n_rays), dtype=torch.float32, device=dev)
+    depth = torch.empty_like(weights_sum)
+    image = torch.empty((S, n_rays, 3), dtype=torch.float32, device=dev)
+    scale = 1 + 2 * sigmoid_saturation if sigmoid_saturation > 0 else 1.0
+    _build.launch('triplane_decode_composite', dev, planes.data_ptr(),
+                  xyz.data_ptr(), rid.data_ptr(), dir_out.data_ptr(),
+                  params.data_ptr(), pt.data_ptr(), pdt.data_ptr(),
+                  pvalid.data_ptr(), soffs.data_ptr(), weights_sum.data_ptr(),
+                  depth.data_ptr(), image.data_ptr(), S, G, P, group_rays,
+                  res, C, hidden, scale, max(sigmoid_saturation, 0.0),
+                  T_thresh)
+    triplane_decode_composite.launches += 1
+    return weights_sum, depth, image
+
+
+def triplane_decode_banded_plain(planes, xyz, params, hidden, rid, dir_out,
+                                 win):
+    """Plain version of :func:`triplane_decode_banded`."""
+    w = win.long().repeat_interleave(TILE, dim=1)
+    return _decode_plain(planes, xyz, params, hidden, rid, dir_out,
+                         u_lo=(w & 0xFF, w >> 8))
+
+
+def triplane_decode_banded(planes, xyz, params, hidden, rid, dir_out, win):
+    """Decode the band layout with per-tile plane windows (forward only).
+
+    Args:
+        planes, params, hidden, rid, dir_out: as :func:`triplane_decode`
+            (colour mode), with xyz (S, M, 3) and rid (S, M) in the band
+            layout of ``ops/packing.py:pack_groups_banded``, M a multiple
+            of TILE.
+        win: (S, M // TILE) int32 window starts ``wx | (wy << 8)`` of each
+            tile of TILE slots (``banded_windows``).
+
+    Returns:
+        Raw sigma (S, M) and rgb (S, M, 3) in the band layout: the decode
+        of :func:`triplane_decode` with every tap whose u index lies
+        outside its tile's window (x window for planes xy and xz, y window
+        for yz, BAND_W rows) given weight 0 -- the same values wherever the
+        windows cover the taps.  CPU tensors take the plain version; CUDA
+        tensors launch ``csrc/decode_banded.cu`` (or raise).  Raises where
+        autograd would need a gradient of planes, params or dir_out.
+    """
+    _forward_only('triplane_decode_banded', planes, params, dir_out)
+    if planes.device.type == 'cpu':
+        return triplane_decode_banded_plain(planes, xyz, params, hidden, rid,
+                                            dir_out, win)
+    if dir_out is None:
+        raise ValueError('triplane_decode_banded: colour mode only')
+    S, M, res, C, n_rays = _check_operands('triplane_decode_banded', planes,
+                                           xyz, params, hidden, rid, dir_out)
+    _build.check_cuda('triplane_decode_banded', win, dtype=torch.int32)
+    if M % TILE or win.shape != (S, M // TILE) or res < BAND_W:
+        raise ValueError(f'triplane_decode_banded: needs M a multiple of '
+                         f'{TILE}, win (S, M // {TILE}) and res >= {BAND_W}')
+    sigma = torch.empty((S, M), dtype=torch.float32, device=planes.device)
+    rgb = torch.empty((S, M, 3), dtype=torch.float32, device=planes.device)
+    _build.launch('triplane_decode_banded', planes.device, planes.data_ptr(),
+                  xyz.data_ptr(), rid.data_ptr(), dir_out.data_ptr(),
+                  params.data_ptr(), win.data_ptr(), sigma.data_ptr(),
+                  rgb.data_ptr(), S, M, n_rays, res, C, hidden, TILE, BAND_W)
+    triplane_decode_banded.launches += 1
+    return sigma, rgb
+
+
 triplane_decode.launches = 0
 triplane_decode_backward.launches = 0
+triplane_decode_composite.launches = 0
+triplane_decode_banded.launches = 0

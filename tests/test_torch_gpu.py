@@ -200,3 +200,154 @@ def test_kernels_raise_instead_of_falling_back(cuda_device):
         k_march.occupancy_lookup(
             torch.zeros((1, 8), dtype=torch.int64, device=cuda_device),
             torch.zeros((1, 8), dtype=torch.uint8, device=cuda_device))
+
+
+def _packed_layout(device, S=2, R=4096, K=64, P=512, seed=17):
+    """A truncating packed layout (16-ray groups, random valid counts) with
+    per-slot positions, t and dt, planes, weights and dir_out."""
+    from ssdnerf_torch.ops.packing import pack_groups
+    g = torch.Generator().manual_seed(seed)
+    n_valid = torch.randint(0, K + 1, (S, R), generator=g)
+    comp_valid = torch.arange(K) < n_valid[..., None]
+    comp_step = torch.where(comp_valid, torch.arange(K).float(), 0.0)
+    _, pvalid, prid, soffs = pack_groups(comp_step, comp_valid, P, 16)
+    G = R // 16
+    planes, _, params, _, dir_out, _, _ = _decode_operands(
+        'cpu', 6, 64, 8, R, True, S, seed)
+    xyz = torch.rand((S, G * P, 3), generator=g) * 2 - 1
+    pt = torch.cumsum(torch.rand((S, G, P), generator=g), -1) * 0.01 + 0.5
+    pdt = torch.rand((S, G, P), generator=g) * 0.1 + 0.01
+    rid = (prid + 16 * torch.arange(G)[:, None]).reshape(S, G * P).to(
+        torch.int32)
+    return [t.contiguous().to(device) for t in
+            (planes, xyz, params, rid, dir_out, pt, pdt, pvalid,
+             soffs.to(torch.int32))]
+
+
+def test_decode_composite_kernel_matches_plain(cuda_device):
+    """The fused decode + composite kernel vs its plain version (the split
+    path) on the card, on a truncating layout of 2 x 4096 rays, P=512:
+    weights_sum and image atol 1e-5, depth 5e-5 (f32 sums in another
+    order); one launch."""
+    ops = _packed_layout(cuda_device)
+    args = ops[:2] + [ops[2], 64] + ops[3:] + [16, 0.001, 1e-4]
+    before = k_dec.triplane_decode_composite.launches
+    got = k_dec.triplane_decode_composite(*args)
+    assert k_dec.triplane_decode_composite.launches == before + 1
+    ref = k_dec.triplane_decode_composite_plain(*args)
+    assert ref[0].max() > 0.1 and (ref[0] == 0).any()
+    for a, b, atol in zip(got, ref, (1e-5, 5e-5, 1e-5)):
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize('shift', [0, 64])
+def test_decode_banded_kernel_matches_plain(cuda_device, shift):
+    """The banded kernel vs its plain version on tile-coherent points
+    whose taps fit their windows (shift 0), and with every x window moved
+    off its taps (shift 64, those taps count zero): atol 1e-5."""
+    g = torch.Generator().manual_seed(18)
+    S, M, res = 2, 128 * 96, 128
+    n_tiles = M // 128
+    lox = torch.randint(0, 5, (S, n_tiles), generator=g) * 16
+    loy = torch.randint(0, 5, (S, n_tiles), generator=g) * 16
+
+    def coord(lo):
+        f = lo.repeat_interleave(128, 1) + 1 + torch.rand((S, M),
+                                                          generator=g) * 61
+        return (f + 0.5) * (2.0 / res) - 1.0
+
+    xyz = torch.stack([coord(lox), coord(loy),
+                       torch.rand((S, M), generator=g) * 2 - 1], -1)
+    win = (((lox + shift) % 128) | (loy << 8)).to(torch.int32)
+    planes, _, params, rid, dir_out, _, _ = _decode_operands(
+        'cpu', 6, 64, M, 100, False, S, 19)
+    args = [t.contiguous().to(cuda_device) for t in
+            (planes, xyz, params)] + [64] + [
+        t.contiguous().to(cuda_device) for t in (rid, dir_out, win)]
+    before = k_dec.triplane_decode_banded.launches
+    got = k_dec.triplane_decode_banded(*args)
+    assert k_dec.triplane_decode_banded.launches == before + 1
+    ref = k_dec.triplane_decode_banded_plain(*args)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    if shift == 0:
+        full = k_dec.triplane_decode_plain(*args[:-1])
+        torch.testing.assert_close(got[0], full[0], rtol=0, atol=1e-5)
+
+
+def test_variant_kernels_raise(cuda_device):
+    """Under autograd (a parameter needing a gradient) both forward-only
+    wrappers raise; so do shapes the kernels lack (P not a multiple of 8,
+    M not a multiple of 128); nothing runs a plain version."""
+    ops = _packed_layout(cuda_device, R=64)
+    args = ops[:2] + [ops[2], 64] + ops[3:] + [16, 0.001, 1e-4]
+    with pytest.raises(RuntimeError, match='forward only'):
+        k_dec.triplane_decode_composite(
+            *args[:2], args[2].clone().requires_grad_(), *args[3:])
+    planes, xyz, params, hidden, rid, dir_out, pt, pdt, pvalid, soffs = \
+        args[:10]
+    with pytest.raises(ValueError):   # P = 508
+        k_dec.triplane_decode_composite(
+            planes, xyz[:, :4 * 508].contiguous(), params, hidden,
+            rid[:, :4 * 508].contiguous(), dir_out,
+            pt[..., :508].contiguous(), pdt[..., :508].contiguous(),
+            pvalid[..., :508].contiguous(), soffs, 16, 0.001, 1e-4)
+    win = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match='forward only'):
+        k_dec.triplane_decode_banded(planes, xyz[:, :128].contiguous(),
+                                     params.clone().requires_grad_(), 64,
+                                     rid[:, :128].contiguous(), dir_out, win)
+    with pytest.raises(ValueError):   # M = 100
+        k_dec.triplane_decode_banded(planes, xyz[:, :100].contiguous(),
+                                     params, 64, rid[:, :100].contiguous(),
+                                     dir_out, win)
+
+
+@pytest.mark.parametrize('field', ['fused_composite', 'banded_decode'])
+def test_render_variant_matches_cpu(cuda_device, field):
+    """A render with each variant on the card vs the same render on the
+    CPU (plain versions): a ball occupancy seen by one look-at camera at
+    64x64, P=512, where the banded guard engages; atol 1e-4.  The
+    variant's kernel launched."""
+    from ssdnerf_torch.models.decoders.renderer import volume_render
+    from ssdnerf_torch.ops import get_cam_rays, packbits
+    g = torch.Generator().manual_seed(20)
+    dec = TriPlaneDecoder(compact_steps=64, pack_slots=512, **{field: True})
+    dec.init_weights(g)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    S, H, hw = 2, 64, 64
+    code = torch.randn((S, 3, 6, 128, 128), generator=g) * 0.5
+    c = torch.arange(H) - H / 2 + 0.5
+    occ = (c[:, None, None] ** 2 + c[None, :, None] ** 2
+           + c[None, None, :] ** 2) < (0.35 * H) ** 2
+    bitfield = packbits(occ.reshape(1, -1).float().expand(S, -1), 0.5)
+    cam = torch.tensor([1.8, 0.6, 1.8])
+    fwd = -cam / cam.norm()
+    right = torch.nn.functional.normalize(
+        torch.linalg.cross(fwd, torch.tensor([0.0, 1.0, 0.0])), dim=0)
+    pose = torch.eye(4)
+    pose[:3, 0], pose[:3, 1] = right, torch.linalg.cross(fwd, right)
+    pose[:3, 2], pose[:3, 3] = fwd, cam
+    f = hw * 131.25 / 128
+    rays_o, rays_d = get_cam_rays(
+        pose.expand(S, 1, 4, 4), torch.tensor([f, f, hw / 2, hw / 2]).expand(
+            S, 1, 4), hw, hw)
+    args = [code, rays_o.reshape(S, -1, 3), rays_d.reshape(S, -1, 3),
+            bitfield]
+    wrapper = (k_dec.triplane_decode_composite if field == 'fused_composite'
+               else k_dec.triplane_decode_banded)
+    engaged = volume_render.banded_engaged
+    with torch.no_grad():
+        ref = volume_render(dec, *args, H, dt_gamma=0.5 / 131.25)
+        before = wrapper.launches
+        got = volume_render(copy.deepcopy(dec).to(cuda_device),
+                            *[t.to(cuda_device) for t in args], H,
+                            dt_gamma=0.5 / 131.25)
+    assert wrapper.launches == before + 1
+    if field == 'banded_decode':
+        assert volume_render.banded_engaged == engaged + 2
+    assert ref['weights_sum'].max() > 0.5
+    for k in ('weights_sum', 'depth', 'image'):
+        torch.testing.assert_close(got[k].cpu(), ref[k], rtol=0, atol=1e-4)

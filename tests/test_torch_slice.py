@@ -204,3 +204,52 @@ def test_init_model_builds_flagship_config():
         assert torch.equal(p, q), n
     w = a.diffusion.denoising.in_conv.weight
     assert w.std() > 0 and a.diffusion.denoising.out_conv.weight.abs().max() == 0
+
+
+def test_val_uncond_and_render_fused_composite_match_jax(models,
+                                                         monkeypatch):
+    """The slice with the decoder field ``fused_composite`` set on the
+    config before the model is built (the EMA decoder, which generation
+    reads, carries it): DDIM -> density rebuild -> render, the render's
+    decode and composite in one forward-only call, against the JAX
+    package's f32 XLA render at ``test_val_uncond_and_render_match_jax``'s
+    tolerances (codes 1e-4, bitfields identical, images and depths 1e-4).
+    The JAX side reuses that test's compilations."""
+    from ssdnerf_torch.ops.kernels import decode as tdec
+    jm, state, _ = models
+    cfg = copy.deepcopy(TINY_MODEL_CFG)
+    cfg['decoder']['fused_composite'] = True
+    tm = build_model(cfg, test_cfg=TEST_CFG)
+    load_jax_params(tm, {k: jax.tree_util.tree_map(_np, state[k])
+                         for k in ('decoder_ema', 'diffusion_ema')})
+    tm.eval()
+    assert tm.ema_decoder.fused_composite
+    S = 2
+    noise = np.random.RandomState(4).randn(S, *jm.code_size).astype(
+        np.float32)
+    key = jax.random.PRNGKey(3)
+    jcode, _, jbf = jm.val_uncond(state, jnp.asarray(noise), key)
+    jitter = _jax_jitter(key, jm.grid_size, jm.decoder.bound,
+                         TEST_CFG['density_step'])
+    code, _, bitfield = tm.val_uncond(torch.from_numpy(noise),
+                                      jitter=torch.from_numpy(jitter))
+    np.testing.assert_allclose(code.numpy(), np.asarray(jcode), atol=1e-4)
+    np.testing.assert_array_equal(bitfield.numpy(), np.asarray(jbf))
+
+    poses = np.stack([look_at_pose(1.3 * np.array(
+        [np.cos(a), 0.3, np.sin(a)])) for a in (0.2, 2.0)])
+    poses = np.broadcast_to(poses, (S, 2, 4, 4)).copy()
+    intr = np.broadcast_to(np.array([16.4, 16.4, 8, 8], np.float32),
+                           (S, 2, 4)).copy()
+    jimg, jdep = jm.render(state, jcode, jbf, 16, 16, jnp.asarray(intr),
+                           jnp.asarray(poses))
+    plain, calls = tdec.triplane_decode_composite_plain, []
+    monkeypatch.setattr(tdec, 'triplane_decode_composite_plain',
+                        lambda *args: calls.append(1) or plain(*args))
+    img, dep = tm.render(torch.from_numpy(_np(jcode)),
+                         torch.from_numpy(_np(jbf)), 16, 16,
+                         torch.from_numpy(intr), torch.from_numpy(poses))
+    assert len(calls) == 1          # the fused call rendered it
+    assert np.abs(np.asarray(jimg) - 1.0).max() > 0.05
+    np.testing.assert_allclose(img.numpy(), np.asarray(jimg), atol=1e-4)
+    np.testing.assert_allclose(dep.numpy(), np.asarray(jdep), atol=1e-4)
