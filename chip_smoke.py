@@ -12,10 +12,15 @@ runs six phases, any failure of which exits non-zero:
    the flagship path (max error, median times by CUDA events, the least
    time the card could take for the same work, and the time of one
    PyTorch call computing the same function where there is one): march,
-   decode and attention forward, the decode and attention backward at the
-   training shapes, and the fused decode + composite and the banded decode
-   on the packed layouts of a coherent render (a ball seen by 4 look-at
-   views of 128x128 per scene, where the banded guard holds);
+   the probe's per-row occupancy counts, decode and attention forward, the
+   decode and attention backward at the training shapes, and the fused
+   decode + composite and the banded decode on the packed layouts of a
+   coherent render (a ball seen by 4 look-at views of 128x128 per scene,
+   where the banded guard holds); the kernels that
+   ``scaled_dot_product_attention`` runs are named from a profile;
+   then the probe tool's path (``python -m
+   ssdnerf_torch.tools.march_scalar_probe``) once, whose kernel must have
+   launched;
 3. the unconditional-generation slice at flagship width
    (configs/paper_cfgs/ssdnerf_cars_uncond.py, random seeded weights):
    50-step DDIM on 8 scenes, the 8-sweep density rebuild, and a render of
@@ -75,15 +80,21 @@ from ssdnerf_torch.models.decoders.renderer import (  # noqa: E402
 from ssdnerf_torch.models.decoders.triplane import (  # noqa: E402
     TriPlaneDecoder)
 from ssdnerf_torch.runner.optim import build_optimizers  # noqa: E402
+from ssdnerf_torch.tools import march_scalar_probe  # noqa: E402
+from ssdnerf_torch.tools.march_scalar_probe import median_ms  # noqa: E402
 
 CONFIG = ROOT / 'configs' / 'paper_cfgs' / 'ssdnerf_cars_uncond.py'
 SEED = 0
 SRN_INTRINSICS = (131.25, 131.25, 64.0, 64.0)
 # H100 SXM peaks the bounds are taken against (NVIDIA's data sheet): f32
-# outside the tensor cores (every kernel of the port is f32 FMA) and HBM3
+# outside the tensor cores (the decode and march kernels, the attention's
+# softmax), dense TF32 on the tensor cores (the attention's products, run
+# in three passes) and HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 WRAPPERS = {'march': k_march.occupancy_lookup,
+            'march_popcount': k_march.occupied_counts,
             'decode': k_dec.triplane_decode,
             'decode_bwd': k_dec.triplane_decode_backward,
             'decode_composite': k_dec.triplane_decode_composite,
@@ -91,6 +102,7 @@ WRAPPERS = {'march': k_march.occupancy_lookup,
             'attention': k_attn.attention,
             'attention_bwd': k_attn.attention_backward}
 SERVING = ('march', 'decode', 'attention')
+PROBE = ('march_popcount',)
 VARIANTS = {'decode_composite': 'fused_composite',
             'decode_banded': 'banded_decode'}
 TRAIN_PARTS = ('train_step.diffusion', 'train_step.inverse',
@@ -102,10 +114,13 @@ PORT_KERNELS = (('decode_bwd', 'triplane_decode_bwd'),
                 ('decode', 'triplane_decode_kernel'),
                 ('attention_bwd', 'attention_bwd'),
                 ('attention', 'attention_fwd'),
-                ('march', 'march_occupancy'))
+                ('march', 'march_occupancy'),
+                ('march_popcount', 'march_popcount'))
 KERNEL_META = {
     'march': ('ssdnerf_torch/csrc/march.cu',
               'ssdnerf_tpu/ops/pallas/march.py:79'),
+    'march_popcount': ('ssdnerf_torch/csrc/march.cu',
+                       'tools/march_scalar_probe.py:36'),
     'decode': ('ssdnerf_torch/csrc/decode.cu',
                'ssdnerf_tpu/ops/pallas/decode.py:138'),
     'decode_bwd': ('ssdnerf_torch/csrc/decode.cu',
@@ -128,23 +143,6 @@ def log(*args):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
-
-
-def time_ms(fn, warmup=2, reps=7):
-    """Median over ``reps`` timed calls (CUDA events) after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def look_at_pose(cam_pos):
@@ -180,11 +178,14 @@ def sdpa(q, k, v, scale):
         q[:, None], k[:, None], v[:, None], scale=scale)[:, 0]
 
 
-def bound_ms(flops, moved):
+def bound_ms(flops, moved, tensor_flops=0):
     """The least time the card could take for work of ``flops`` f32
-    operations moving ``moved`` bytes (each input read once, each output
-    written once): the larger of the two times; and which one it is."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, moved / PEAK_BYTES
+    operations outside the tensor cores and ``tensor_flops`` TF32 ones on
+    them, moving ``moved`` bytes (each input read once, each output written
+    once): the largest of the three times; and whether operations or bytes
+    set it."""
+    t_ops = max(flops / PEAK_F32_FLOPS, tensor_flops / PEAK_TF32_FLOPS)
+    t_bytes = moved / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes')
 
@@ -277,18 +278,45 @@ def phase_device():
     return torch.device('cuda')
 
 
+def device_profile(fn, calls=10):
+    """Device ms a call of ``fn`` spends in each kernel (or copy) it
+    launches, by name: ``torch.profiler`` over ``calls`` calls after a
+    warm-up call.  Unlike a CUDA-event time of one call, this leaves out
+    the host's launch latency, which a kernel of tens of microseconds does
+    not hide."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # a range's device-side annotation shares its name: not a kernel
+    annotations = {e.name for e in events if e.device_type == DeviceType.CPU}
+    ms = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in annotations:
+            ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / (
+                1e3 * calls)
+    return ms
+
+
 def phase_kernels(dev):
-    """Each kernel vs its plain version at flagship shapes."""
+    """Each kernel vs its plain version at flagship shapes; the names of
+    the kernels of the attention's library yardstick."""
     g = torch.Generator().manual_seed(SEED + 11)
     results = {}
 
     def compare(name, tag, kernel, plain, tol, flops, moved,
-                relative=False, library=None):
+                relative=False, library=None, tensor_flops=0):
         """max |kernel - plain| <= tol (a number, or one per output), or
         with ``relative`` each output's max |kernel - plain| / max |plain|
         <= tol; the times of kernel, plain and ``library`` (one PyTorch
-        call computing the same function), and the bound of ``flops``
-        operations moving ``moved`` bytes."""
+        call computing the same function), and the bound of ``flops`` f32
+        and ``tensor_flops`` TF32 operations moving ``moved`` bytes."""
         out, ref = kernel(), plain()
         out = out if isinstance(out, tuple) else (out,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -301,21 +329,32 @@ def phase_kernels(dev):
         for o, _ in pairs:
             check(torch.isfinite(o).all().item(),
                   f'{tag}: non-finite kernel output')
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
-        lib_ms = None if library is None else time_ms(library)
-        b_ms, b_by = bound_ms(flops, moved)
+        # median of 7 CUDA-event timings of one call, after 2 warm-ups
+        ms, plain_ms, lib_ms = (
+            None if fn is None else median_ms(fn, dev, 7, warmup=2)
+            for fn in (kernel, plain, library))
+        dev_ms = sum(device_profile(kernel).values())
+        lib_dev_ms = (None if library is None
+                      else sum(device_profile(library).values()))
+        b_ms, b_by = bound_ms(flops, moved, tensor_flops)
         shown = rels if relative else errs
         log(f'phase 2 {tag}: max_abs_err={max(errs):.3e} max_rel_err='
             f'{max(rels):.3e} (tol {tol} {"relative" if relative else "absolute"}) '
-            f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms library='
-            f'{"none" if lib_ms is None else f"{lib_ms:.4f} ms"} '
-            f'bound={b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, '
-            f'{moved / 1e6:.1f} MB)')
+            f'kernel={ms:.4f} ms (device {dev_ms:.4f}) plain={plain_ms:.4f} '
+            f'ms library='
+            + ('none ' if lib_ms is None else
+               f'{lib_ms:.4f} ms (device {lib_dev_ms:.4f}) kernel/library '
+               f'device={dev_ms / lib_dev_ms:.2f}x ')
+            + f'bound={b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP f32'
+            + (f' + {tensor_flops / 1e9:.3f} GFLOP TF32' if tensor_flops
+               else '') + f', {moved / 1e6:.1f} MB)')
         for e, t in zip(shown, tols):
             check(e <= t, f'{tag}: error {e} > {t}')
         results.setdefault(name, dict(max_abs_err=max(errs), ms=ms,
                                       plain_ms=plain_ms, library_ms=lib_ms,
                                       bound_ms=b_ms, bound_by=b_by,
+                                      device_ms=dev_ms,
+                                      library_device_ms=lib_dev_ms,
                                       shape=tag))
 
     # march: S=8 scenes, R=4*128^2 rays, T=128 slots; real orbit rays and
@@ -337,6 +376,15 @@ def phase_kernels(dev):
             lambda: k_march.occupancy_lookup(idx, bitfield),
             lambda: k_march.occupancy_lookup_plain(idx, bitfield), 0.0,
             2 * idx.numel(), nbytes(idx, bitfield) + idx.numel())
+    # the probe's per-row counts over the same 67M indices, 1024 a row,
+    # each scene's bitfield as its byte table: bytes 4 a sample plus the
+    # tables, and the counts
+    ji = idx.reshape(-1, 1024)
+    compare('march_popcount', f'march_popcount rows={ji.shape[0]} x 1024 '
+            f'(S={S})',
+            lambda: k_march.occupied_counts(ji, bitfield),
+            lambda: k_march.occupied_counts_plain(ji, bitfield), 0.0,
+            2 * ji.numel(), nbytes(ji, bitfield) + 4 * ji.shape[0])
 
     # decode: flagship planes (3 x 6 x 128^2), hidden 64
     C, res, hidden = 6, 128, 64
@@ -363,7 +411,10 @@ def phase_kernels(dev):
             S * H ** 3 * decode_flops(C, hidden, colour=False),
             nbytes(planes, xyz_d, params) + S * H ** 3 * 4)
 
-    # attention: G = batch 8 x 4 heads at the 32^2, 16^2 and 8^2 levels
+    # attention: G = batch 8 x 4 heads at the 32^2, 16^2 and 8^2 levels.
+    # Bound: the products (4 hd T^2 forward, 10 hd T^2 backward a program)
+    # in three TF32 passes on the tensor cores, the softmax's elementwise
+    # work (4 T^2 forward, 8 T^2 backward) in f32, or the bytes
     for T_, hd in ((1024, 64), (256, 128), (64, 128)):
         q, k, v = (torch.randn((32, T_, hd), generator=g).to(dev)
                    for _ in range(3))
@@ -372,8 +423,9 @@ def phase_kernels(dev):
         compare('attention', f'attention G=32 T={T_} hd={hd}',
                 lambda: k_attn.attention(q, k, v, scale),
                 lambda: k_attn.attention_plain(q, k, v, scale), 2e-5,
-                32 * T_ * T_ * (4 * hd + 4), 4 * nbytes(q),
-                library=lambda: sdpa(q, k, v, scale))
+                32 * T_ * T_ * 4, 4 * nbytes(q),
+                library=lambda: sdpa(q, k, v, scale),
+                tensor_flops=3 * 32 * T_ * T_ * 4 * hd)
         # backward: dq, dk, dv from the forward kernel's own output and
         # row log-sum-exps; no atomics, so an absolute bound as in
         # tests/test_torch_gpu.py
@@ -386,10 +438,17 @@ def phase_kernels(dev):
                 lambda: k_attn.attention_backward(q, k, v, o, lse, do,
                                                   scale),
                 lambda: k_attn.attention_backward_plain(q, k, v, do, scale),
-                1e-4, 32 * T_ * T_ * (10 * hd + 8),
+                1e-4, 32 * T_ * T_ * 8,
                 nbytes(q, k, v, o, lse, do) + 3 * nbytes(q),
                 library=lambda: torch.autograd.grad(out_lib, leaves, do,
-                                                    retain_graph=True))
+                                                    retain_graph=True),
+                tensor_flops=3 * 32 * T_ * T_ * 10 * hd)
+        if T_ == 1024:
+            lib_kernels = dict(
+                forward=sorted(device_profile(lambda: sdpa(q, k, v, scale))),
+                backward=sorted(device_profile(lambda: torch.autograd.grad(
+                    out_lib, leaves, do, retain_graph=True))))
+            log(f'phase 2 library kernels at T={T_}: {lib_kernels}')
         del leaves, out_lib
 
     # decode forward and backward at the training shapes: 8 scenes x 4096
@@ -455,7 +514,26 @@ def phase_kernels(dev):
             lambda: k_dec.triplane_decode_banded_plain(*band), 1e-5,
             n_valid * decode_flops(C, hidden),
             nbytes(planes, params, dir_l, lay['win']) + n_valid * 32)
-    return results
+    return results, lib_kernels
+
+
+def phase_probe(dev):
+    """The probe tool's path once (``python -m
+    ssdnerf_torch.tools.march_scalar_probe``: its draws, the counts held
+    exactly against the plain version, both timings); its kernel must have
+    launched."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    res = march_scalar_probe.run(dev)
+    launches = {n: WRAPPERS[n].launches for n in PROBE}
+    log(f'phase 2 probe: march_popcount {res["popcount_ms"]:.4f} ms = '
+        f'{res["popcount_ns"]:.4f} ns/sample, march_valid_mask '
+        f'{res["march_ms"]:.4f} ms = {res["march_ns"]:.4f} ns/sample '
+        f'({res["samples"]} samples; ratio {res["ratio"]:.4f}); launches '
+        f'{launches}')
+    for name, n in launches.items():
+        check(n > 0, f'kernel {name} was not launched by the probe')
+    return launches, res
 
 
 def make_model(seed):
@@ -879,7 +957,7 @@ def phase_train(model, cfg, data, code, dev, timed=4):
     check(counters == [steps * (ess + 1)] * S, 'Adam step counters')
     check(0.0 < occ < 1.0, 'density grids entirely empty or full')
     for name, n in launches.items():
-        check(n > 0 or name in VARIANTS,
+        check(n > 0 or name in VARIANTS or name in PROBE,
               f'kernel {name} was not launched by the train steps')
     return launches, dict(step_s=times, median_step_s=median,
                           profiled_wall_ms=wall_ms, device_ms=dev_ms,
@@ -963,7 +1041,8 @@ def main():
             log('  ptxas:', line.strip())
     _build.library()
 
-    kernels = phase_kernels(dev)
+    kernels, lib_kernels = phase_kernels(dev)
+    probe_launches, probe = phase_probe(dev)
     cfg = Config.fromfile(str(CONFIG))
     model_cpu = make_model(SEED)
     model_dev = copy.deepcopy(model_cpu).to(dev)
@@ -980,19 +1059,22 @@ def main():
     phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev)
 
     # launches: the generation kernels' counts from the phase-3 slice, the
-    # render variants' from the phase-3 variant renders, the backward
-    # kernels' from phase 5 (the paths that run them)
+    # render variants' from the phase-3 variant renders, the probe's from
+    # its tool's path, the backward kernels' from phase 5 (the paths that
+    # run them)
     launches = {n: serve_launches[n] if n in SERVING else
-                variant_launches[n] if n in VARIANTS else train_launches[n]
+                variant_launches[n] if n in VARIANTS else
+                probe_launches[n] if n in PROBE else train_launches[n]
                 for n in WRAPPERS}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms')
+            'library_ms', 'device_ms', 'library_device_ms')
     report = [dict(name=name, route='cuda', source=KERNEL_META[name][0],
                    replaces=KERNEL_META[name][1], launches=launches[name],
                    **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
-                    'variants': variants, 'train': train_times}))
+                    'variants': variants, 'train': train_times,
+                    'probe': probe, 'library_kernels': lib_kernels}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,140 +1,379 @@
-// Self-attention forward and backward, for Hopper (sm_90a).
+// Self-attention forward and backward on Hopper's tensor cores (sm_90a).
 //
 // Forward: replaces the Pallas kernel
 // ssdnerf_tpu/ops/pallas/attention.py:_fwd_kernel (reached through
 // vmem_attention -> _fwd_call).  Computes, per program g,
-// softmax(q k^T * scale) v in f32.  The TPU kernel held the whole (T, T)
-// score matrix of one program in VMEM; a Hopper block has at most 227 KB of
-// shared memory, so this kernel streams instead (online softmax): one block
-// per (g, 64-query tile), K and V in 64-row tiles through shared memory, and
-// a running max and sum per query row.  Under autograd it also writes each
-// row's log-sum-exp (in units of the scaled scores) for the backward.
+// softmax(q k^T * scale) v with an f32 softmax.  The TPU kernel held the
+// whole (T, T) score matrix of one program in VMEM; a Hopper block has at
+// most 227 KB of shared memory, so this kernel streams instead (online
+// softmax): one block per (g, tile of query rows), 16 query rows a warp, K
+// and V in tiles of 64 keys (32 at hd = 128) through shared memory, a
+// running max and sum per row.  Under autograd it also writes each row's
+// log-sum-exp (LSE, in units of the scaled scores) for the backward.
 //
 // Backward: replaces ssdnerf_tpu/ops/pallas/attention.py:_bwd_kernel
 // (reached through vmem_attention -> _bwd_rule), which recomputed the
 // softmax of 256-row query blocks against all of K in VMEM.  Here, in the
-// flash-attention-2 form and plain f32 FMA:
-//   D_i = rowsum(dO_i * O_i)                         (attention_bwd_dot)
+// flash-attention-2 form:
+//   D_i = rowsum(dO_i * O_i)        (attention_bwd_dot_kernel: a row
+//                                    reduction, bound by its bytes)
 //   P_ij = exp(scale * q_i.k_j - LSE_i)  (the forward's own LSE)
 //   dS_ij = P_ij * (dO_i.v_j - D_i)
 //   dV_j = sum_i P_ij dO_i, dK_j = scale * sum_i dS_ij q_i
-//                                  (one block per (g, 64-key tile), streams
-//                                   the query tiles)
-//   dQ_i = scale * sum_j dS_ij k_j  (one block per (g, 64-query tile),
-//                                    streams the key tiles)
-// Two kernels instead of one with atomics on dQ: every output element is
-// written by exactly one thread, so the gradients are deterministic.
+//       (one block per (g, key tile), streaming the query tiles; it forms
+//        S^T = K Q^T and dP^T = V dO^T directly, so that its accumulators
+//        are indexed by key row as dK and dV are)
+//   dQ_i = scale * sum_j dS_ij k_j  (one block per (g, query tile),
+//                                    streaming the key tiles)
+// Two kernels instead of one with atomics on dQ: every output element has
+// one writer, so the gradients are bitwise reproducible.
 //
-// Bound on the H100: f32 FMA throughput of the products (no tensor cores
-// yet: 4 threads per row, each owning a quarter of the output columns),
-// and shared-memory bandwidth of the tile reads.  Rows are padded by one
-// float so the 4 threads of a row and the 8 rows of a warp hit distinct
-// banks.  Shared memory per block (hd = 128): forward 116 KB, dK/dV 166 KB,
-// dQ 149 KB; every launch raises the block's dynamic shared-memory limit
-// first.
+// Products: every matrix product (Q K^T and P V forward; K Q^T, V dO^T,
+// P^T dO, dS^T Q, Q K^T, dO V^T and dS K backward) runs on the tensor cores
+// as mma.sync.m16n8k8 TF32 with f32 accumulators, in three passes: each
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi), and
+// acc += lo*hi + hi*lo + hi*hi, the small terms first ("3xTF32").  One
+// TF32 pass keeps ~11 bits and misses the f32 tolerances of the tests by
+// 10x or more (tests/test_torch_attention_precision.py); three passes carry
+// the operands' f32 precision into the products.  The error left is the
+// tensor cores' f32 accumulation, which does not round each sum to nearest:
+// on an H100 the kernels are 5.0e-6 (forward) and 1.1e-5 (backward) off
+// the plain f32 version at T = 1024 (chip_smoke.py phase 2), several times
+// what f32 FMA loops give; tests/test_torch_gpu.py holds them within
+// 1.5e-5 / 3e-5 of f64.  Operands are split as the fragments are
+// loaded from shared memory, so tiles stay f32; the rounding is integer
+// arithmetic, not the conversion instruction (see to_tf32).  Each pass runs
+// over a group of up to 8 accumulator tiles, so that independent products
+// separate two that share an accumulator.
+//
+// Fragments: a lane (group gr = lane / 4, t = lane % 4) holds rows gr and
+// gr + 8, columns 2t and 2t + 1 of each 16x8 accumulator tile.  Softmax row
+// maxima and sums therefore combine the 4 lanes of a quad (__shfl_xor 1, 2).
+// The accumulator of S (or P^T, dS, dS^T) is the A operand of the next
+// product as it stands: the m16n8k8 A fragment wants keys t and t + 4 of an
+// 8-key step, the accumulator holds keys 2t and 2t + 1, and since a sum over
+// keys ignores their order, the B fragment is loaded with key 2t at k = t
+// and key 2t + 1 at k = t + 4.  Tile rows are padded by 4 floats (row stride
+// HD + 4, = 4 mod 32 banks), which keeps 16-byte cp.async copies aligned and
+// every fragment load of the three access patterns free of bank conflicts.
+//
+// Copies: tiles arrive by cp.async, 16 B a thread, double-buffered: the next
+// tile's copy is in flight while the current one is multiplied.  Rows past
+// T are zero-filled (src-size 0); scores past T are -inf in the forward and
+// P = 0 there in the backward.
+//
+// Filling the card: 16 rows a warp, and the rows a block owns (query rows,
+// or keys in the dK/dV kernel) follow T so that each UNet level launches
+// >= 128 blocks at G = 32: 64 rows (4 warps) from T = 512, 32 from T = 128,
+// else 16.  Streamed tiles have 64 rows, 32 at hd = 128 (shared memory and
+// registers, see tile_rows).
+//
+// Bound on the H100: tensor-core operations, 3 passes x (4 hd T^2 forward,
+// 10 hd T^2 backward) per program at 495 TFLOP/s dense TF32, at the 32^2
+// level (T = 1024); bytes at the 8^2 level (T = 64).  What holds the kernels
+// above it (PERF.md): mma.sync, which reaches only part of the dense rate
+// (wgmma is the next step), and the splits, ~20% of the forward's time.
+// The backward runs 7 products where the bound counts 5: the dQ kernel
+// recomputes S and dP rather than sum dQ across key tiles with atomics.
+// Neither more blocks an SM (32-row tiles at every head dim) nor a
+// register cap for three blocks an SM made either kernel faster.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;   // query rows per block / per streamed tile
-constexpr int kBK = 64;   // key rows per block / per streamed tile
-constexpr int kThreads = 256;
-constexpr int kPS = kBK + 1;  // padded row of a (query, key) tile
+constexpr int kMaxThreads = 128;  // 4 warps: 64 rows a block
 
+// Rows (query rows, or keys in the dK/dV kernel) a block owns, 16 a warp.
+int rows_per_block(int T) { return T >= 512 ? 64 : T >= 128 ? 32 : 16; }
+
+// Rows a streamed tile (keys in the forward and the dQ kernel, queries in
+// the dK/dV kernel): 32 at hd = 128, where a 64-row f32 tile is 33 KB (two
+// blocks fit an SM with double-buffered K and V) and the dK and dV
+// accumulators take 128 registers a thread; else 64.
 template <int HD>
-constexpr int smem_floats() {
-  return kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1);
+__host__ __device__ constexpr int tile_rows() {
+  return HD == 128 ? 32 : 64;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + n) of a (T, HD) f32 matrix into a tile of row stride
+// HD + 4, by cp.async; rows past T are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int n, int T) {
+  constexpr int C4 = HD / 4;
+  for (int e = threadIdx.x; e < n * C4; e += blockDim.x) {
+    const int r = e / C4, c = (e % C4) * 4;
+    const bool in = r0 + r < T;
+    cp_async16(dst + r * (HD + 4) + c,
+               src + (size_t)(in ? r0 + r : 0) * HD + c, in);
+  }
+}
+
+// Entries [r0, r0 + n) of a length-T f32 vector, by cp.async; past T zero.
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int r0, int n, int T) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const bool in = r0 + i < T;
+    cp_async4(dst + i, src + (in ? r0 + i : 0), in);
+  }
+}
+
+// x rounded to TF32, to nearest with ties away from zero: the result of
+// cvt.rna.tf32.f32 for finite x, by an integer add of half a TF32 ulp and a
+// mask.  Every operand element is split once per use, and with the
+// conversion instruction both kernels took 16-17% longer on the H100.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Independent accumulator tiles a three-pass group runs over (see mma3).
+constexpr int kGroup = 8;
+
+// acc[n] += A B_n for the N tiles of b (b[n]: the B fragment, k = t and
+// k = t + 4, raw f32) in three TF32 passes, the small terms first; A comes
+// split.  Each pass runs over all N tiles, so that N independent products
+// separate two that share an accumulator (in-order issue would otherwise
+// wait out the mma latency twice a tile).
+template <int N>
+__device__ __forceinline__ void mma3(float (*acc)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const float (&b)[N][2]) {
+  uint32_t bh[N][2], bl[N][2];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split(b[n][0], bh[n][0], bl[n][0]);
+    split(b[n][1], bh[n][1], bl[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], al, bh[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bl[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bh[n]);
+}
+
+// acc (16 x 8 NT) += A Bt^T over 8 KS columns: A is the warp's 16 rows of a
+// row-major shared tile, Bt 8 NT rows of another (row stride RS both).
+// The k loop is unrolled whole up to hd = 64 and by 2 at hd = 128, where the
+// whole loop made the kernels slower on the H100 (PERF.md).
+template <int KS, int NT, int RS>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
+                                        const float* Bt) {
+  static_assert(NT <= kGroup, "one group of accumulator tiles");
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+#pragma unroll(KS <= 8 ? KS : 2)
+  for (int ks = 0; ks < KS; ++ks) {
+    const float* a = A + gr * RS + 8 * ks + t;
+    uint32_t ah[4], al[4];
+    split(a[0], ah[0], al[0]);
+    split(a[8 * RS], ah[1], al[1]);
+    split(a[4], ah[2], al[2]);
+    split(a[8 * RS + 4], ah[3], al[3]);
+    const float* bp = Bt + gr * RS + 8 * ks + t;
+    float b[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      b[n][0] = bp[8 * n * RS];
+      b[n][1] = bp[8 * n * RS + 4];
+    }
+    mma3<NT>(acc, ah, al, b);
+  }
+}
+
+// acc (16 x 8 NT) += P B over 8 KS rows of B: P (16 x 8 KS) in the
+// accumulator layout, B a row-major shared tile (row stride RS).  Within an
+// 8-row step, k = t reads row 2t and k = t + 4 row 2t + 1 (see the note).
+template <int KS, int NT, int RS>
+__device__ __forceinline__ void mma_pb(float (&acc)[NT][4],
+                                       const float (&p)[KS][4],
+                                       const float* B) {
+  constexpr int N = NT < kGroup ? NT : kGroup;
+  static_assert(NT % N == 0, "whole groups of accumulator tiles");
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t ah[4], al[4];
+    split(p[ks][0], ah[0], al[0]);
+    split(p[ks][2], ah[1], al[1]);
+    split(p[ks][1], ah[2], al[2]);
+    split(p[ks][3], ah[3], al[3]);
+    const float* bp = B + (8 * ks + 2 * t) * RS + gr;
+#pragma unroll
+    for (int c = 0; c < NT; c += N) {
+      float b[N][2];
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        b[n][0] = bp[8 * (c + n)];
+        b[n][1] = bp[8 * (c + n) + RS];
+      }
+      mma3<N>(acc + c, ah, al, b);
+    }
+  }
+}
+
+// Store rows gr and gr + 8 of the warp's accumulator (16 x HD) times `mul`
+// to rows r0 + gr, r0 + gr + 8 of out (row length HD), those below T.
+template <int HD>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[HD / 8][4],
+                                           int r0, int T, const float mul[2]) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + gr + 8 * h;
+    if (row >= T) continue;
+    float* o = out + (size_t)row * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+int fwd_smem(int rows) {
+  return (rows + 4 * tile_rows<HD>()) * (HD + 4) * (int)sizeof(float);
+}
+
+// Block: (g = blockIdx.y, query rows blockIdx.x * R .. + R), R = blockDim.x
+// / 2.  Shared: Q (R rows), K and V (two buffers of tile_rows keys each).
+template <int HD>
+__global__ void __launch_bounds__(kMaxThreads)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int T, float scale) {
-  constexpr int QS = HD + 1;
-  constexpr int PS = kBK + 1;
-  constexpr int CPT = HD / 4;        // output columns per thread
-  constexpr int SPT = kBK / 4;       // scores per thread per tile
-  extern __shared__ float smem[];
+  constexpr int RS = HD + 4, BK = tile_rows<HD>(), KT = BK / 8, NO = HD / 8;
+  extern __shared__ __align__(16) float smem[];
+  const int R = blockDim.x / 2;
   float* sQ = smem;
-  float* sK = sQ + kBQ * QS;
-  float* sV = sK + kBK * QS;
-  float* sP = sV + kBK * HD;
-
-  const int g = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;
-  const int sub = tid & 3;
+  float* sK = sQ + R * RS;
+  float* sV = sK + 2 * BK * RS;
+  const int g = blockIdx.y, q0 = blockIdx.x * R;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const size_t base = (size_t)g * T * HD;
+  const float* kg = k + base;
+  const float* vg = v + base;
 
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD;
-    sQ[r * QS + c] = q0 + r < T ? q[base + (size_t)(q0 + r) * HD + c] : 0.0f;
-  }
+  load_rows<HD>(sQ, q + base, q0, R, T);
+  load_rows<HD>(sK, kg, 0, BK, T);
+  load_rows<HD>(sV, vg, 0, BK, T);
+  cp_async_commit();
 
-  float acc[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) acc[c] = 0.0f;
-  float m = -INFINITY, l = 0.0f;
-
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();  // Q loaded / previous tile fully consumed
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const int r = e / HD, c = e % HD;
-      const bool in = k0 + r < T;
-      const size_t off = base + (size_t)(k0 + r) * HD + c;
-      sK[r * QS + c] = in ? k[off] : 0.0f;
-      sV[r * HD + c] = in ? v[off] : 0.0f;
+  float acc[NO][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  const float* sQw = sQ + warp * 16 * RS;
+  const int tiles = (T + BK - 1) / BK;
+  for (int it = 0; it < tiles; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < tiles) {  // the buffer it overwrites was released below
+      load_rows<HD>(sK + (cur ^ 1) * BK * RS, kg, (it + 1) * BK, BK, T);
+      load_rows<HD>(sV + (cur ^ 1) * BK * RS, vg, (it + 1) * BK, BK, T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* cK = sK + cur * BK * RS;
+    const float* cV = sV + cur * BK * RS;
 
-    float sc[SPT];
-    float mt = -INFINITY;
+    float s[KT][4] = {};
+    mma_abt<HD / 8, KT, RS>(s, sQw, cK);  // S = Q K^T
+    const int k0 = it * BK;
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int jj = 0; jj < SPT; ++jj) {
-      const int j = sub + 4 * jj;
-      float a = 0.0f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) a += sQ[row * QS + d] * sK[j * QS + d];
-      a = k0 + j < T ? a * scale : -INFINITY;
-      sc[jj] = a;
-      mt = fmaxf(mt, a);
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * n + 2 * t + (e & 1);
+        s[n][e] = col < T ? s[n][e] * scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2], rsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);  // finite: key k0 < T is valid
+      alpha[h] = expf(m[h] - mn);
+      m[h] = mn;
     }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);   // finite: tile holds a valid key
-    const float alpha = expf(m - m_new);
-    float ls = 0.0f;
 #pragma unroll
-    for (int jj = 0; jj < SPT; ++jj) {
-      const float p = expf(sc[jj] - m_new);
-      sP[row * PS + sub + 4 * jj] = p;
-      ls += p;
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    l = l * alpha + ls;
-    m = m_new;
+    for (int n = 0; n < KT; ++n)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[c] *= alpha;
-    __syncwarp();  // a row's P is written by the 4 lanes of one warp
-    for (int j = 0; j < kBK; ++j) {
-      const float p = sP[row * PS + j];
-      const float* vr = sV + j * HD + sub;
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m[e >> 1]);
+        rsum[e >> 1] += s[n][e];
+      }
+    // l stays a per-lane partial sum until the end (alpha is the quad's)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[c] += p * vr[4 * c];
-    }
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rsum[h];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    mma_pb<KT, NO, RS>(acc, s, cV);  // O += P V
+    __syncthreads();  // this buffer is free for the copy after next
   }
 
-  if (q0 + row < T) {
-    const float inv = 1.0f / l;
-    float* out = o + base + (size_t)(q0 + row) * HD + sub;
+  float inv[2];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) out[4 * c] = acc[c] * inv;
-    if (lse != nullptr && sub == 0) lse[(size_t)g * T + q0 + row] = m + logf(l);
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.0f / l[h];
+  }
+  const int r0 = q0 + warp * 16;
+  store_rows<HD>(o + base, acc, r0, T, inv);
+  if (lse != nullptr && t == 0) {
+    const int gr = (threadIdx.x & 31) >> 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r0 + gr + 8 * h < T)
+        lse[(size_t)g * T + r0 + gr + 8 * h] = m[h] + logf(l[h]);
   }
 }
 
@@ -158,71 +397,22 @@ __global__ void attention_bwd_dot_kernel(const float* __restrict__ o,
   if (lane == 0) D[r] = s;
 }
 
-// Copy rows [r0, r0 + 64) of a (T, HD) matrix into a padded tile; rows past
-// T read as 0.
 template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int T) {
-  for (int e = threadIdx.x; e < 64 * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD;
-    dst[r * (HD + 1) + c] = r0 + r < T ? src[(size_t)(r0 + r) * HD + c]
-                                       : 0.0f;
-  }
-}
-
-// The (64 query x 64 key) tile of P and dS from staged Q, dO (query rows)
-// and K, V (key rows).  Thread (row = tid / 4, sub = tid % 4) forms the 16
-// entries (row, sub + 4 jj).  Entries outside [0, T) on either side are 0.
-// sP may be null (the dQ kernel needs dS only).
-template <int HD>
-__device__ __forceinline__ void score_tile(
-    const float* sQ, const float* sdO, const float* sK, const float* sV,
-    const float* sLse, const float* sD, float* sP, float* sDS, int q0,
-    int k0, int T, float scale) {
-  constexpr int QS = HD + 1;
-  constexpr int SPT = kBK / 4;
-  const int row = threadIdx.x >> 2;
-  const int sub = threadIdx.x & 3;
-  float s[SPT], dp[SPT];
-#pragma unroll
-  for (int jj = 0; jj < SPT; ++jj) s[jj] = dp[jj] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    const float qd = sQ[row * QS + d];
-    const float gd = sdO[row * QS + d];
-#pragma unroll
-    for (int jj = 0; jj < SPT; ++jj) {
-      const int j = sub + 4 * jj;
-      s[jj] += qd * sK[j * QS + d];
-      dp[jj] += gd * sV[j * QS + d];
-    }
-  }
-  const bool row_in = q0 + row < T;
-  const float lse = sLse[row], Di = sD[row];
-#pragma unroll
-  for (int jj = 0; jj < SPT; ++jj) {
-    const int j = sub + 4 * jj;
-    const bool in = row_in && k0 + j < T;
-    const float p = in ? expf(s[jj] * scale - lse) : 0.0f;
-    if (sP != nullptr) sP[row * kPS + j] = p;
-    sDS[row * kPS + j] = p * (dp[jj] - Di);
-  }
+int dkdv_smem(int rows) {
+  constexpr int BN = tile_rows<HD>();
+  return ((2 * rows + 4 * BN) * (HD + 4) + 4 * BN) * (int)sizeof(float);
 }
 
 template <int HD>
-constexpr int dkdv_smem_floats() {
-  return 4 * 64 * (HD + 1) + 2 * 64 * kPS + 2 * 64;
+int dq_smem(int rows) {
+  constexpr int BN = tile_rows<HD>();
+  return ((2 * rows + 4 * BN) * (HD + 4) + 2 * rows) * (int)sizeof(float);
 }
 
+// Block: (g, keys blockIdx.x * R .. + R), R = blockDim.x / 2: dK and dV of
+// those keys, streaming every query tile (Q, dO, LSE and D double-buffered).
 template <int HD>
-constexpr int dq_smem_floats() {
-  return 4 * 64 * (HD + 1) + 64 * kPS + 2 * 64;
-}
-
-// One block per (g, 64-key tile): dK, dV of those keys, streaming every
-// query tile.  Thread (j = tid / 4, sub) owns columns sub + 4 c of key row j.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 attention_bwd_dkdv_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -231,70 +421,83 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q,
                           const float* __restrict__ D,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int T, float scale) {
-  constexpr int QS = HD + 1;
-  constexpr int CPT = HD / 4;
-  extern __shared__ float smem[];
+  constexpr int RS = HD + 4, BN = tile_rows<HD>(), NT = BN / 8, NO = HD / 8;
+  extern __shared__ __align__(16) float smem[];
+  const int R = blockDim.x / 2;
   float* sK = smem;
-  float* sV = sK + 64 * QS;
-  float* sQ = sV + 64 * QS;
-  float* sdO = sQ + 64 * QS;
-  float* sP = sdO + 64 * QS;
-  float* sDS = sP + 64 * kPS;
-  float* sLse = sDS + 64 * kPS;
-  float* sD = sLse + 64;
-
-  const int g = blockIdx.y;
-  const int k0 = blockIdx.x * kBK;
-  const int tid = threadIdx.x;
-  const int jr = tid >> 2;
-  const int sub = tid & 3;
+  float* sV = sK + R * RS;
+  float* sQ = sV + R * RS;       // two buffers
+  float* sdO = sQ + 2 * BN * RS;  // two buffers
+  float* sL = sdO + 2 * BN * RS;  // two buffers
+  float* sD = sL + 2 * BN;        // two buffers
+  const int g = blockIdx.y, k0 = blockIdx.x * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
   const size_t base = (size_t)g * T * HD;
-  load_tile<HD>(sK, k + base, k0, T);
-  load_tile<HD>(sV, v + base, k0, T);
+  const float* qg = q + base;
+  const float* dog = dout + base;
+  const float* lg = lse + (size_t)g * T;
+  const float* Dg = D + (size_t)g * T;
 
-  float acc_k[CPT], acc_v[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) acc_k[c] = acc_v[c] = 0.0f;
+  load_rows<HD>(sK, k + base, k0, R, T);
+  load_rows<HD>(sV, v + base, k0, R, T);
+  load_rows<HD>(sQ, qg, 0, BN, T);
+  load_rows<HD>(sdO, dog, 0, BN, T);
+  load_vec(sL, lg, 0, BN, T);
+  load_vec(sD, Dg, 0, BN, T);
+  cp_async_commit();
 
-  for (int q0 = 0; q0 < T; q0 += kBQ) {
-    __syncthreads();  // previous query tile fully consumed
-    load_tile<HD>(sQ, q + base, q0, T);
-    load_tile<HD>(sdO, dout + base, q0, T);
-    if (tid < 64) {
-      const bool in = q0 + tid < T;
-      sLse[tid] = in ? lse[(size_t)g * T + q0 + tid] : 0.0f;
-      sD[tid] = in ? D[(size_t)g * T + q0 + tid] : 0.0f;
+  float acc_k[NO][4] = {}, acc_v[NO][4] = {};
+  const float* sKw = sK + warp * 16 * RS;
+  const float* sVw = sV + warp * 16 * RS;
+  const int kr0 = k0 + warp * 16 + gr;  // key rows kr0 and kr0 + 8
+  const int tiles = (T + BN - 1) / BN;
+  for (int it = 0; it < tiles; ++it) {
+    const int cur = it & 1, nxt = cur ^ 1;
+    if (it + 1 < tiles) {
+      const int r1 = (it + 1) * BN;
+      load_rows<HD>(sQ + nxt * BN * RS, qg, r1, BN, T);
+      load_rows<HD>(sdO + nxt * BN * RS, dog, r1, BN, T);
+      load_vec(sL + nxt * BN, lg, r1, BN, T);
+      load_vec(sD + nxt * BN, Dg, r1, BN, T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    score_tile<HD>(sQ, sdO, sK, sV, sLse, sD, sP, sDS, q0, k0, T, scale);
-    __syncthreads();
-    for (int i = 0; i < kBQ; ++i) {
-      const float p = sP[i * kPS + jr];
-      const float ds = sDS[i * kPS + jr];
-      const float* gr = sdO + i * QS + sub;
-      const float* qr = sQ + i * QS + sub;
+    const float* cQ = sQ + cur * BN * RS;
+    const float* cdO = sdO + cur * BN * RS;
+    const float* cL = sL + cur * BN;
+    const float* cD = sD + cur * BN;
+
+    float st[NT][4] = {}, dpt[NT][4] = {};
+    mma_abt<HD / 8, NT, RS>(st, sKw, cQ);    // S^T = K Q^T
+    mma_abt<HD / 8, NT, RS>(dpt, sVw, cdO);  // dP^T = V dO^T
+    const int q0 = it * BN;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        acc_v[c] += p * gr[4 * c];
-        acc_k[c] += ds * qr[4 * c];
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * n + 2 * t + (e & 1);  // query within the tile
+        const bool in = q0 + i < T && kr0 + 8 * (e >> 1) < T;
+        const float p = in ? expf(st[n][e] * scale - cL[i]) : 0.0f;
+        dpt[n][e] = p * (dpt[n][e] - cD[i]);  // dS^T
+        st[n][e] = p;                         // P^T
       }
-    }
+    mma_pb<NT, NO, RS>(acc_v, st, cdO);  // dV += P^T dO
+    mma_pb<NT, NO, RS>(acc_k, dpt, cQ);  // dK += dS^T Q
+    __syncthreads();  // this buffer is free for the copy after next
   }
-
-  if (k0 + jr < T) {
-    const size_t off = base + (size_t)(k0 + jr) * HD + sub;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      dk[off + 4 * c] = acc_k[c] * scale;
-      dv[off + 4 * c] = acc_v[c];
-    }
-  }
+  const float one[2] = {1.0f, 1.0f}, sc[2] = {scale, scale};
+  store_rows<HD>(dv + base, acc_v, k0 + warp * 16, T, one);
+  store_rows<HD>(dk + base, acc_k, k0 + warp * 16, T, sc);
 }
 
-// One block per (g, 64-query tile): dQ of those queries, streaming every key
-// tile.  Thread (i = tid / 4, sub) owns columns sub + 4 c of query row i.
+// Block: (g, query rows blockIdx.x * R .. + R), R = blockDim.x / 2: dQ of
+// those rows, streaming every key tile (K and V double-buffered).
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 attention_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -302,56 +505,73 @@ attention_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ D, float* __restrict__ dq,
                         int T, float scale) {
-  constexpr int QS = HD + 1;
-  constexpr int CPT = HD / 4;
-  extern __shared__ float smem[];
+  constexpr int RS = HD + 4, BN = tile_rows<HD>(), NT = BN / 8, NO = HD / 8;
+  extern __shared__ __align__(16) float smem[];
+  const int R = blockDim.x / 2;
   float* sQ = smem;
-  float* sdO = sQ + 64 * QS;
-  float* sK = sdO + 64 * QS;
-  float* sV = sK + 64 * QS;
-  float* sDS = sV + 64 * QS;
-  float* sLse = sDS + 64 * kPS;
-  float* sD = sLse + 64;
-
-  const int g = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int ir = tid >> 2;
-  const int sub = tid & 3;
+  float* sdO = sQ + R * RS;
+  float* sK = sdO + R * RS;      // two buffers
+  float* sV = sK + 2 * BN * RS;  // two buffers
+  float* sL = sV + 2 * BN * RS;
+  float* sD = sL + R;
+  const int g = blockIdx.y, q0 = blockIdx.x * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t = lane & 3;
   const size_t base = (size_t)g * T * HD;
-  load_tile<HD>(sQ, q + base, q0, T);
-  load_tile<HD>(sdO, dout + base, q0, T);
-  if (tid < 64) {
-    const bool in = q0 + tid < T;
-    sLse[tid] = in ? lse[(size_t)g * T + q0 + tid] : 0.0f;
-    sD[tid] = in ? D[(size_t)g * T + q0 + tid] : 0.0f;
-  }
+  const float* kg = k + base;
+  const float* vg = v + base;
 
-  float acc[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) acc[c] = 0.0f;
+  load_rows<HD>(sQ, q + base, q0, R, T);
+  load_rows<HD>(sdO, dout + base, q0, R, T);
+  load_vec(sL, lse + (size_t)g * T, q0, R, T);
+  load_vec(sD, D + (size_t)g * T, q0, R, T);
+  load_rows<HD>(sK, kg, 0, BN, T);
+  load_rows<HD>(sV, vg, 0, BN, T);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();  // previous key tile fully consumed
-    load_tile<HD>(sK, k + base, k0, T);
-    load_tile<HD>(sV, v + base, k0, T);
-    __syncthreads();
-    score_tile<HD>(sQ, sdO, sK, sV, sLse, sD, nullptr, sDS, q0, k0, T,
-                   scale);
-    __syncthreads();
-    for (int j = 0; j < kBK; ++j) {
-      const float ds = sDS[ir * kPS + j];
-      const float* kr = sK + j * QS + sub;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[c] += ds * kr[4 * c];
+  float acc[NO][4] = {};
+  const int w0 = warp * 16;  // the warp's rows within the block
+  const int tiles = (T + BN - 1) / BN;
+  for (int it = 0; it < tiles; ++it) {
+    const int cur = it & 1, nxt = cur ^ 1;
+    if (it + 1 < tiles) {
+      load_rows<HD>(sK + nxt * BN * RS, kg, (it + 1) * BN, BN, T);
+      load_rows<HD>(sV + nxt * BN * RS, vg, (it + 1) * BN, BN, T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  }
+    __syncthreads();
+    const float* cK = sK + cur * BN * RS;
+    const float* cV = sV + cur * BN * RS;
 
-  if (q0 + ir < T) {
-    float* out = dq + base + (size_t)(q0 + ir) * HD + sub;
+    float s[NT][4] = {}, dp[NT][4] = {};
+    mma_abt<HD / 8, NT, RS>(s, sQ + w0 * RS, cK);    // S = Q K^T
+    mma_abt<HD / 8, NT, RS>(dp, sdO + w0 * RS, cV);  // dP = dO V^T
+    const int kb = it * BN;
+    float Lr[2], Dr[2];
+    bool row_in[2];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) out[4 * c] = acc[c] * scale;
+    for (int h = 0; h < 2; ++h) {
+      Lr[h] = sL[w0 + gr + 8 * h];
+      Dr[h] = sD[w0 + gr + 8 * h];
+      row_in[h] = q0 + w0 + gr + 8 * h < T;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const bool in = row_in[h] && kb + 8 * n + 2 * t + (e & 1) < T;
+        const float p = in ? expf(s[n][e] * scale - Lr[h]) : 0.0f;
+        s[n][e] = p * (dp[n][e] - Dr[h]);  // dS
+      }
+    mma_pb<NT, NO, RS>(acc, s, cK);  // dQ += dS K
+    __syncthreads();  // this buffer is free for the copy after next
   }
+  const float sc[2] = {scale, scale};
+  store_rows<HD>(dq + base, acc, q0 + w0, T, sc);
 }
 
 template <typename Kernel>
@@ -363,12 +583,13 @@ cudaError_t raise_smem(Kernel kernel, int bytes) {
 template <int HD>
 int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* lse, int G, int T, float scale, cudaStream_t stream) {
-  const int smem = smem_floats<HD>() * (int)sizeof(float);
+  const int rows = rows_per_block(T);
+  const int smem = fwd_smem<HD>(rows);
   cudaError_t err = raise_smem(attention_fwd_kernel<HD>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + kBQ - 1) / kBQ, G);
-  attention_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse,
-                                                            T, scale);
+  dim3 grid((T + rows - 1) / rows, G);
+  attention_fwd_kernel<HD><<<grid, 2 * rows, smem, stream>>>(q, k, v, o, lse,
+                                                             T, scale);
   return (int)cudaGetLastError();
 }
 
@@ -377,35 +598,35 @@ int launch_bwd(const float* q, const float* k, const float* v,
                const float* o, const float* dout, const float* lse,
                float* dq, float* dk, float* dv, float* D, int G, int T,
                float scale, cudaStream_t stream) {
-  const int rows = G * T;
-  attention_bwd_dot_kernel<<<(rows * 32 + kThreads - 1) / kThreads, kThreads,
-                             0, stream>>>(o, dout, D, rows, HD);
+  const int nrows = G * T;
+  attention_bwd_dot_kernel<<<(nrows * 32 + kMaxThreads - 1) / kMaxThreads,
+                             kMaxThreads, 0, stream>>>(o, dout, D, nrows, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int smem_kv = dkdv_smem_floats<HD>() * (int)sizeof(float);
+  const int rows = rows_per_block(T);
+  dim3 grid((T + rows - 1) / rows, G);
+  const int smem_kv = dkdv_smem<HD>(rows);
   err = raise_smem(attention_bwd_dkdv_kernel<HD>, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_k((T + kBK - 1) / kBK, G);
-  attention_bwd_dkdv_kernel<HD><<<grid_k, kThreads, smem_kv, stream>>>(
+  attention_bwd_dkdv_kernel<HD><<<grid, 2 * rows, smem_kv, stream>>>(
       q, k, v, dout, lse, D, dk, dv, T, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int smem_q = dq_smem_floats<HD>() * (int)sizeof(float);
+  const int smem_q = dq_smem<HD>(rows);
   err = raise_smem(attention_bwd_dq_kernel<HD>, smem_q);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_q((T + kBQ - 1) / kBQ, G);
-  attention_bwd_dq_kernel<HD><<<grid_q, kThreads, smem_q, stream>>>(
+  attention_bwd_dq_kernel<HD><<<grid, 2 * rows, smem_q, stream>>>(
       q, k, v, dout, lse, D, dq, T, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: (G, T, hd) f32 contiguous; lse: (G, T) f32 or nullptr (the
-// row log-sum-exps the backward reads).  Returns cudaErrorInvalidValue for
-// a head dim without an instance.
+// q, k, v, o: (G, T, hd) f32 contiguous, 16-byte aligned; lse: (G, T) f32
+// or nullptr (the row log-sum-exps the backward reads).  Returns
+// cudaErrorInvalidValue for a head dim without an instance.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int G, int T, int hd,
                              float scale, void* stream) {
@@ -423,9 +644,9 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// q, k, v, o, dout, dq, dk, dv: (G, T, hd) f32 contiguous; lse: (G, T) from
-// attention_fwd; D: (G, T) f32 scratch.  Returns cudaErrorInvalidValue for a
-// head dim without an instance.
+// q, k, v, o, dout, dq, dk, dv: (G, T, hd) f32 contiguous, 16-byte aligned;
+// lse: (G, T) from attention_fwd; D: (G, T) f32 scratch.  Returns
+// cudaErrorInvalidValue for a head dim without an instance.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dq, void* dk, void* dv, void* D, int G,

@@ -28,6 +28,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     'march_occupancy': [_P, _P, _P, _I, _I, _I, _P],
+    'march_popcount': [_P, _P, _P, _I, _I, _I, _I, _P],
     'triplane_decode': [_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
     'triplane_decode_bwd': [_P] * 10 + [_I] * 6 + [_P],

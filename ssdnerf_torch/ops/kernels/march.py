@@ -6,6 +6,10 @@ and applies the far test, in the op order of the JAX package, and hands the
 kernel (``csrc/march.cu``) one int32 per sample: the linear voxel index
 ``(ix * H + iy) * H + iz``, or -1 past far.  The kernel looks the index up
 in the scene's bitfield (byte ``lin >> 3``, bit ``lin & 7``).
+
+``occupied_counts`` ports ``tools/march_scalar_probe.py:scalar_march``: the
+same byte lookup, summed over each row of sample indices (the kernel
+``march_popcount`` of ``csrc/march.cu``).
 """
 import torch
 
@@ -89,3 +93,48 @@ def march_valid_mask(rays_o, rays_d, t0, fars, density_bitfield, dt_gamma,
     valid = occupancy_lookup(idx.reshape(S, R * T),
                              density_bitfield.contiguous())
     return valid.reshape(S, R, T)
+
+
+def occupied_counts_plain(ji, table):
+    """Plain version of :func:`occupied_counts`: each scene's rows looked
+    up as one run of :func:`occupancy_lookup_plain`."""
+    S = table.shape[0]
+    hits = occupancy_lookup_plain(ji.reshape(S, -1), table.reshape(S, -1))
+    return hits.reshape(ji.shape).sum(-1, dtype=torch.int32)
+
+
+def occupied_counts(ji, table):
+    """Count of live, occupied samples in each row of sample indices.
+
+    Args:
+        ji: (rows, n) int32 sample indices, -1 for dead samples; the rows
+            split evenly over the scenes of ``table``, in order.
+        table: (S, ...) uint8 byte table of each scene (``occupancy_table``):
+            sample ``ji`` reads bit ``ji & 7`` of byte ``ji >> 3``.
+
+    Returns:
+        (rows,) int32.  CPU tensors take the plain version; CUDA tensors
+        launch ``march_popcount`` of ``csrc/march.cu`` (or raise).
+    """
+    S = table.shape[0]
+    rows, n = ji.shape
+    if rows % S:
+        raise ValueError(f'occupied_counts: {rows} rows over {S} scenes')
+    if ji.device.type == 'cpu':
+        return occupied_counts_plain(ji, table)
+    _build.check_cuda('occupied_counts', ji, dtype=torch.int32)
+    _build.check_cuda('occupied_counts', table, dtype=torch.uint8)
+    if table.device != ji.device or n % 4 or ji.data_ptr() % 16:
+        raise ValueError('occupied_counts: needs a 16-byte aligned ji with '
+                         'rows of a multiple of 4 samples, and the table on '
+                         'its device')
+    flat = table.reshape(S, -1)
+    out = torch.empty(rows, dtype=torch.int32, device=ji.device)
+    _build.launch('march_popcount', ji.device, ji.data_ptr(),
+                  flat.data_ptr(), out.data_ptr(), S, rows // S, n,
+                  flat.shape[1])
+    occupied_counts.launches += 1
+    return out
+
+
+occupied_counts.launches = 0

@@ -21,3 +21,15 @@ def unpackbits(bitfield):
     bits = (bitfield[..., None].to(torch.int32)
             >> torch.arange(8, device=bitfield.device, dtype=torch.int32)) & 1
     return bits.reshape(bitfield.shape[:-1] + (-1,)).bool()
+
+
+def occupancy_table(bitfield, grid_size):
+    """Linear (x, y, z) bitfield -> byte table, the port of
+    ``occupancy_table`` of ``ssdnerf_tpu/ops/pallas/march.py`` without its
+    -128 int8 offset: (..., 2H, 4H) uint8 whose byte ``flat = y * 8H + x * 8
+    + zb`` (row ``flat >> 8``, column ``flat & 255``) packs the bits z = 8 zb
+    .. 8 zb + 7 of voxel column (x, y)."""
+    H = grid_size
+    lead = bitfield.shape[:-1]
+    cols = bitfield.reshape(lead + (H, H, H // 8)).transpose(-3, -2)
+    return cols.reshape(lead + (2 * H, 4 * H))

@@ -66,10 +66,34 @@ def test_decode_kernel_matches_plain(cuda_device, C):
         torch.testing.assert_close(o.cpu(), r, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize('T,hd', [(1024, 64), (256, 128), (64, 128),
-                                  (100, 32)])
+def test_march_popcount_kernel_matches_plain(cuda_device):
+    """Per-row counts of the probe's lookup, exact: the probe's shapes and
+    draws (2 scenes, 1024-sample rows, 10% dead), and a ragged row length
+    (1028 samples) over 3 scenes of random tables."""
+    from ssdnerf_torch.tools.march_scalar_probe import make_inputs
+    inp = make_inputs()
+    g = torch.Generator().manual_seed(21)
+    ji = torch.randint(-1, 2 ** 18, (3 * 50, 1028), generator=g,
+                       dtype=torch.int32)
+    table = torch.randint(0, 256, (3, 32768), generator=g, dtype=torch.uint8)
+    for ji, table in ((inp['ji'], inp['table']), (ji, table)):
+        ref = k_march.occupied_counts_plain(ji, table)
+        before = k_march.occupied_counts.launches
+        got = k_march.occupied_counts(ji.to(cuda_device),
+                                      table.to(cuda_device))
+        assert k_march.occupied_counts.launches == before + 1
+        assert torch.equal(got.cpu(), ref)
+
+
+# the UNet levels (32^2, 16^2, 8^2) and ragged lengths at every head dim
+ATTENTION_SHAPES = [(1024, 64), (256, 128), (64, 128), (100, 32), (1000, 64),
+                    (100, 128), (1000, 128), (1000, 32)]
+
+
+@pytest.mark.parametrize('T,hd', ATTENTION_SHAPES)
 def test_attention_kernel_matches_plain(cuda_device, T, hd):
-    """Every UNet attention level, plus a ragged T: atol 2e-5."""
+    """Every UNet attention level, plus ragged T at each head dim: atol
+    2e-5."""
     g = torch.Generator().manual_seed(13)
     q, k, v = (torch.randn((4, T, hd), generator=g).to(cuda_device)
                for _ in range(3))
@@ -87,8 +111,7 @@ def _max_rel_err(got, ref):
             ).item()
 
 
-@pytest.mark.parametrize('T,hd', [(1024, 64), (256, 128), (64, 128),
-                                  (100, 32)])
+@pytest.mark.parametrize('T,hd', ATTENTION_SHAPES)
 def test_attention_backward_kernel_matches_plain(cuda_device, T, hd):
     """dq, dk, dv through the autograd Function (kernel forward with LSE,
     backward kernels) vs autograd of the plain version, at the training
@@ -108,6 +131,62 @@ def test_attention_backward_kernel_matches_plain(cuda_device, T, hd):
                                rtol=0, atol=2e-5)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def test_attention_saturated_softmax(cuda_device):
+    """q and k x3 at T=1024, hd=64: a near one-hot softmax, where f32
+    itself is ~1.2e-5 (forward) / 4.4e-5 (backward) off f64, so atol 1e-4
+    forward and 5e-4 backward."""
+    g = torch.Generator().manual_seed(22)
+    q, k, v, do = (torch.randn((32, 1024, 64), generator=g).to(cuda_device)
+                   for _ in range(4))
+    q, k = q * 3, k * 3
+    scale = 1.0 / 8.0
+    torch.testing.assert_close(k_attn.attention(q, k, v, scale),
+                               k_attn.attention_plain(q, k, v, scale),
+                               rtol=0, atol=1e-4)
+    o, lse = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    got = k_attn.attention_backward(q, k, v, o, lse, do, scale)
+    ref = k_attn.attention_backward_plain(q, k, v, do, scale)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize('T,hd', ATTENTION_SHAPES)
+def test_attention_kernels_hold_f64(cuda_device, T, hd):
+    """The forward and backward kernels against the plain version in f64
+    at G = 32: atol 1.5e-5 forward, 3e-5 backward.  The tensor cores'
+    f32 accumulation puts the kernels ~5e-6 / ~1.1e-5 off plain f32 at
+    T=1024 (chip_smoke.py phase 2); these limits sit just above that, so
+    that a loss of precision shows."""
+    g = torch.Generator().manual_seed(24)
+    q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(hd)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o, lse = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    torch.testing.assert_close(
+        o.double(), k_attn.attention_plain(q64, k64, v64, scale), rtol=0,
+        atol=1.5e-5)
+    got = k_attn.attention_backward(q, k, v, o, lse, do, scale)
+    ref = k_attn.attention_backward_plain(q64, k64, v64, do64, scale)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.double(), b, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize('T,hd', [(1024, 64), (100, 128)])
+def test_attention_backward_is_deterministic(cuda_device, T, hd):
+    """No atomics: two backward runs on the same inputs give bitwise equal
+    dq, dk, dv."""
+    g = torch.Generator().manual_seed(23)
+    q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(hd)
+    o, lse = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    first = k_attn.attention_backward(q, k, v, o, lse, do, scale)
+    second = k_attn.attention_backward(q, k, v, o, lse, do, scale)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _decode_operands(device, C, hidden, M, n_rays, per_ray, S=2, seed=15):
@@ -181,7 +260,9 @@ def test_decode_autograd_goes_through_kernels(cuda_device):
 def test_kernels_raise_instead_of_falling_back(cuda_device):
     """A CUDA tensor the kernel does not take raises, with or without
     autograd, and so do the backward wrappers (head dim 48, decoder width
-    48); nothing falls back to the plain version."""
+    48, an attention operand off 16-byte alignment, int64 indices or rows
+    of 1022 samples for the occupancy counts); nothing falls back to the
+    plain version."""
     q = torch.randn((2, 64, 48), device=cuda_device)
     with pytest.raises(ValueError):
         k_attn.attention(q, q, q, 0.1)
@@ -200,6 +281,18 @@ def test_kernels_raise_instead_of_falling_back(cuda_device):
         k_march.occupancy_lookup(
             torch.zeros((1, 8), dtype=torch.int64, device=cuda_device),
             torch.zeros((1, 8), dtype=torch.uint8, device=cuda_device))
+    table = torch.zeros((1, 32768), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(TypeError):
+        k_march.occupied_counts(
+            torch.zeros((4, 1024), dtype=torch.int64, device=cuda_device),
+            table)
+    with pytest.raises(ValueError):   # rows of 1022 samples
+        k_march.occupied_counts(
+            torch.zeros((4, 1022), dtype=torch.int32, device=cuda_device),
+            table)
+    with pytest.raises(ValueError):   # not 16-byte aligned
+        k_attn.attention(*(torch.zeros(2 * 64 * 64 + 1, device=cuda_device)
+                           [1:].view(2, 64, 64) for _ in range(3)), 0.1)
 
 
 def _packed_layout(device, S=2, R=4096, K=64, P=512, seed=17):

@@ -193,10 +193,11 @@ def test_cam_rays_and_near_far_match_jax():
 
 
 def test_import_ssdnerf_torch_loads_no_jax():
-    """The port must run where JAX is absent: importing it (and building a
-    model) pulls in neither jax nor flax."""
+    """The port must run where JAX is absent: importing it (building a model,
+    and its tools) pulls in neither jax nor flax."""
     code = ('import sys, ssdnerf_torch; '
             'from ssdnerf_torch.models.autodecoders import DiffusionNeRF; '
+            'import ssdnerf_torch.tools.march_scalar_probe; '
             'bad = [m for m in ("jax", "flax", "ssdnerf_tpu") '
             'if m in sys.modules]; '
             'assert not bad, bad')
