@@ -13,10 +13,13 @@ runs six phases, any failure of which exits non-zero:
    time the card could take for the same work, and the time of one
    PyTorch call computing the same function where there is one): march,
    the probe's per-row occupancy counts, decode and attention forward, the
-   decode and attention backward at the training shapes, and the fused
-   decode + composite and the banded decode on the packed layouts of a
-   coherent render (a ball seen by 4 look-at views of 128x128 per scene,
-   where the banded guard holds); the kernels that
+   decode and attention backward at the training shapes, and the decode
+   forward, the fused decode + composite and the banded decode on the
+   packed layouts of a coherent render (a ball seen by 4 look-at views of
+   128x128 per scene, where the banded guard holds); the bounds of the
+   kernels whose products run on the tensor cores (decode, attention)
+   count those products in three TF32 passes, with the all-f32 bound
+   printed beside; the kernels that
    ``scaled_dot_product_attention`` runs are named from a profile;
    then the probe tool's path (``python -m
    ssdnerf_torch.tools.march_scalar_probe``) once, whose kernel must have
@@ -199,6 +202,13 @@ def decode_flops(C, hidden, colour=True):
     return ops + (hidden + 4 * hidden + 6 * hidden if colour else 0)
 
 
+def decode_products(C, hidden):
+    """Operations of one point's base Linear product (2 a MAC), which the
+    decode kernels run on the tensor cores (csrc/decode.cu); the backward
+    runs three such products a point."""
+    return 2 * 3 * C * hidden
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -337,6 +347,9 @@ def phase_kernels(dev):
         lib_dev_ms = (None if library is None
                       else sum(device_profile(library).values()))
         b_ms, b_by = bound_ms(flops, moved, tensor_flops)
+        # the same work with the products in f32 outside the tensor cores,
+        # one pass: the bound before the products moved onto them
+        f32_ms, _ = bound_ms(flops + tensor_flops / 3, moved)
         shown = rels if relative else errs
         log(f'phase 2 {tag}: max_abs_err={max(errs):.3e} max_rel_err='
             f'{max(rels):.3e} (tol {tol} {"relative" if relative else "absolute"}) '
@@ -346,13 +359,15 @@ def phase_kernels(dev):
                f'{lib_ms:.4f} ms (device {lib_dev_ms:.4f}) kernel/library '
                f'device={dev_ms / lib_dev_ms:.2f}x ')
             + f'bound={b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP f32'
-            + (f' + {tensor_flops / 1e9:.3f} GFLOP TF32' if tensor_flops
-               else '') + f', {moved / 1e6:.1f} MB)')
+            + (f' + {tensor_flops / 1e9:.3f} GFLOP TF32; all-f32 bound '
+               f'{f32_ms:.4f} ms' if tensor_flops else '')
+            + f', {moved / 1e6:.1f} MB)')
         for e, t in zip(shown, tols):
             check(e <= t, f'{tag}: error {e} > {t}')
         results.setdefault(name, dict(max_abs_err=max(errs), ms=ms,
                                       plain_ms=plain_ms, library_ms=lib_ms,
                                       bound_ms=b_ms, bound_by=b_by,
+                                      bound_all_f32_ms=f32_ms,
                                       device_ms=dev_ms,
                                       library_device_ms=lib_dev_ms,
                                       shape=tag))
@@ -401,15 +416,18 @@ def phase_kernels(dev):
                                           dir_out),
             lambda: k_dec.triplane_decode_plain(planes, xyz, params, hidden,
                                                 rid, dir_out), 1e-5,
-            S * M * decode_flops(C, hidden),
-            nbytes(planes, xyz, params, rid, dir_out) + S * M * 16)
+            S * M * (decode_flops(C, hidden) - decode_products(C, hidden)),
+            nbytes(planes, xyz, params, rid, dir_out) + S * M * 16,
+            tensor_flops=3 * S * M * decode_products(C, hidden))
     xyz_d = (torch.rand((S, H ** 3, 3), generator=g) * 2 - 1).to(dev)
     compare('decode', f'decode density-only S={S} M={H ** 3}',
             lambda: k_dec.triplane_decode(planes, xyz_d, params, hidden),
             lambda: k_dec.triplane_decode_plain(planes, xyz_d, params,
                                                 hidden), 1e-5,
-            S * H ** 3 * decode_flops(C, hidden, colour=False),
-            nbytes(planes, xyz_d, params) + S * H ** 3 * 4)
+            S * H ** 3 * (decode_flops(C, hidden, colour=False)
+                          - decode_products(C, hidden)),
+            nbytes(planes, xyz_d, params) + S * H ** 3 * 4,
+            tensor_flops=3 * S * H ** 3 * decode_products(C, hidden))
 
     # attention: G = batch 8 x 4 heads at the 32^2, 16^2 and 8^2 levels.
     # Bound: the products (4 hd T^2 forward, 10 hd T^2 backward a program)
@@ -469,8 +487,9 @@ def phase_kernels(dev):
                                           rid_b, dir_b),
             lambda: k_dec.triplane_decode_plain(planes, xyz_b, params,
                                                 hidden, rid_b, dir_b), 1e-5,
-            n_b * decode_flops(C, hidden),
-            nbytes(planes, xyz_b, params, rid_b, dir_b) + n_b * 16)
+            n_b * (decode_flops(C, hidden) - decode_products(C, hidden)),
+            nbytes(planes, xyz_b, params, rid_b, dir_b) + n_b * 16,
+            tensor_flops=3 * n_b * decode_products(C, hidden))
     # f32 atomics sum in a run-dependent order, so the backward's bound is
     # relative to each gradient's largest entry
     g_sig = torch.randn((S, n_rays * K), generator=g).to(dev)
@@ -481,9 +500,11 @@ def phase_kernels(dev):
                 planes, xyz_b, params, hidden, rid_b, dir_b, g_sig, g_rgb),
             lambda: k_dec.triplane_decode_backward_plain(
                 planes, xyz_b, params, hidden, rid_b, dir_b, g_sig, g_rgb),
-            1e-5, 3 * n_b * decode_flops(C, hidden),
+            1e-5, 3 * n_b * (decode_flops(C, hidden)
+                             - decode_products(C, hidden)),
             nbytes(planes, xyz_b, params, rid_b, dir_b, g_sig, g_rgb)
-            + nbytes(planes, params, dir_b), relative=True)
+            + nbytes(planes, params, dir_b), relative=True,
+            tensor_flops=9 * n_b * decode_products(C, hidden))
 
     # the render variants' kernels on the packed layouts of a coherent
     # render: the ball from BALL_VIEWS, 4 x 128^2 rays a scene, P=512 (4096
@@ -496,6 +517,18 @@ def phase_kernels(dev):
     n_valid = int(lay['pvalid'].sum())
     check(n_valid == int(lay['pvalid_b'].sum()), 'band layout sample count')
     M_l = lay['xyz'].shape[1]
+    # the decode forward on the ray layout's slots, as the split render
+    # decodes them: coherent rays, every slot (valid or not) decoded
+    n_l = S * M_l
+    compare('decode', f'decode colour S={S} M={M_l} (packed ball layout, '
+            f'P=512, valid {n_valid})',
+            lambda: k_dec.triplane_decode(planes, lay['xyz'], params, hidden,
+                                          lay['rid'], dir_l),
+            lambda: k_dec.triplane_decode_plain(planes, lay['xyz'], params,
+                                                hidden, lay['rid'], dir_l),
+            1e-5, n_l * (decode_flops(C, hidden) - decode_products(C, hidden)),
+            nbytes(planes, lay['xyz'], params, lay['rid'], dir_l) + n_l * 16,
+            tensor_flops=3 * n_l * decode_products(C, hidden))
     comp = (planes, lay['xyz'], params, hidden, lay['rid'], dir_l, lay['pt'],
             lay['pdt'], lay['pvalid'], lay['soffs'], GROUP_RAYS, 0.001, 1e-4)
     # tolerances: weights_sum, depth (sums of w t, t ~ 2), image

@@ -42,7 +42,8 @@
 // what f32 FMA loops give; tests/test_torch_gpu.py holds them within
 // 1.5e-5 / 3e-5 of f64.  Operands are split as the fragments are
 // loaded from shared memory, so tiles stay f32; the rounding is integer
-// arithmetic, not the conversion instruction (see to_tf32).  Each pass runs
+// arithmetic, not the conversion instruction (to_tf32, split, mma_tf32
+// and mma3 live in mma_tf32.cuh, shared with decode.cu).  Each pass runs
 // over a group of up to 8 accumulator tiles, so that independent products
 // separate two that share an accumulator.
 //
@@ -81,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -146,54 +149,9 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
   }
 }
 
-// x rounded to TF32, to nearest with ties away from zero: the result of
-// cvt.rna.tf32.f32 for finite x, by an integer add of half a TF32 ulp and a
-// mask.  Every operand element is split once per use, and with the
-// conversion instruction both kernels took 16-17% longer on the H100.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + O(2^-22 |x|), both TF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Independent accumulator tiles a three-pass group runs over (see mma3).
+// Independent accumulator tiles a three-pass group runs over (see mma3 in
+// mma_tf32.cuh).
 constexpr int kGroup = 8;
-
-// acc[n] += A B_n for the N tiles of b (b[n]: the B fragment, k = t and
-// k = t + 4, raw f32) in three TF32 passes, the small terms first; A comes
-// split.  Each pass runs over all N tiles, so that N independent products
-// separate two that share an accumulator (in-order issue would otherwise
-// wait out the mma latency twice a tile).
-template <int N>
-__device__ __forceinline__ void mma3(float (*acc)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const float (&b)[N][2]) {
-  uint32_t bh[N][2], bl[N][2];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    split(b[n][0], bh[n][0], bl[n][0]);
-    split(b[n][1], bh[n][1], bl[n][1]);
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], al, bh[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bl[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bh[n]);
-}
 
 // acc (16 x 8 NT) += A Bt^T over 8 KS columns: A is the warp's 16 rows of a
 // row-major shared tile, Bt 8 NT rows of another (row stride RS both).

@@ -25,6 +25,7 @@ from . import _build
 
 TILE = 128    # slots of a tile of the band layout, each with its own window
 BAND_W = 64   # u rows of a tile's plane window
+HIDDEN = (32, 64, 128)   # decoder widths of the decode kernels' instances
 
 
 def pack_params(base, density, color):
@@ -149,9 +150,15 @@ def _check_operands(name, planes, xyz, params, hidden, rid, dir_out):
     return S, M, res, C, n_rays
 
 
+def _check_hidden(name, hidden):
+    if hidden not in HIDDEN:
+        raise ValueError(f'{name}: hidden {hidden} has no instance')
+
+
 def _decode_fwd(planes, xyz, params, hidden, rid, dir_out):
     S, M, res, C, n_rays = _check_operands('triplane_decode', planes, xyz,
                                            params, hidden, rid, dir_out)
+    _check_hidden('triplane_decode', hidden)
     colour = dir_out is not None
     sigma = torch.empty((S, M), dtype=torch.float32, device=planes.device)
     rgb = torch.empty((S, M, 3), dtype=torch.float32,
@@ -188,9 +195,7 @@ def triplane_decode_backward(planes, xyz, params, hidden, rid, dir_out,
     if g_sigma.shape != (S, M) or (colour and g_rgb.shape != (S, M, 3)):
         raise ValueError('triplane_decode_backward: gradients must be '
                          '(S, M) and (S, M, 3)')
-    if hidden not in (32, 64, 128):
-        raise ValueError(f'triplane_decode_backward: hidden {hidden} has '
-                         'no instance')
+    _check_hidden('triplane_decode_backward', hidden)
     d_planes = torch.zeros_like(planes)
     d_params = torch.zeros_like(params)
     d_dir = torch.zeros_like(dir_out) if colour else None

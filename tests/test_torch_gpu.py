@@ -226,6 +226,69 @@ def test_decode_backward_kernel_matches_plain(cuda_device, C, hidden, M,
         assert _max_rel_err(a, b) <= 1e-5, name
 
 
+@pytest.mark.parametrize('C', [4, 6, 8])
+@pytest.mark.parametrize('hidden', [32, 64, 128])
+def test_decode_instance_matches_plain(cuda_device, C, hidden):
+    """Every (C, hidden) instance of the forward (colour and density-only)
+    and of the backward vs the plain version, M = 3001 (not a multiple of
+    the kernels' 128-sample tile), rays of 64 samples: the forward atol
+    1e-5, the backward 1e-5 of each gradient's largest entry."""
+    planes, xyz, params, rid, dir_out, g_s, g_c = _decode_operands(
+        cuda_device, C, hidden, 3001, 3001 // 64 + 1, True, seed=25)
+    got = k_dec.triplane_decode(planes, xyz, params, hidden, rid, dir_out)
+    ref = k_dec.triplane_decode_plain(planes, xyz, params, hidden, rid,
+                                      dir_out)
+    got_d, _ = k_dec.triplane_decode(planes, xyz, params, hidden)
+    for a, b in zip(got + (got_d,), ref + (ref[0],)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    got = k_dec.triplane_decode_backward(planes, xyz, params, hidden, rid,
+                                         dir_out, g_s, g_c)
+    ref = k_dec.triplane_decode_backward_plain(planes, xyz, params, hidden,
+                                               rid, dir_out, g_s, g_c)
+    for a, b, name in zip(got, ref, ('planes', 'params', 'dir_out')):
+        assert _max_rel_err(a, b) <= 1e-5, name
+
+
+@pytest.mark.parametrize('shape', ['training', 'ragged'])
+def test_decode_kernels_hold_f64(cuda_device, shape):
+    """The forward and backward kernels (C=6, hidden 64) against the plain
+    version run in f64, on the inputs of ``python -m
+    ssdnerf_torch.tools.decode_profile``: the training shape (8 scenes x
+    4096 rays x 64 samples) and a ragged one (2 x 25 x 40).  On an H100
+    that tool measured the forward 3.6e-5 / 1.5e-5 off f64 (f64 positions
+    move the taps' weights by up to an f32 ulp of 128, and the plain f32
+    version is as far off) and the backward at most 3.7e-6 of a gradient's
+    largest entry (its f32 atomics vary from run to run), PERF.md.  The
+    limits sit just above, so that a loss of precision shows: forward atol
+    4e-5, backward 5e-6 of each gradient's largest entry."""
+    from ssdnerf_torch.tools import decode_profile
+    kw = {} if shape == 'training' else decode_profile.RAGGED
+    err = decode_profile.precision(
+        decode_profile.training_inputs(cuda_device, **kw))
+    assert err['forward_vs_f64'] <= 4e-5
+    for name, e in err['backward_vs_f64'].items():
+        assert e <= 5e-6, name
+
+
+def test_decode_shape_without_instance_raises(cuda_device):
+    """Decoder width 48 and 10 channels have no instance: the forward
+    raises, with and without autograd, and so does the backward; nothing
+    runs a plain version."""
+    for C, hidden in ((6, 48), (10, 64)):
+        planes, xyz, params, rid, dir_out, g_s, g_c = _decode_operands(
+            cuda_device, C, hidden, 1000, 20, True)
+        with pytest.raises(ValueError):
+            k_dec.triplane_decode(planes, xyz, params, hidden, rid, dir_out)
+        with pytest.raises(ValueError):
+            k_dec.triplane_decode(planes, xyz, params, hidden)
+        with pytest.raises(ValueError):
+            k_dec.triplane_decode(planes, xyz, params.requires_grad_(),
+                                  hidden, rid, dir_out)
+        with pytest.raises(ValueError):
+            k_dec.triplane_decode_backward(planes, xyz, params.detach(),
+                                           hidden, rid, dir_out, g_s, g_c)
+
+
 def test_decode_autograd_goes_through_kernels(cuda_device):
     """Gradients of a loss on the decoder's activated outputs through the
     autograd Function equal those of the plain version (CPU), and the
