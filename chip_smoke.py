@@ -47,14 +47,29 @@ runs six phases, any failure of which exits non-zero:
    counts of all five kernels are checked;
 6. one ``train_step`` of 1 scene (1 inner step, 1024 rays) on the card
    and on the CPU with the same weights and draws: losses and gradients
-   w.r.t. the codes, the decoder and the UNet compared.
+   w.r.t. the codes, the decoder and the UNet compared;
+7. the bf16 UNet path: generation with configs/new_cfgs/
+   ssdnerf_cars_uncond_bf16.py (a bf16 UNet with f32 parameters) at batch
+   8 (50-step DDIM, density rebuild, render of 4 orbit views of 128x128),
+   and the flagship's DDIM under ``use_fp16`` (bf16 autocast), beside
+   phase 3's f32 times, the bf16 attention's launch count growing; both
+   modes at 1 scene and 2 DDIM steps on the card against the CPU; a few
+   ``train_step``s of the bf16 configuration at 8 scenes (median, device
+   time by range and kernel group), where the bf16 attention backward must
+   launch; and one line of device times of a flagship UNet forward at
+   batch 8 in IEEE f32, TF32 (switched on here only), f32 channels-last and
+   bf16.  Phase 2 holds the bf16 attention kernels against their plain
+   bf16 versions at the three flagship levels, bounded at the dense bf16
+   tensor rate.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the result JSON.  Imports nothing of JAX.
 """
+import contextlib
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -87,6 +102,7 @@ from ssdnerf_torch.tools import march_scalar_probe  # noqa: E402
 from ssdnerf_torch.tools.march_scalar_probe import median_ms  # noqa: E402
 
 CONFIG = ROOT / 'configs' / 'paper_cfgs' / 'ssdnerf_cars_uncond.py'
+CONFIG_BF16 = ROOT / 'configs' / 'new_cfgs' / 'ssdnerf_cars_uncond_bf16.py'
 SEED = 0
 SRN_INTRINSICS = (131.25, 131.25, 64.0, 64.0)
 # H100 SXM peaks the bounds are taken against (NVIDIA's data sheet): f32
@@ -95,26 +111,35 @@ SRN_INTRINSICS = (131.25, 131.25, 64.0, 64.0)
 # in three passes) and HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-WRAPPERS = {'march': k_march.occupancy_lookup,
-            'march_popcount': k_march.occupied_counts,
-            'decode': k_dec.triplane_decode,
-            'decode_bwd': k_dec.triplane_decode_backward,
-            'decode_composite': k_dec.triplane_decode_composite,
-            'decode_banded': k_dec.triplane_decode_banded,
-            'attention': k_attn.attention,
-            'attention_bwd': k_attn.attention_backward}
+# each kernel's wrapper and the attribute its launches are counted in
+WRAPPERS = {'march': (k_march.occupancy_lookup, 'launches'),
+            'march_popcount': (k_march.occupied_counts, 'launches'),
+            'decode': (k_dec.triplane_decode, 'launches'),
+            'decode_bwd': (k_dec.triplane_decode_backward, 'launches'),
+            'decode_composite': (k_dec.triplane_decode_composite,
+                                 'launches'),
+            'decode_banded': (k_dec.triplane_decode_banded, 'launches'),
+            'attention': (k_attn.attention, 'launches'),
+            'attention_bwd': (k_attn.attention_backward, 'launches'),
+            'attention_bf16': (k_attn.attention, 'launches_bf16'),
+            'attention_bwd_bf16': (k_attn.attention_backward,
+                                   'launches_bf16')}
 SERVING = ('march', 'decode', 'attention')
+BF16 = ('attention_bf16', 'attention_bwd_bf16')
 PROBE = ('march_popcount',)
 VARIANTS = {'decode_composite': 'fused_composite',
             'decode_banded': 'banded_decode'}
 TRAIN_PARTS = ('train_step.diffusion', 'train_step.inverse',
                'train_step.decoder')
-# (group, substring of the kernel's name), most specific first
+# (group, pattern of the kernel's name), most specific first
 PORT_KERNELS = (('decode_bwd', 'triplane_decode_bwd'),
                 ('decode_composite', 'triplane_decode_composite'),
                 ('decode_banded', 'triplane_decode_banded'),
                 ('decode', 'triplane_decode_kernel'),
+                ('attention_bwd_bf16', 'attention_bwd.*(bf16|bfloat16)'),
+                ('attention_bf16', 'attention_fwd_bf16'),
                 ('attention_bwd', 'attention_bwd'),
                 ('attention', 'attention_fwd'),
                 ('march', 'march_occupancy'),
@@ -136,7 +161,20 @@ KERNEL_META = {
                   'ssdnerf_tpu/ops/pallas/attention.py:44'),
     'attention_bwd': ('ssdnerf_torch/csrc/attention.cu',
                       'ssdnerf_tpu/ops/pallas/attention.py:58'),
+    'attention_bf16': ('ssdnerf_torch/csrc/attention.cu',
+                       'ssdnerf_tpu/ops/pallas/attention.py:44'),
+    'attention_bwd_bf16': ('ssdnerf_torch/csrc/attention.cu',
+                           'ssdnerf_tpu/ops/pallas/attention.py:58'),
 }
+
+
+def reset_launches():
+    for wrapper, attr in WRAPPERS.values():
+        setattr(wrapper, attr, 0)
+
+
+def launch_counts():
+    return {n: getattr(w, attr) for n, (w, attr) in WRAPPERS.items()}
 
 
 def log(*args):
@@ -181,13 +219,13 @@ def sdpa(q, k, v, scale):
         q[:, None], k[:, None], v[:, None], scale=scale)[:, 0]
 
 
-def bound_ms(flops, moved, tensor_flops=0):
+def bound_ms(flops, moved, tensor_flops=0, tensor_rate=PEAK_TF32_FLOPS):
     """The least time the card could take for work of ``flops`` f32
-    operations outside the tensor cores and ``tensor_flops`` TF32 ones on
-    them, moving ``moved`` bytes (each input read once, each output written
-    once): the largest of the three times; and whether operations or bytes
-    set it."""
-    t_ops = max(flops / PEAK_F32_FLOPS, tensor_flops / PEAK_TF32_FLOPS)
+    operations outside the tensor cores and ``tensor_flops`` ones on them
+    (TF32, or at ``tensor_rate``), moving ``moved`` bytes (each input read
+    once, each output written once): the largest of the three times; and
+    whether operations or bytes set it."""
+    t_ops = max(flops / PEAK_F32_FLOPS, tensor_flops / tensor_rate)
     t_bytes = moved / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes')
@@ -321,7 +359,8 @@ def phase_kernels(dev):
     results = {}
 
     def compare(name, tag, kernel, plain, tol, flops, moved,
-                relative=False, library=None, tensor_flops=0):
+                relative=False, library=None, tensor_flops=0,
+                tensor_rate=PEAK_TF32_FLOPS, passes=3):
         """max |kernel - plain| <= tol (a number, or one per output), or
         with ``relative`` each output's max |kernel - plain| / max |plain|
         <= tol; the times of kernel, plain and ``library`` (one PyTorch
@@ -346,10 +385,10 @@ def phase_kernels(dev):
         dev_ms = sum(device_profile(kernel).values())
         lib_dev_ms = (None if library is None
                       else sum(device_profile(library).values()))
-        b_ms, b_by = bound_ms(flops, moved, tensor_flops)
+        b_ms, b_by = bound_ms(flops, moved, tensor_flops, tensor_rate)
         # the same work with the products in f32 outside the tensor cores,
         # one pass: the bound before the products moved onto them
-        f32_ms, _ = bound_ms(flops + tensor_flops / 3, moved)
+        f32_ms, _ = bound_ms(flops + tensor_flops / passes, moved)
         shown = rels if relative else errs
         log(f'phase 2 {tag}: max_abs_err={max(errs):.3e} max_rel_err='
             f'{max(rels):.3e} (tol {tol} {"relative" if relative else "absolute"}) '
@@ -359,7 +398,8 @@ def phase_kernels(dev):
                f'{lib_ms:.4f} ms (device {lib_dev_ms:.4f}) kernel/library '
                f'device={dev_ms / lib_dev_ms:.2f}x ')
             + f'bound={b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP f32'
-            + (f' + {tensor_flops / 1e9:.3f} GFLOP TF32; all-f32 bound '
+            + (f' + {tensor_flops / 1e9:.3f} GFLOP '
+               f'{"TF32" if passes == 3 else "bf16"}; all-f32 bound '
                f'{f32_ms:.4f} ms' if tensor_flops else '')
             + f', {moved / 1e6:.1f} MB)')
         for e, t in zip(shown, tols):
@@ -448,7 +488,7 @@ def phase_kernels(dev):
         # row log-sum-exps; no atomics, so an absolute bound as in
         # tests/test_torch_gpu.py
         do = torch.randn((32, T_, hd), generator=g).to(dev)
-        o, lse = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+        _, lse, o = k_attn.attention_forward(q, k, v, scale, with_lse=True)
         # library: the backward of that call (its forward run once, before)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out_lib = sdpa(*leaves, scale)
@@ -467,6 +507,37 @@ def phase_kernels(dev):
                 backward=sorted(device_profile(lambda: torch.autograd.grad(
                     out_lib, leaves, do, retain_graph=True))))
             log(f'phase 2 library kernels at T={T_}: {lib_kernels}')
+        del leaves, out_lib
+
+    # the bf16 mode at the same levels: one bf16 pass on the tensor cores
+    # (bound at the dense bf16 rate), bf16 operands and outputs; within one
+    # bf16 ulp of the largest entry (forward) and two (backward) of the
+    # plain version at the Pallas kernels' rounding points
+    for T_, hd in ((1024, 64), (256, 128), (64, 128)):
+        q, k, v, do = (torch.randn((32, T_, hd), generator=g).to(dev)
+                       .bfloat16() for _ in range(4))
+        scale = 1.0 / math.sqrt(hd)
+        compare('attention_bf16', f'attention bf16 G=32 T={T_} hd={hd}',
+                lambda: k_attn.attention(q, k, v, scale),
+                lambda: k_attn.attention_plain(q, k, v, scale), 2.0 ** -7,
+                32 * T_ * T_ * 4, 4 * nbytes(q), relative=True,
+                library=lambda: sdpa(q, k, v, scale),
+                tensor_flops=32 * T_ * T_ * 4 * hd,
+                tensor_rate=PEAK_BF16_FLOPS, passes=1)
+        _, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_lib = sdpa(*leaves, scale)
+        compare('attention_bwd_bf16',
+                f'attention backward bf16 G=32 T={T_} hd={hd}',
+                lambda: k_attn.attention_backward(q, k, v, o32, lse, do,
+                                                  scale),
+                lambda: k_attn.attention_backward_plain(q, k, v, do, scale),
+                2.0 ** -6, 32 * T_ * T_ * 8,
+                nbytes(q, k, v, o32, lse, do) + 3 * nbytes(q), relative=True,
+                library=lambda: torch.autograd.grad(out_lib, leaves, do,
+                                                    retain_graph=True),
+                tensor_flops=32 * T_ * T_ * 10 * hd,
+                tensor_rate=PEAK_BF16_FLOPS, passes=1)
         del leaves, out_lib
 
     # decode forward and backward at the training shapes: 8 scenes x 4096
@@ -555,10 +626,9 @@ def phase_probe(dev):
     ssdnerf_torch.tools.march_scalar_probe``: its draws, the counts held
     exactly against the plain version, both timings); its kernel must have
     launched."""
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    reset_launches()
     res = march_scalar_probe.run(dev)
-    launches = {n: WRAPPERS[n].launches for n in PROBE}
+    launches = {n: launch_counts()[n] for n in PROBE}
     log(f'phase 2 probe: march_popcount {res["popcount_ms"]:.4f} ms = '
         f'{res["popcount_ns"]:.4f} ns/sample, march_valid_mask '
         f'{res["march_ms"]:.4f} ms = {res["march_ns"]:.4f} ns/sample '
@@ -569,15 +639,15 @@ def phase_probe(dev):
     return launches, res
 
 
-def make_model(seed):
-    """Flagship model with seeded random weights on the CPU: the JAX
+def make_model(seed, config=CONFIG):
+    """Flagship model (or ``config``'s) with seeded random weights on the CPU: the JAX
     package's init plus N(0, 0.02) on every parameter (the init zeroes
     proj / conv_2 / out_conv / dir_net, which would hide attention and
     the direction branch).  The density bias is lowered by 3 so that part
     of every density grid is empty, as in a real scene: with random
     weights every voxel would otherwise be occupied and the march would
     test nothing."""
-    model = init_model(Config.fromfile(str(CONFIG)), 'cpu', seed)
+    model = init_model(Config.fromfile(str(config)), 'cpu', seed)
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for p in list(model.decoder.parameters()) + list(
@@ -588,17 +658,16 @@ def make_model(seed):
     return model
 
 
-def phase_slice(model, dev):
+def phase_slice(model, dev, phase=3, label='', kernels=SERVING):
     """val_uncond (as its two halves, timed apart) + render at flagship
-    width on the card."""
+    width on the card; each of ``kernels`` must launch."""
     S, V, h, w = 8, 4, 128, 128
     tcfg = model.test_cfg
     g = torch.Generator().manual_seed(SEED + 2)
     noise = torch.randn((S,) + model.code_size, generator=g).to(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     poses, intr = orbit_cameras(S, V, dev)
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -611,14 +680,14 @@ def phase_slice(model, dev):
     img, depth = model.render(code, bitfield, h, w, intr, poses)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {n: w.launches for n, w in WRAPPERS.items()}
-    log(f'phase 3 slice: DDIM {tcfg["num_timesteps"]} steps x {S} scenes '
+    launches = launch_counts()
+    log(f'phase {phase} slice{label}: DDIM {tcfg["num_timesteps"]} steps x {S} scenes '
         f'{t1 - t0:.3f} s; density rebuild {tcfg.get("density_step", 8)} '
         f'sweeps {t2 - t1:.3f} s; render {S}x{V}x{h}x{w} {t3 - t2:.3f} s; '
         f'peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     sat = model.decoder.sigmoid_saturation
     occ = np.unpackbits(bitfield.cpu().numpy()).mean()
-    log(f'phase 3 outputs: code {tuple(code.shape)} |code|max='
+    log(f'phase {phase} outputs{label}: code {tuple(code.shape)} |code|max='
         f'{code.abs().max().item():.3f}; occupancy {occ:.4f}; image '
         f'{tuple(img.shape)} range [{img.min().item():.4f}, '
         f'{img.max().item():.4f}]; launches {launches}')
@@ -632,7 +701,7 @@ def phase_slice(model, dev):
     check(img.min().item() >= -sat - 1e-6 and img.max().item() <= 1 + sat
           + 1e-6, 'image outside [0, 1] (+- sigmoid saturation)')
     check(0.0 < occ < 1.0, 'density grids entirely empty or full')
-    for name in SERVING:
+    for name in kernels:
         check(launches[name] > 0, f'kernel {name} was not launched by the '
               'slice')
     return launches, code, bitfield, dict(ddim_s=t1 - t0, density_s=t2 - t1,
@@ -674,8 +743,7 @@ def phase_variants(model, code, bitfield, dev):
     the split render of the same scene within 1e-4.  The second of two
     renders of each is timed."""
     S = code.shape[0]
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    reset_launches()
     volume_render.banded_engaged = volume_render.banded_declined = 0
     scenes = {'generated, orbit views': (bitfield,) + orbit_cameras(S, 4,
                                                                      dev),
@@ -733,7 +801,7 @@ def phase_variants(model, code, bitfield, dev):
                                               for k, v in top))
         profiles[variant] = dict(wall_ms=wall_ms, device_ms=dev_ms,
                                  kernels_ms=ports, top_ops_ms=dict(top))
-    launches = {n: WRAPPERS[n].launches for n in VARIANTS}
+    launches = {n: launch_counts()[n] for n in VARIANTS}
     log(f'phase 3 variants: launches {launches}; guard {guards}')
     check(guards['ball, look-at views'] == 'engaged',
           'the banded guard did not engage on the ball')
@@ -836,7 +904,7 @@ def kernel_group(name, event):
     for none): the port's kernels by name, the rest by the op that
     launched them."""
     for group, key in PORT_KERNELS:
-        if key in name:
+        if re.search(key, name):
             return group
     chain = []
     while event is not None:
@@ -855,7 +923,7 @@ def render_group(name, event):
     """The group of a device kernel of a render: the port's kernels by
     name, the rest by the torch op that launched them."""
     for group, key in PORT_KERNELS:
-        if key in name:
+        if re.search(key, name):
             return group
     return 'no torch op' if event is None else event.name
 
@@ -914,13 +982,15 @@ def profile_step(run, ranges=TRAIN_PARTS, group_of=kernel_group):
     return wall_ms, sum(parts.values()), parts, groups, top
 
 
-def phase_train(model, cfg, data, code, dev, timed=4):
+def phase_train(model, cfg, data, code, dev, timed=4, phase=5,
+                required=None):
     """Flagship train steps of the 8 scenes of ``data``, scene state in a
     device bank of ``cache_size`` rows: one warm-up step, ``timed`` steps
     timed on the host clock to a device synchronise, and one step under
     the profiler.  The bank starts from the scenes' codes, as the config's
     ``cache_load_from`` resumes from a saved code cache; density grids
-    start empty."""
+    start empty.  Each kernel of ``required`` (default: those of the f32
+    train step) must launch."""
     S = data['cond_imgs'].shape[0]
     ess = model.train_cfg['extra_scene_step']
     bank = model.make_cache(dev)
@@ -940,8 +1010,7 @@ def phase_train(model, cfg, data, code, dev, timed=4):
                   batch['density_bitfield'])
         logs.update(out)
 
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -958,30 +1027,30 @@ def phase_train(model, cfg, data, code, dev, timed=4):
             if i > 0:
                 times.append(dt)
         vals = {k: v.item() for k, v in logs.items()}
-        log(f'phase 5 step {i}{" (warm-up)" if i == 0 else ""}'
+        log(f'phase {phase} step {i}{" (warm-up)" if i == 0 else ""}'
             f'{" (profiled)" if i == steps - 1 else ""}: {dt:.4f} s; '
             + ' '.join(f'{k}={v:.5g}' for k, v in sorted(vals.items())))
         for k in ('loss_diffusion', 'loss_decoder', 'pixel_loss',
                   'reg_loss'):
             check(math.isfinite(vals[k]), f'train step {i}: {k} not finite')
-    launches = {n: w.launches for n, w in WRAPPERS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     median = statistics.median(times)
-    log(f'phase 5 step time: median {median:.4f} s over steps 1-{timed} '
+    log(f'phase {phase} step time: median {median:.4f} s over steps 1-{timed} '
         f'(min {min(times):.4f}, max {max(times):.4f})')
-    log(f'phase 5 profiled step: wall {wall_ms:.1f} ms, device {dev_ms:.1f} '
+    log(f'phase {phase} profiled step: wall {wall_ms:.1f} ms, device {dev_ms:.1f} '
         f'ms = {dev_ms / 1e3 / median:.3f} of the median step; by part: '
         + ', '.join(f'{k} {v:.1f} ms' for k, v in parts.items()))
-    log('phase 5 device time by group: ' + ', '.join(
+    log(f'phase {phase} device time by group: ' + ', '.join(
         f'{k} {v:.1f} ms ({v / dev_ms:.1%})'
         for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
     for name, (n, ms) in top:
-        log(f'phase 5 kernel {ms:8.2f} ms x{n:4d} {name[:90]}')
+        log(f'phase {phase} kernel {ms:8.2f} ms x{n:4d} {name[:90]}')
     norm = model.diffusion.norm_factor.item()
     occ = np.unpackbits(bank.density_bitfield[:S].cpu().numpy()).mean()
     moved = (bank.code_[:S] - code0).abs().max().item()
     counters = bank.step[:S].tolist()
-    log(f'phase 5 train: {S} scenes, extra_scene_step {ess}, bank '
+    log(f'phase {phase} train: {S} scenes, extra_scene_step {ess}, bank '
         f'{bank.cache_size} scenes; peak memory {peak:.2f} GiB; '
         f'norm_factor {norm:.6f}; occupancy {occ:.4f}; codes moved '
         f'{moved:.3e}; Adam steps {counters}; launches {launches}')
@@ -989,8 +1058,11 @@ def phase_train(model, cfg, data, code, dev, timed=4):
     check(moved > 0, 'codes did not move')
     check(counters == [steps * (ess + 1)] * S, 'Adam step counters')
     check(0.0 < occ < 1.0, 'density grids entirely empty or full')
-    for name, n in launches.items():
-        check(n > 0 or name in VARIANTS or name in PROBE,
+    if required is None:
+        required = [n for n in WRAPPERS
+                    if n not in VARIANTS and n not in PROBE and n not in BF16]
+    for name in required:
+        check(launches[name] > 0,
               f'kernel {name} was not launched by the train steps')
     return launches, dict(step_s=times, median_step_s=median,
                           profiled_wall_ms=wall_ms, device_ms=dev_ms,
@@ -1056,6 +1128,129 @@ def phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev):
         check(rel <= 1e-3, f'card vs cpu: {k} gradient')
 
 
+def l2(a, b):
+    """||a - b|| / ||b|| over whole tensors, in f64 on the CPU."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_bf16_slice(model_bf16, model_f32, dev, f32_times):
+    """Generation with the bf16 configuration at batch 8 (phase 3's
+    slice), then the flagship's DDIM under ``use_fp16`` (bf16 autocast),
+    from phase 3's noise; wall seconds beside phase 3's f32 ones.  The
+    bf16 attention must launch in both."""
+    launches, code, _, times = phase_slice(
+        model_bf16, dev, phase=7, label=' (bf16 config)',
+        kernels=('march', 'decode', 'attention_bf16'))
+    noise = torch.randn((8,) + model_f32.code_size,
+                        generator=torch.Generator().manual_seed(SEED + 2)
+                        ).to(dev)
+    model_f32.autocast_dtype = 'bfloat16'
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    code16 = model_f32.sample_codes(noise)
+    torch.cuda.synchronize()
+    fp16_s = time.perf_counter() - t0
+    model_f32.autocast_dtype = None
+    fp16_launches = launch_counts()
+    log(f'phase 7 use_fp16 flagship DDIM {model_f32.test_cfg["num_timesteps"]}'
+        f' steps x 8 scenes {fp16_s:.3f} s; launches {fp16_launches}')
+    log(f'phase 7 generation wall s, f32 / bf16 config / use_fp16: DDIM '
+        f'{f32_times["ddim_s"]:.3f} / {times["ddim_s"]:.3f} / {fp16_s:.3f}; '
+        f'density {f32_times["density_s"]:.3f} / {times["density_s"]:.3f}; '
+        f'render {f32_times["render_s"]:.3f} / {times["render_s"]:.3f}')
+    check(torch.isfinite(code16).all().item() and code16.shape == code.shape,
+          'use_fp16 codes')
+    check(fp16_launches['attention_bf16'] > 0,
+          'the bf16 attention was not launched under use_fp16')
+    return launches, dict(bf16_config=times, use_fp16_ddim_s=fp16_s,
+                          use_fp16_launches=fp16_launches)
+
+
+def phase_bf16_card_vs_cpu(model_cpu, model_bf16_cpu, model_dev,
+                           model_bf16_dev):
+    """1 scene, 2 DDIM steps in both bf16 modes (the bf16 configuration;
+    the flagship under autocast), on the card and on the CPU with the same
+    weights and noise.  Tolerance (PERF.md): the card's codes within 1.25
+    x the CPU's bf16-vs-f32 gap of the CPU's bf16 codes (relative L2) and
+    at least half that gap away from the f32 codes."""
+    cfg = dict(model_cpu.test_cfg, num_timesteps=2)
+    noise = torch.randn((1,) + model_cpu.code_size,
+                        generator=torch.Generator().manual_seed(SEED + 7))
+
+    def codes(model, d, autocast=False):
+        saved, model.test_cfg = model.test_cfg, cfg
+        model.autocast_dtype = 'bfloat16' if autocast else None
+        try:
+            return model.sample_codes(noise.to(d)).cpu()
+        finally:
+            model.test_cfg, model.autocast_dtype = saved, None
+
+    f32 = codes(model_cpu, 'cpu')
+    out = {}
+    for mode, cpu_model, dev_model, autocast in (
+            ('bf16 config', model_bf16_cpu, model_bf16_dev, False),
+            ('use_fp16', model_cpu, model_dev, True)):
+        card = codes(dev_model, next(dev_model.parameters()).device,
+                     autocast)
+        cpu = codes(cpu_model, 'cpu', autocast)
+        err, gap, far = l2(card, cpu), l2(cpu, f32), l2(card, f32)
+        log(f'phase 7 card vs cpu ({mode}, 2 DDIM steps, 1 scene): codes '
+            f'rel_l2 {err:.3e} (tol 1.25 x gap {gap:.3e}); card from f32 '
+            f'{far:.3e} (tol >= 0.5 x gap)')
+        check(err <= 1.25 * gap and far >= 0.5 * gap,
+              f'card vs cpu bf16: {mode}')
+        out[mode] = dict(rel_l2=err, gap=gap, from_f32=far)
+    return out
+
+
+def phase_unet_precision(unet_f32, unet_bf16, dev):
+    """Device ms of one flagship UNet forward at batch 8 in IEEE f32, TF32
+    (the switches flipped here only, in place of the UNet's pin), f32
+    channels-last and bf16: the profiler's device time a call (mean of 3
+    after a warm-up)."""
+    from ssdnerf_torch.models.architecture import unet as unet_mod
+    g = torch.Generator().manual_seed(SEED + 8)
+    x = torch.randn((8, unet_f32.in_channels, 128, 128), generator=g).to(dev)
+    t = torch.randint(0, unet_f32.num_timesteps, (8,), generator=g).to(dev)
+    ms = {}
+
+    def run(unet, inp):
+        with torch.no_grad():
+            return unet(inp, t)
+
+    ms['ieee_f32'] = sum(device_profile(lambda: run(unet_f32, x), 3).values())
+    pinned = unet_mod.precision
+
+    @contextlib.contextmanager
+    def tf32():
+        cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+        saved = cudnn.allow_tf32, mm.allow_tf32
+        cudnn.allow_tf32 = mm.allow_tf32 = True
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32, mm.allow_tf32 = saved
+
+    unet_mod.precision = tf32
+    try:
+        ms['tf32'] = sum(device_profile(lambda: run(unet_f32, x), 3).values())
+    finally:
+        unet_mod.precision = pinned
+    unet_cl = copy.deepcopy(unet_f32).to(memory_format=torch.channels_last)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    ms['f32_channels_last'] = sum(device_profile(
+        lambda: run(unet_cl, x_cl), 3).values())
+    del unet_cl
+    ms['bf16'] = sum(device_profile(lambda: run(unet_bf16, x), 3).values())
+    out = run(unet_bf16, x)
+    check(torch.isfinite(out).all().item(), 'bf16 UNet output')
+    log('phase 7 UNet forward (flagship, batch 8) device ms: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in ms.items()))
+    return ms
+
+
 def main():
     log(f'torch {torch.__version__} cuda {torch.version.cuda} python '
         f'{sys.version.split()[0]}')
@@ -1091,13 +1286,36 @@ def main():
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev)
 
+    # the bf16 UNet path: the same weights in the bf16 configuration
+    model_bf16_cpu = make_model(SEED, CONFIG_BF16)
+    model_bf16_dev = copy.deepcopy(model_bf16_cpu).to(dev)
+    model_dev = copy.deepcopy(model_cpu).to(dev)
+    bf16_launches, bf16_gen = phase_bf16_slice(model_bf16_dev, model_dev, dev,
+                                               times)
+    bf16_vs_cpu = phase_bf16_card_vs_cpu(model_cpu, model_bf16_cpu, model_dev,
+                                         model_bf16_dev)
+    precision_ms = phase_unet_precision(model_dev.diffusion.denoising,
+                                        model_bf16_dev.diffusion.denoising,
+                                        dev)
+    del model_dev
+    torch.cuda.empty_cache()
+    cfg_bf16 = Config.fromfile(str(CONFIG_BF16))
+    bf16_train_launches, bf16_train = phase_train(
+        model_bf16_dev, cfg_bf16, data, code, dev, timed=3, phase=7,
+        required=('march', 'decode', 'decode_bwd', 'attention',
+                  'attention_bwd', 'attention_bf16', 'attention_bwd_bf16'))
+
     # launches: the generation kernels' counts from the phase-3 slice, the
     # render variants' from the phase-3 variant renders, the probe's from
-    # its tool's path, the backward kernels' from phase 5 (the paths that
-    # run them)
+    # its tool's path, the backward kernels' from phase 5, the bf16
+    # attention's from the bf16 configuration's generation (forward) and
+    # train steps (backward) of phase 7 (the paths that run them)
     launches = {n: serve_launches[n] if n in SERVING else
                 variant_launches[n] if n in VARIANTS else
-                probe_launches[n] if n in PROBE else train_launches[n]
+                probe_launches[n] if n in PROBE else
+                bf16_launches[n] if n == 'attention_bf16' else
+                bf16_train_launches[n] if n == 'attention_bwd_bf16' else
+                train_launches[n]
                 for n in WRAPPERS}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'device_ms', 'library_device_ms')
@@ -1107,7 +1325,10 @@ def main():
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
                     'variants': variants, 'train': train_times,
-                    'probe': probe, 'library_kernels': lib_kernels}))
+                    'probe': probe, 'library_kernels': lib_kernels,
+                    'bf16': dict(generation=bf16_gen, card_vs_cpu=bf16_vs_cpu,
+                                 train=bf16_train,
+                                 unet_forward_device_ms=precision_ms)}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

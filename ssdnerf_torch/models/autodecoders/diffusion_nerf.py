@@ -4,7 +4,9 @@ generation (port of ``DiffusionNeRF.train_step`` and ``val_uncond`` of
 
 The live ``diffusion`` and ``decoder`` are trained; ``diffusion_ema`` and
 ``decoder_ema`` are what generation and rendering read.  The EMA update
-itself belongs to the runner, which is not ported.
+itself belongs to the runner, which is not ported.  With
+``autocast_dtype`` ('float16' or 'bfloat16', both bf16 as in the JAX
+package) sampling runs a bf16 copy of the EMA diffusion on a bf16 chain.
 """
 import copy
 import math
@@ -14,6 +16,7 @@ from torch.profiler import record_function
 
 from ..decoders.renderer import (density_jitter, get_density,
                                  update_density_grid)
+from ..architecture.unet import precision
 from ..diffusions.gaussian_diffusion import GaussianDiffusion
 from .base import (adam_step, code_adam_cfg, inverse_code, inverse_draws,
                    random_subsets, ray_sample, rendering_loss)
@@ -37,12 +40,35 @@ class DiffusionNeRF(MultiSceneNeRF):
                 raise NotImplementedError(f'{key} is not ported')
         self.code_reshape = tuple(cfg['code_reshape']) \
             if cfg.get('code_reshape') else None
+        self.autocast_dtype = cfg.get('autocast_dtype')
+        # the scale-norm factor stays put while True (ModelUpdaterHook)
+        self.freeze_norm = False
+        for key in ('density_partial_update', 'log_grad_stats'):
+            if self.train_cfg.get(key):
+                raise NotImplementedError(f'train_cfg.{key} is not ported')
 
     @property
     def ema_diffusion(self):
         """The diffusion module generation uses (``_ema_diffusion``)."""
         return self.diffusion if self.diffusion_ema is None \
             else self.diffusion_ema
+
+    @property
+    def autocast(self):
+        return self.autocast_dtype in ('float16', 'bfloat16')
+
+    @property
+    def sampling_diffusion(self):
+        """The diffusion module the samplers run (JAX ``_autocast`` and
+        ``sampling_diffusion``): the EMA diffusion, or under autocast a
+        copy of it with every parameter cast to bf16 and a UNet computing
+        in bf16.  The copy is made at each access, so it follows the EMA
+        weights."""
+        diffusion = self.ema_diffusion
+        if self.autocast:
+            diffusion = copy.deepcopy(diffusion).to(torch.bfloat16)
+            diffusion.denoising.dtype = torch.bfloat16
+        return diffusion
 
     def reset_ema(self):
         super().reset_ema()
@@ -110,8 +136,8 @@ class DiffusionNeRF(MultiSceneNeRF):
 
         The three parts run inside ``torch.profiler.record_function`` ranges
         named ``train_step.diffusion``, ``train_step.inverse`` and
-        ``train_step.decoder``.  The scale-norm factor is always updated:
-        freezing it is a ``ModelUpdaterHook`` surgery, not ported.
+        ``train_step.decoder``.  The scale-norm factor is updated unless
+        ``freeze_norm``; the UNet's backward runs under its precision pin.
 
         Args:
             scene_batch: dict(code_, opt, density_grid, density_bitfield),
@@ -142,10 +168,11 @@ class DiffusionNeRF(MultiSceneNeRF):
             leaf = code_.detach().requires_grad_()
             loss_diff, log_vars = self.diffusion.forward_train(
                 self.code_diff_pr(self.code_activation(leaf)), t=draws['t'],
-                noise=draws['noise'], update_norm=True)
+                noise=draws['noise'], update_norm=not self.freeze_norm)
             unet_params = list(self.diffusion.parameters())
-            *g_diff, prior_grad = torch.autograd.grad(loss_diff,
-                                                      unet_params + [leaf])
+            with precision():
+                *g_diff, prior_grad = torch.autograd.grad(
+                    loss_diff, unet_params + [leaf])
             self._apply_grads(unet_params, g_diff, optimizers['diffusion'],
                               lr_schedulers.get('diffusion'))
             log_vars['loss_diffusion'] = loss_diff.detach()
@@ -213,11 +240,17 @@ class DiffusionNeRF(MultiSceneNeRF):
 
     # ---------------------------------------------------------- generation
     @torch.no_grad()
-    def sample_codes(self, noise):
-        """DDIM chain from noise (S, *code_size) -> codes (S, *code_size),
-        with the EMA diffusion."""
-        code_diff = self.ema_diffusion.sample_from_noise(
-            self.code_diff_pr(noise), cfg=self.test_cfg)
+    def sample_codes(self, noise, draws=None, generator=None):
+        """The sampler chain from noise (S, *code_size) -> f32 codes (S,
+        *code_size), with :attr:`sampling_diffusion`; under autocast the
+        chain is bf16.  ``draws`` replays the chain's noises (see
+        ``GaussianDiffusion.ddim_sample``), else they come from
+        ``generator``."""
+        x = self.code_diff_pr(noise)
+        if self.autocast:
+            x = x.to(torch.bfloat16)
+        code_diff = self.sampling_diffusion.sample_from_noise(
+            x, self.test_cfg, draws, generator)
         return self.code_diff_pr_inv(code_diff.float())
 
     @torch.no_grad()
@@ -234,13 +267,14 @@ class DiffusionNeRF(MultiSceneNeRF):
         return get_density(self.ema_decoder, code, self.grid_size, jitter,
                            density_thresh=tcfg.get('density_thresh', 0.01))
 
-    def val_uncond(self, noise, generator=None, jitter=None):
-        """Unconditional generation: DDIM sampling then the density
-        rebuild.  Returns (code, density_grid, density_bitfield)."""
+    def val_uncond(self, noise, generator=None, jitter=None, draws=None):
+        """Unconditional generation: sampling then the density rebuild,
+        their draws from ``generator`` unless ``draws`` / ``jitter`` replay
+        them.  Returns (code, density_grid, density_bitfield)."""
         if self.test_cfg.get('n_inverse_steps', 0) > 0:
             raise NotImplementedError('diffusion-prior code polish '
                                       '(n_inverse_steps > 0) is not ported')
-        code = self.sample_codes(noise)
+        code = self.sample_codes(noise, draws, generator)
         grid, bitfield = self.rebuild_density(code, generator, jitter)
         return code, grid, bitfield
 

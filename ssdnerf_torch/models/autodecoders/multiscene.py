@@ -120,6 +120,9 @@ class MultiSceneNeRF(nn.Module):
         self.cache_size = cfg.get('cache_size', 0)
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
+        for key in ('max_render_rays', 'override_cfg'):
+            if self.test_cfg.get(key):
+                raise NotImplementedError(f'test_cfg.{key} is not ported')
 
     @property
     def ema_decoder(self):

@@ -36,6 +36,8 @@ _SIGNATURES = {
     'triplane_decode_banded': [_P] * 8 + [_I] * 8 + [_P],
     'attention_fwd': [_P] * 5 + [_I, _I, _I, _F, _P],
     'attention_bwd': [_P] * 10 + [_I, _I, _I, _F, _P],
+    'attention_fwd_bf16': [_P] * 6 + [_I, _I, _I, _F, _P],
+    'attention_bwd_bf16': [_P] * 10 + [_I, _I, _I, _F, _P],
 }
 
 

@@ -145,8 +145,8 @@ def test_attention_saturated_softmax(cuda_device):
     torch.testing.assert_close(k_attn.attention(q, k, v, scale),
                                k_attn.attention_plain(q, k, v, scale),
                                rtol=0, atol=1e-4)
-    o, lse = k_attn.attention_forward(q, k, v, scale, with_lse=True)
-    got = k_attn.attention_backward(q, k, v, o, lse, do, scale)
+    _, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    got = k_attn.attention_backward(q, k, v, o32, lse, do, scale)
     ref = k_attn.attention_backward_plain(q, k, v, do, scale)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=5e-4)
@@ -164,11 +164,12 @@ def test_attention_kernels_hold_f64(cuda_device, T, hd):
                    for _ in range(4))
     scale = 1.0 / math.sqrt(hd)
     q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
-    o, lse = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    o, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    assert o32 is o
     torch.testing.assert_close(
         o.double(), k_attn.attention_plain(q64, k64, v64, scale), rtol=0,
         atol=1.5e-5)
-    got = k_attn.attention_backward(q, k, v, o, lse, do, scale)
+    got = k_attn.attention_backward(q, k, v, o32, lse, do, scale)
     ref = k_attn.attention_backward_plain(q64, k64, v64, do64, scale)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a.double(), b, rtol=0, atol=3e-5)
@@ -182,11 +183,71 @@ def test_attention_backward_is_deterministic(cuda_device, T, hd):
     q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
                    for _ in range(4))
     scale = 1.0 / math.sqrt(hd)
-    o, lse = k_attn.attention_forward(q, k, v, scale, with_lse=True)
-    first = k_attn.attention_backward(q, k, v, o, lse, do, scale)
-    second = k_attn.attention_backward(q, k, v, o, lse, do, scale)
+    _, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    first = k_attn.attention_backward(q, k, v, o32, lse, do, scale)
+    second = k_attn.attention_backward(q, k, v, o32, lse, do, scale)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _bf16_ulps(got, ref):
+    """max |got - ref| in bf16 ulps of the largest entry of ref (2^-7 of
+    its power of two)."""
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.float().abs().max())) - 7)
+    return ((got.float() - ref.float()).abs().max() / ulp).item()
+
+
+# the UNet levels of the flagship (32^2, 16^2, 8^2) and ragged lengths
+BF16_SHAPES = [(1024, 64), (256, 128), (64, 128), (100, 32), (1000, 64)]
+
+
+@pytest.mark.parametrize('T,hd', BF16_SHAPES)
+def test_attention_bf16_kernels_match_plain(cuda_device, T, hd):
+    """bf16 operands at G = 8 scenes x 4 heads: the forward kernel and,
+    through the autograd Function, the backward kernels against the plain
+    version at the Pallas kernels' rounding points, within one bf16 ulp
+    (forward) and two (backward) of each output's largest entry; the
+    outputs and gradients are bf16, the
+    f32 kernels are not launched and the bf16 ones are."""
+    g = torch.Generator().manual_seed(25)
+    q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
+                   .bfloat16() for _ in range(4))
+    scale = 1.0 / math.sqrt(hd)
+    ref = k_attn.attention_plain(q, k, v, scale)
+    ref_grads = k_attn.attention_backward_plain(q, k, v, do, scale)
+    counts = (k_attn.attention.launches, k_attn.attention.launches_bf16,
+              k_attn.attention_backward.launches,
+              k_attn.attention_backward.launches_bf16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = k_attn.attention(*leaves, scale)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (k_attn.attention.launches, k_attn.attention.launches_bf16,
+            k_attn.attention_backward.launches,
+            k_attn.attention_backward.launches_bf16) == (
+        counts[0], counts[1] + 1, counts[2], counts[3] + 1)
+    assert out.dtype == torch.bfloat16
+    assert _bf16_ulps(out, ref) <= 1.0
+    for a, b in zip(grads, ref_grads):
+        assert a.dtype == torch.bfloat16
+        assert _bf16_ulps(a, b) <= 2.0
+
+
+def test_attention_mixed_dtypes_raise(cuda_device):
+    """q, k and v must share one dtype, f32 or bf16; f16 and mixed
+    operands raise, forward and backward."""
+    q = torch.randn((2, 512, 64), device=cuda_device)
+    b = q.bfloat16()
+    with pytest.raises(TypeError):
+        k_attn.attention(q, b, b, 0.1)
+    with pytest.raises(TypeError):
+        k_attn.attention(b, q, q, 0.1)
+    with pytest.raises(TypeError):
+        k_attn.attention(*(q.half(),) * 3, 0.1)
+    _, lse, o32 = k_attn.attention_forward(b, b, b, 0.1, with_lse=True)
+    with pytest.raises(TypeError):
+        k_attn.attention_backward(b, b, b, o32, lse, q, 0.1)
+    with pytest.raises(TypeError):
+        k_attn.attention_backward(b, b, b, o32.bfloat16(), lse, b, 0.1)
 
 
 def _decode_operands(device, C, hidden, M, n_rays, per_ray, S=2, seed=15):

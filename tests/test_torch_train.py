@@ -532,6 +532,68 @@ def test_train_step_matches_jax(models):
     assert opts['decoder'].param_groups[0]['lr'] == pytest.approx(0.5e-3)
 
 
+def test_train_step_freeze_norm_matches_jax(models):
+    """``freeze_norm`` (a model attribute, as in JAX, which the runner's
+    ModelUpdaterHook sets): one ``train_step`` with it on against JAX's on
+    the same weights and replayed draws leaves the scale-norm factor where
+    it was on both sides, with the losses (rtol 1e-4) and the codes' Adam
+    moments (max-normalised 2e-3) of JAX's.  With PyTorch's TF32 switches
+    on, the UNet's backward still runs with them off (read when the
+    gradient reaches the UNet's output)."""
+    jm, state, txs, tm = models
+    tm = copy.deepcopy(tm)
+    assert tm.freeze_norm is False
+    tm.freeze_norm = True
+    data_np = make_batch(num_scenes=S, num_views=V, h=H, w=W, seed=55)
+    data_np = {k: data_np[k] for k in
+               ('cond_imgs', 'cond_poses', 'cond_intrinsics')}
+    code0 = (np.random.RandomState(56).randn(S, *jm.code_size) * 0.5
+             ).astype(np.float32)
+    grid0 = np.zeros((S, jm.grid_size ** 3), np.float16)
+    bits0 = np.zeros((S, jm.grid_size ** 3 // 8), np.uint8)
+    jbatch = dict(code_=jnp.asarray(code0), opt=jax_adam_init(
+        jnp.asarray(code0)), density_grid=jnp.asarray(grid0),
+        density_bitfield=jnp.asarray(bits0))
+    tbatch = dict(code_=_t(code0), opt=adam_init(_t(code0)),
+                  density_grid=_t(grid0), density_bitfield=_t(bits0))
+    key = jax.random.PRNGKey(57)
+    jm.freeze_norm = True
+    try:
+        new_state, jbatch, jlogs = jax.jit(lambda s, b, d, k: jm.train_step(
+            s, b, d, k, txs['diffusion'], txs['decoder']))(
+            state, jbatch, {k: jnp.asarray(v) for k, v in data_np.items()},
+            key)
+    finally:
+        jm.freeze_norm = False
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = []
+
+    def on_output(module, inputs, out):
+        out.register_hook(
+            lambda g: flags.append((cudnn.allow_tf32, mm.allow_tf32)))
+
+    tm.diffusion.denoising.register_forward_hook(on_output)
+    norm0 = tm.diffusion.norm_factor.clone()
+    opts, scheds = build_optimizers(tm, OPT_CFGS, LR_CONFIG)
+    saved = cudnn.allow_tf32, mm.allow_tf32
+    try:
+        cudnn.allow_tf32 = mm.allow_tf32 = True
+        tbatch, tlogs = tm.train_step(
+            tbatch, {k: _t(v) for k, v in data_np.items()}, opts, scheds,
+            draws=_jax_step_draws(jm, key, V * H * W))
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = saved
+    assert flags == [(False, False)]
+    assert torch.equal(tm.diffusion.norm_factor, norm0)
+    np.testing.assert_array_equal(np.asarray(new_state['ddpm_loss']),
+                                  np.asarray(state['ddpm_loss']))
+    for name in ('loss_diffusion', 'loss_decoder', 'pixel_loss'):
+        np.testing.assert_allclose(np.asarray(tlogs[name]),
+                                   np.asarray(jlogs[name]), rtol=1e-4,
+                                   err_msg=name)
+    _max_normalised(tbatch['opt'].m.numpy(), jbatch['opt'].m, 'code m', 2e-3)
+
+
 def test_load_jax_params_fills_live_and_ema_trees(models):
     """``load_jax_params`` fills each of the four modules from its own
     tree (live and EMA weights differ here), and raises on a missing or
