@@ -1128,12 +1128,24 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
   }
 }
 
+extern "C" int attention_fwd_bf16_sm90_supported(int T, int hd);
+extern "C" int attention_fwd_bf16_sm90(const void* q, const void* k,
+                                       const void* v, void* o, void* o32,
+                                       void* lse, int G, int T, float scale,
+                                       void* stream);
+
 // The bf16 instances.  q, k, v, o: (G, T, hd) bf16 contiguous, 16-byte
 // aligned; o32: (G, T, hd) f32 or nullptr (the output before its rounding,
-// which the backward reads); lse: (G, T) f32 or nullptr.
+// which the backward reads); lse: (G, T) f32 or nullptr.  The forward runs
+// attention_fwd_sm90.cu's wgmma kernel where it tiles the shape (hd 64, T
+// a multiple of 128: the bf16 UNet's 32^2 level), this file's mma.sync
+// kernel elsewhere.
 extern "C" int attention_fwd_bf16(const void* q, const void* k, const void* v,
                                   void* o, void* o32, void* lse, int G, int T,
                                   int hd, float scale, void* stream) {
+  if (attention_fwd_bf16_sm90_supported(T, hd))
+    return attention_fwd_bf16_sm90(q, k, v, o, o32, lse, G, T, scale,
+                                   stream);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);

@@ -79,6 +79,19 @@
 //      res, res, C) plane gradient.
 // At the end the block adds its parameter-gradient sums once (atomicAdd).
 // All atomics are f32 sums in a run-dependent order.
+//
+// bf16 operand mode (kB; the JAX package's default compute_dtype, whose
+// renderer feeds the Pallas kernels bf16 planes and weights): bf16 planes
+// padded to 4-channel taps, and the roundings of triplane.cuh and of the
+// Pallas backward (_bwd_kernel): the upstream gradients are rounded before
+// the head products and dW_d, dW_c (the bias sums take them unrounded),
+// d_base before dW_b and dF (db_b takes it unrounded), the colour head's
+// d_base before d_dir, and dF * (second coordinate's hat) before the plane
+// gradient, which the first coordinate's bf16 hat multiplies exactly.
+// Every product's operands are then bf16 values, which TF32 holds exactly:
+// one TF32 pass (mma3_split / mma3_batch with kOne) in place of three.
+// The plane gradient is summed in f32 by the same atomics and rounded to
+// bf16 after the kernel.
 
 #include "mma_tf32.cuh"
 #include "triplane.cuh"
@@ -110,6 +123,19 @@ __device__ __forceinline__ float sigmoid_fast(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x * -1.44269504f));
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + e));
   return r;
+}
+
+// x as a TF32 operand pair: split into hi / lo, or for a bf16 value (kB)
+// itself, exactly, with lo unused.
+template <bool kB>
+__device__ __forceinline__ void operand(float x, uint32_t& hi,
+                                        uint32_t& lo) {
+  if constexpr (kB) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    split(x, hi, lo);
+  }
 }
 
 // Visits the N (even) contiguous floats at p (8-byte aligned) in 16-byte
@@ -235,34 +261,92 @@ __device__ __forceinline__ void scatter_features(float* dplanes_s, float x,
   }
 }
 
-// One sample's padded features, split, into its rows of the hi and lo
-// tiles (zero where the sample is past the end).
+// The bf16 mode's adjoint of the features (Pallas _bwd_kernel): for each
+// plane and tap row, bf16(dfeat * row hat) times the bf16 u hats of the
+// row's two taps, added in f32 into one scene's (3, res, res, C) gradient
+// as scatter_features adds.
 template <int C>
-__device__ __forceinline__ void stage_features(const float* planes_s, float x,
-                                               float y, float z, int res,
-                                               bool valid, uint32_t* rh,
-                                               uint32_t* rl) {
-  constexpr int F = Feat<C>::F, FP = Feat<C>::FP;
-  float feat[FP];
-  if (valid) load_features<C>(planes_s, x, y, z, res, feat);
+__device__ __forceinline__ void scatter_features_bf16(float* dplanes_s,
+                                                      float x, float y,
+                                                      float z, int res,
+                                                      const float* dfeat) {
 #pragma unroll
-  for (int f = 0; f < FP; ++f)
-    if (!valid || f >= F) feat[f] = 0.0f;
+  for (int p = 0; p < 3; ++p) {
+    float cu, cv;
+    plane_uv(p, x, y, z, cu, cv);
+    int u0, u1, v0, v1;
+    float wu, wv;
+    pixel<true>(cu, res, u0, u1, wu);
+    pixel<true>(cv, res, v0, v1, wv);
+    float* P = dplanes_s + (size_t)p * res * res * C;
+    const float au = round_bf16(1.0f - wu), bu = round_bf16(wu);
 #pragma unroll
-  for (int f = 0; f < FP; f += 4) {
-    uint4 h, l;
-    split(feat[f], h.x, l.x);
-    split(feat[f + 1], h.y, l.y);
-    split(feat[f + 2], h.z, l.z);
-    split(feat[f + 3], h.w, l.w);
-    *reinterpret_cast<uint4*>(rh + f) = h;
-    *reinterpret_cast<uint4*>(rl + f) = l;
+    for (int r = 0; r < 2; ++r) {
+      const float rw = r ? wv : 1.0f - wv;
+      float v[2 * C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float d = round_bf16(rw * dfeat[c * 3 + p]);
+        v[c] = d * au;
+        v[C + c] = d * bu;
+      }
+      float* q = P + ((size_t)(r ? v1 : v0) * res + u0) * C;
+      if (u1 != u0) {
+        add_run<2 * C>(q, v);
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] += v[C + c];
+        add_run<C>(q, v);
+      }
+    }
   }
 }
 
-// The A fragment (hi and lo) of rows r0 .. r0 + 15, columns 8 ks .. of a
-// split tile of row stride RS.
-template <int RS>
+// One sample's features, padded with zeros to FP columns, all zero where
+// the sample is past the end (bf16 values in the bf16 mode).
+template <int C, bool kB>
+__device__ __forceinline__ void features(const PlaneT<kB>* planes_s,
+                                         float x, float y, float z, int res,
+                                         bool valid,
+                                         float (&feat)[Feat<C>::FP]) {
+  constexpr int F = Feat<C>::F, FP = Feat<C>::FP;
+  if (valid) {
+    if constexpr (kB)
+      sample_features<C, false, true>(planes_s, x, y, z, res, feat);
+    else
+      load_features<C>(planes_s, x, y, z, res, feat);
+  }
+#pragma unroll
+  for (int f = 0; f < FP; ++f)
+    if (!valid || f >= F) feat[f] = 0.0f;
+}
+
+// One sample's features into its rows of the feature tiles: split into
+// the hi and lo tiles, or in the bf16 mode (exact in TF32) into the hi
+// tile alone.
+template <int C, bool kB>
+__device__ __forceinline__ void stage_features(const PlaneT<kB>* planes_s,
+                                               float x, float y, float z,
+                                               int res, bool valid,
+                                               uint32_t* rh, uint32_t* rl) {
+  constexpr int FP = Feat<C>::FP;
+  float feat[FP];
+  features<C, kB>(planes_s, x, y, z, res, valid, feat);
+#pragma unroll
+  for (int f = 0; f < FP; f += 4) {
+    uint4 h, l;
+    operand<kB>(feat[f], h.x, l.x);
+    operand<kB>(feat[f + 1], h.y, l.y);
+    operand<kB>(feat[f + 2], h.z, l.z);
+    operand<kB>(feat[f + 3], h.w, l.w);
+    *reinterpret_cast<uint4*>(rh + f) = h;
+    if constexpr (!kB) *reinterpret_cast<uint4*>(rl + f) = l;
+  }
+}
+
+// The A fragment (hi and lo; hi alone for kB) of rows r0 .. r0 + 15,
+// columns 8 ks .. of a split tile of row stride RS.
+template <int RS, bool kB>
 __device__ __forceinline__ void load_a(const uint32_t* th, const uint32_t* tl,
                                        int r0, int ks, uint32_t (&ah)[4],
                                        uint32_t (&al)[4]) {
@@ -272,24 +356,26 @@ __device__ __forceinline__ void load_a(const uint32_t* th, const uint32_t* tl,
   ah[1] = th[o + 8 * RS];
   ah[2] = th[o + 4];
   ah[3] = th[o + 8 * RS + 4];
-  al[0] = tl[o];
-  al[1] = tl[o + 8 * RS];
-  al[2] = tl[o + 4];
-  al[3] = tl[o + 8 * RS + 4];
+  if constexpr (!kB) {
+    al[0] = tl[o];
+    al[1] = tl[o + 8 * RS];
+    al[2] = tl[o + 4];
+    al[3] = tl[o + 8 * RS + 4];
+  }
 }
 
 // The A fragment of rows r0 .. r0 + 15, columns 8 ks .. of an f32 tile of
-// row stride RS, split into hi and lo.
-template <int RS>
+// row stride RS, as operands (operand<kB>).
+template <int RS, bool kB>
 __device__ __forceinline__ void load_a_split(const float* tile, int r0,
                                              int ks, uint32_t (&ah)[4],
                                              uint32_t (&al)[4]) {
   const int lane = threadIdx.x & 31;
   const float* a = tile + (r0 + (lane >> 2)) * RS + 8 * ks + (lane & 3);
-  split(a[0], ah[0], al[0]);
-  split(a[8 * RS], ah[1], al[1]);
-  split(a[4], ah[2], al[2]);
-  split(a[8 * RS + 4], ah[3], al[3]);
+  operand<kB>(a[0], ah[0], al[0]);
+  operand<kB>(a[8 * RS], ah[1], al[1]);
+  operand<kB>(a[4], ah[2], al[2]);
+  operand<kB>(a[8 * RS + 4], ah[3], al[3]);
 }
 
 template <int C, int H>
@@ -301,9 +387,9 @@ constexpr int fwd_smem_bytes() {
 // The forward's tiles are a warp's: 32 samples (2 m tiles), staged in the
 // warp's own rows of the shared tiles, so that warps never wait for each
 // other and one warp's tap reads overlap another's products.
-template <int C, int H>
+template <int C, int H, bool kB>
 __global__ void __launch_bounds__(kThreads)
-triplane_decode_kernel(const float* __restrict__ planes,
+triplane_decode_kernel(const PlaneT<kB>* __restrict__ planes,
                        const float* __restrict__ xyz,
                        const int32_t* __restrict__ rid,
                        const float* __restrict__ dir_out,
@@ -328,8 +414,8 @@ triplane_decode_kernel(const float* __restrict__ planes,
     const int l = e & 31, nt = (e >> 5) % NT, ks = (e >> 5) / NT;
     const int h = 8 * nt + (l >> 2), f = 8 * ks + (l & 3);
     uint4 v;
-    split(f < F ? params[h * F + f] : 0.0f, v.x, v.z);
-    split(f + 4 < F ? params[h * F + f + 4] : 0.0f, v.y, v.w);
+    operand<kB>(f < F ? params[h * F + f] : 0.0f, v.x, v.z);
+    operand<kB>(f + 4 < F ? params[h * F + f + 4] : 0.0f, v.y, v.w);
     wfr[e] = v;
   }
   // per column pair j (columns 2j, 2j + 1): b_b, W_d, W_c rows 0-2
@@ -347,7 +433,8 @@ triplane_decode_kernel(const float* __restrict__ planes,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gr = lane >> 2, t = lane & 3;
   const float out_bias = bd_bc[t];
-  const size_t plane_size = (size_t)3 * res * res * C;
+  const size_t plane_size =
+      (size_t)3 * res * res * (kB ? padded_channels<C>() : C);
   const int tiles = (M + 31) / 32;  // a warp's tiles a scene
   for (int tile = blockIdx.x * kWarps + warp; tile < S * tiles;
        tile += gridDim.x * kWarps) {
@@ -362,8 +449,8 @@ triplane_decode_kernel(const float* __restrict__ planes,
         y = xyz[si * 3 + 1];
         z = xyz[si * 3 + 2];
       }
-      stage_features<C>(planes + s * plane_size, x, y, z, res, valid,
-                        sFh + threadIdx.x * FS, sFl + threadIdx.x * FS);
+      stage_features<C, kB>(planes + s * plane_size, x, y, z, res, valid,
+                            sFh + threadIdx.x * FS, sFl + threadIdx.x * FS);
       sR[threadIdx.x] = valid && colour ? rid[si] : 0;
     }
     __syncwarp();
@@ -377,7 +464,7 @@ triplane_decode_kernel(const float* __restrict__ planes,
 #pragma unroll
       for (int ks = 0; ks < KF; ++ks) {
         uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
-        load_a<FS>(sFh, sFl, 16 * mt, ks, ah, al);
+        load_a<FS, kB>(sFh, sFl, 16 * mt, ks, ah, al);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const uint4 v = wfr[(ks * NT + n) * 32 + lane];
@@ -386,7 +473,7 @@ triplane_decode_kernel(const float* __restrict__ planes,
           bl[n][0] = v.z;
           bl[n][1] = v.w;
         }
-        mma3_split<NT>(acc, ah, al, bh, bl);
+        mma3_split<NT, kB>(acc, ah, al, bh, bl);
       }
       // heads: lane = rows gr, gr + 8 x columns 2t, 2t + 1 of each tile
       float out[2][4];
@@ -407,13 +494,16 @@ triplane_decode_kernel(const float* __restrict__ planes,
         for (int i = 0; i < 2; ++i) {
           float2 dv = make_float2(0.0f, 0.0f);
           if (colour) dv = *reinterpret_cast<const float2*>(drow[i] + 8 * n);
+          if (kB) dv = make_float2(round_bf16(dv.x), round_bf16(dv.y));
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const float b = acc[n][2 * i + j] + (j ? hb.y : hb.x);
-            out[i][0] += (j ? hb.w : hb.z) * (b * sigmoid_fast(b));
+            const float bx = b * sigmoid_fast(b);
+            out[i][0] += (j ? hb.w : hb.z) * (kB ? round_bf16(bx) : bx);
             if (colour) {
               const float c = b + (j ? dv.y : dv.x);
-              const float cx = c * sigmoid_fast(c);
+              const float cs = c * sigmoid_fast(c);
+              const float cx = kB ? round_bf16(cs) : cs;
               out[i][1] += (j ? hc.y : hc.x) * cx;
               out[i][2] += (j ? hc.w : hc.z) * cx;
               out[i][3] += (j ? hd.y : hd.x) * cx;
@@ -452,9 +542,9 @@ constexpr int bwd_smem_bytes() {
          kTile * (Fe::FS + (H + 4) + 1) * 4;
 }
 
-template <int C, int H>
+template <int C, int H, bool kB>
 __global__ void __launch_bounds__(kThreads, 3)
-triplane_decode_bwd_kernel(const float* __restrict__ planes,
+triplane_decode_bwd_kernel(const PlaneT<kB>* __restrict__ planes,
                            const float* __restrict__ xyz,
                            const int32_t* __restrict__ rid,
                            const float* __restrict__ dir_out,
@@ -495,8 +585,8 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
     const int l = e & 31, nt = (e >> 5) % KF, ks = (e >> 5) / KF;
     const int h = 8 * ks + (l & 3), f = 8 * nt + (l >> 2);
     uint4 v;
-    split(f < F ? params[h * F + f] : 0.0f, v.x, v.z);
-    split(f < F ? params[(h + 4) * F + f] : 0.0f, v.y, v.w);
+    operand<kB>(f < F ? params[h * F + f] : 0.0f, v.x, v.z);
+    operand<kB>(f < F ? params[(h + 4) * F + f] : 0.0f, v.y, v.w);
     dfr[e] = v;
   }
   // this warp's columns 8 (warp NTW + j) + ..: W_b^T's B fragments (k =
@@ -511,9 +601,10 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
 #pragma unroll
     for (int ks = 0; ks < KF; ++ks) {
       const int f = 8 * ks + t;
-      split(f < F ? params[h * F + f] : 0.0f, bh[j][ks][0], bl[j][ks][0]);
-      split(f + 4 < F ? params[h * F + f + 4] : 0.0f, bh[j][ks][1],
-            bl[j][ks][1]);
+      operand<kB>(f < F ? params[h * F + f] : 0.0f, bh[j][ks][0],
+                  bl[j][ks][0]);
+      operand<kB>(f + 4 < F ? params[h * F + f + 4] : 0.0f, bh[j][ks][1],
+                  bl[j][ks][1]);
     }
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -541,7 +632,9 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
       wsum[r][n][0] = wsum[r][n][1] = wsum[r][n][2] = wsum[r][n][3] = 0.0f;
   float4 gsum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // b_d, b_c
 
-  const size_t plane_size = (size_t)3 * res * res * C;
+  const size_t plane_size =
+      (size_t)3 * res * res * (kB ? padded_channels<C>() : C);
+  const size_t dplane_size = (size_t)3 * res * res * C;
   const int tiles = (M + kTile - 1) / kTile;
   for (int tile = blockIdx.x; tile < S * tiles; tile += gridDim.x) {
     const int s = tile / tiles, i0 = (tile % tiles) * kTile;
@@ -569,11 +662,7 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
     }
     {
       float feat[FP];
-      if (valid) load_features<C>(planes + s * plane_size, x, y, z, res,
-                                  feat);
-#pragma unroll
-      for (int f = 0; f < FP; ++f)
-        if (!valid || f >= F) feat[f] = 0.0f;
+      features<C, kB>(planes + s * plane_size, x, y, z, res, valid, feat);
 #pragma unroll
       for (int f = 0; f < FP; f += 4)
         *reinterpret_cast<float4*>(sF + tid * FS + f) =
@@ -618,7 +707,7 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
         uint32_t ah[2][4], al[2][4], fh[2][NTW][2], fl[2][NTW][2];
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
-          load_a_split<FS>(sF, 16 * (mt + m), ks, ah[m], al[m]);
+          load_a_split<FS, kB>(sF, 16 * (mt + m), ks, ah[m], al[m]);
 #pragma unroll
           for (int j = 0; j < NTW; ++j) {
             fh[m][j][0] = bh[j][ks][0];
@@ -627,7 +716,7 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
             fl[m][j][1] = bl[j][ks][1];
           }
         }
-        mma3_batch<2, NTW>(acc, ah, al, fh, fl);
+        mma3_batch<2, NTW, kB>(acc, ah, al, fh, fl);
       }
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
@@ -645,23 +734,29 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
           dsum[j][0] = dsum[j][1] = 0.0f;
 #pragma unroll
           for (int ri = 0; ri < 2; ++ri) {
-            const float4 q = gg[ri];
+            // the products take the upstream gradients rounded (kB)
+            float4 q = gg[ri];
+            if (kB)
+              q = make_float4(round_bf16(q.x), round_bf16(q.y),
+                              round_bf16(q.z), round_bf16(q.w));
             float2 dv = make_float2(0.0f, 0.0f);
             if (colour && ray[ri] >= 0)
               dv = *reinterpret_cast<const float2*>(
                   dir_s + (size_t)ray[ri] * H + c0);
+            if (kB) dv = make_float2(round_bf16(dv.x), round_bf16(dv.y));
             float db[2], dc[2];
 #pragma unroll
             for (int qq = 0; qq < 2; ++qq) {
               const float b = acc[m][j][2 * ri + qq];
               const float sg = sigmoid_fast(b);
-              csum[j][qq][0] += q.x * (b * sg);                      // W_d
+              const float bx = b * sg;
+              csum[j][qq][0] += q.x * (kB ? round_bf16(bx) : bx);    // W_d
               db[qq] = cw[j][qq][0] * q.x * sg * (1.0f + b * (1.0f - sg));
               dc[qq] = 0.0f;
               if (colour) {
                 const float c = b + (qq ? dv.y : dv.x);
                 const float sc = sigmoid_fast(c);
-                const float cx = c * sc;
+                const float cx = kB ? round_bf16(c * sc) : c * sc;
                 csum[j][qq][1] += q.y * cx;                          // W_c
                 csum[j][qq][2] += q.z * cx;
                 csum[j][qq][3] += q.w * cx;
@@ -671,6 +766,10 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
                 db[qq] += dc[qq];
               }
               csum[j][qq][4] += db[qq];                              // b_b
+              if (kB) {  // dW_b, dF and d_dir take them rounded
+                db[qq] = round_bf16(db[qq]);
+                dc[qq] = round_bf16(dc[qq]);
+              }
               dsum[j][qq] += dc[qq];
             }
             *reinterpret_cast<float2*>(sDB + (r0 + 8 * ri) * HS + c0) =
@@ -728,18 +827,18 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
         for (int m = 0; m < 2; ++m) {
           const int s0 = 8 * (ks + m) + 2 * t;
           const float* a = sDB + s0 * HS + 16 * rb + gr;
-          split(a[0], ah[m][0], al[m][0]);
-          split(a[8], ah[m][1], al[m][1]);
-          split(a[HS], ah[m][2], al[m][2]);
-          split(a[HS + 8], ah[m][3], al[m][3]);
+          operand<kB>(a[0], ah[m][0], al[m][0]);
+          operand<kB>(a[8], ah[m][1], al[m][1]);
+          operand<kB>(a[HS], ah[m][2], al[m][2]);
+          operand<kB>(a[HS + 8], ah[m][3], al[m][3]);
 #pragma unroll
           for (int n = 0; n < KF; ++n) {
             const int o = s0 * FS + 8 * n + gr;
-            split(sF[o], fh[m][n][0], fl[m][n][0]);
-            split(sF[o + FS], fh[m][n][1], fl[m][n][1]);
+            operand<kB>(sF[o], fh[m][n][0], fl[m][n][0]);
+            operand<kB>(sF[o + FS], fh[m][n][1], fl[m][n][1]);
           }
         }
-        mma3_batch<2, KF>(acc, ah, al, fh, fl);
+        mma3_batch<2, KF, kB>(acc, ah, al, fh, fl);
       }
 #pragma unroll
       for (int n = 0; n < KF; ++n)
@@ -765,10 +864,10 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
         for (int m = 0; m < 2; ++m) {
           const float* a =
               sDB + (16 * (warp + kWarps * m) + gr) * HS + 8 * ks + t;
-          split(a[0], ah[m][0], al[m][0]);
-          split(a[8 * HS], ah[m][1], al[m][1]);
-          split(a[4], ah[m][2], al[m][2]);
-          split(a[8 * HS + 4], ah[m][3], al[m][3]);
+          operand<kB>(a[0], ah[m][0], al[m][0]);
+          operand<kB>(a[8 * HS], ah[m][1], al[m][1]);
+          operand<kB>(a[4], ah[m][2], al[m][2]);
+          operand<kB>(a[8 * HS + 4], ah[m][3], al[m][3]);
 #pragma unroll
           for (int n = 0; n < KF; ++n) {
             const uint4 v = dfr[(ks * KF + n) * 32 + lane];
@@ -778,7 +877,7 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
             fl[m][n][1] = v.w;
           }
         }
-        mma3_batch<2, KF>(acc, ah, al, fh, fl);
+        mma3_batch<2, KF, kB>(acc, ah, al, fh, fl);
       }
 #pragma unroll
       for (int m = 0; m < 2; ++m)
@@ -806,7 +905,11 @@ triplane_decode_bwd_kernel(const float* __restrict__ planes,
         df[f + 2] = v.z;
         df[f + 3] = v.w;
       }
-      scatter_features<C>(d_planes + s * plane_size, x, y, z, res, df);
+      if constexpr (kB)
+        scatter_features_bf16<C>(d_planes + s * dplane_size, x, y, z, res,
+                                 df);
+      else
+        scatter_features<C>(d_planes + s * dplane_size, x, y, z, res, df);
     }
   }
 
@@ -869,49 +972,46 @@ cudaError_t persistent_grid(Kernel kernel, int smem, int n_tiles,
   return cudaSuccess;
 }
 
-template <int C_, int H_>
+template <int C_, int H_, bool kB_>
 struct Shape {
   static constexpr int C = C_, H = H_;
+  static constexpr bool kB = kB_;
 };
 
-// fn(Shape<C, hidden>{}) for an instantiated (C, hidden), else
-// cudaErrorInvalidValue.
-template <int C, typename Fn>
-int with_hidden(int hidden, Fn fn) {
-  switch (hidden) {
-    case 32: return fn(Shape<C, 32>{});
-    case 64: return fn(Shape<C, 64>{});
-    case 128: return fn(Shape<C, 128>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
+// fn(Shape<C, hidden, kB>{}) for an instantiated (C, hidden) and mode,
+// else cudaErrorInvalidValue.
 template <typename Fn>
-int with_shape(int C, int hidden, Fn fn) {
-  switch (C) {
-    case 4: return with_hidden<4>(hidden, fn);
-    case 6: return with_hidden<6>(hidden, fn);
-    case 8: return with_hidden<8>(hidden, fn);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int with_shape(int C, int hidden, int bf16, Fn fn) {
+  return with_channels(C, bf16, [&](auto c, auto b) {
+    constexpr int Cv = decltype(c)::value;
+    constexpr bool kB = decltype(b)::value;
+    switch (hidden) {
+      case 32: return fn(Shape<Cv, 32, kB>{});
+      case 64: return fn(Shape<Cv, 64, kB>{});
+      case 128: return fn(Shape<Cv, 128, kB>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
+  });
 }
 
 }  // namespace
 
-// planes: (S, 3, res, res, C) f32 channels-last; xyz: (S, M, 3) f32;
-// rid: (S, M) int32 ray ids into dir_out (S, n_rays, hidden) f32, both
-// nullptr in density-only mode (then rgb is nullptr too); params: the
-// packed MLP block; sigma: (S, M) f32; rgb: (S, M, 3) f32.
-// Returns cudaErrorInvalidValue for a (C, hidden) without an instance
-// (C in {4, 6, 8}, hidden in {32, 64, 128}).
+// planes: (S, 3, res, res, C) f32 channels-last, or with bf16 != 0 bf16
+// with C padded to a multiple of 4 (the bf16 operand mode); xyz: (S, M, 3)
+// f32; rid: (S, M) int32 ray ids into dir_out (S, n_rays, hidden) f32,
+// both nullptr in density-only mode (then rgb is nullptr too); params: the
+// packed MLP block (bf16 values for the weights in the bf16 mode); sigma:
+// (S, M) f32; rgb: (S, M, 3) f32.  Returns cudaErrorInvalidValue for a
+// (C, hidden) without an instance (C in {4, 6, 8}, hidden in {32, 64,
+// 128}).
 extern "C" int triplane_decode(const void* planes, const void* xyz,
                                const void* rid, const void* dir_out,
                                const void* params, void* sigma, void* rgb,
                                int S, int M, int n_rays, int res, int C,
-                               int hidden, void* stream) {
-  return with_shape(C, hidden, [&](auto shape) {
+                               int hidden, int bf16, void* stream) {
+  return with_shape(C, hidden, bf16, [&](auto shape) {
     using Sh = decltype(shape);
-    auto kernel = triplane_decode_kernel<Sh::C, Sh::H>;
+    auto kernel = triplane_decode_kernel<Sh::C, Sh::H, Sh::kB>;
     constexpr int smem = fwd_smem_bytes<Sh::C, Sh::H>();
     const int n_tiles = S * ((M + kTile - 1) / kTile);
     if (n_tiles == 0) return (int)cudaSuccess;
@@ -919,10 +1019,11 @@ extern "C" int triplane_decode(const void* planes, const void* xyz,
     cudaError_t err = persistent_grid(kernel, smem, n_tiles, grid);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        static_cast<const float*>(planes), static_cast<const float*>(xyz),
-        static_cast<const int32_t*>(rid), static_cast<const float*>(dir_out),
-        static_cast<const float*>(params), static_cast<float*>(sigma),
-        static_cast<float*>(rgb), S, M, n_rays, res);
+        static_cast<const PlaneT<Sh::kB>*>(planes),
+        static_cast<const float*>(xyz), static_cast<const int32_t*>(rid),
+        static_cast<const float*>(dir_out), static_cast<const float*>(params),
+        static_cast<float*>(sigma), static_cast<float*>(rgb), S, M, n_rays,
+        res);
     return (int)cudaGetLastError();
   });
 }
@@ -930,19 +1031,20 @@ extern "C" int triplane_decode(const void* planes, const void* xyz,
 // Inputs as triplane_decode, plus g_sigma (S, M) and g_rgb (S, M, 3) f32,
 // the gradients of the raw outputs (g_rgb nullptr in density-only mode).
 // Outputs, zero-filled by the caller and accumulated into: d_planes (S, 3,
-// res, res, C), d_dir_out (S, n_rays, hidden) (nullptr in density-only
-// mode), d_params (the parameter block's size).  Returns
-// cudaErrorInvalidValue for a (C, hidden) without an instance.
+// res, res, C) f32 (C unpadded in either mode), d_dir_out (S, n_rays,
+// hidden) (nullptr in density-only mode), d_params (the parameter block's
+// size).  Returns cudaErrorInvalidValue for a (C, hidden) without an
+// instance.
 extern "C" int triplane_decode_bwd(const void* planes, const void* xyz,
                                    const void* rid, const void* dir_out,
                                    const void* params, const void* g_sigma,
                                    const void* g_rgb, void* d_planes,
                                    void* d_dir_out, void* d_params, int S,
                                    int M, int n_rays, int res, int C,
-                                   int hidden, void* stream) {
-  return with_shape(C, hidden, [&](auto shape) {
+                                   int hidden, int bf16, void* stream) {
+  return with_shape(C, hidden, bf16, [&](auto shape) {
     using Sh = decltype(shape);
-    auto kernel = triplane_decode_bwd_kernel<Sh::C, Sh::H>;
+    auto kernel = triplane_decode_bwd_kernel<Sh::C, Sh::H, Sh::kB>;
     constexpr int smem = bwd_smem_bytes<Sh::C, Sh::H>();
     const int n_tiles = S * ((M + kTile - 1) / kTile);
     if (n_tiles == 0) return (int)cudaSuccess;
@@ -950,12 +1052,12 @@ extern "C" int triplane_decode_bwd(const void* planes, const void* xyz,
     cudaError_t err = persistent_grid(kernel, smem, n_tiles, grid);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        static_cast<const float*>(planes), static_cast<const float*>(xyz),
-        static_cast<const int32_t*>(rid), static_cast<const float*>(dir_out),
-        static_cast<const float*>(params), static_cast<const float*>(g_sigma),
-        static_cast<const float*>(g_rgb), static_cast<float*>(d_planes),
-        static_cast<float*>(d_dir_out), static_cast<float*>(d_params), S, M,
-        n_rays, res);
+        static_cast<const PlaneT<Sh::kB>*>(planes),
+        static_cast<const float*>(xyz), static_cast<const int32_t*>(rid),
+        static_cast<const float*>(dir_out), static_cast<const float*>(params),
+        static_cast<const float*>(g_sigma), static_cast<const float*>(g_rgb),
+        static_cast<float*>(d_planes), static_cast<float*>(d_dir_out),
+        static_cast<float*>(d_params), S, M, n_rays, res);
     return (int)cudaGetLastError();
   });
 }

@@ -22,6 +22,10 @@
 // three planes 590 KB, against 227 KB a block; a staged (bf16, or narrower
 // v range) design is later work.
 //
+// A bf16 instance reads bf16 planes (padded to 4-channel taps) and rounds
+// as the Pallas kernel does (triplane.cuh): the windowed hat it rounds is
+// the u axis's, the one the TPU kernel's window cuts.
+//
 // Bound on the H100: the decode's f32 FMAs (~1.5 k MACs a slot), as for
 // decode.cu.  One thread per slot, 256-thread blocks (two tiles), MLP
 // weights in shared memory.
@@ -32,9 +36,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int C>
+template <int C, bool kB>
 __global__ void __launch_bounds__(kThreads)
-triplane_decode_banded_kernel(const float* __restrict__ planes,
+triplane_decode_banded_kernel(const PlaneT<kB>* __restrict__ planes,
                               const float* __restrict__ xyz,
                               const int32_t* __restrict__ rid,
                               const float* __restrict__ dir_out,
@@ -54,12 +58,14 @@ triplane_decode_banded_kernel(const float* __restrict__ planes,
   if (i >= M) return;
   const size_t si = (size_t)s * M + i;
   const int wv = win[(size_t)s * (M / tile) + i / tile];
+  constexpr int CS = kB ? padded_channels<C>() : C;
   float feat[F];
-  sample_features<C, true>(planes + (size_t)s * 3 * res * res * C,
-                           xyz[si * 3 + 0], xyz[si * 3 + 1], xyz[si * 3 + 2],
-                           res, feat, wv & 0xFF, wv >> 8, band_w);
+  sample_features<C, true, kB>(planes + (size_t)s * 3 * res * res * CS,
+                               xyz[si * 3 + 0], xyz[si * 3 + 1],
+                               xyz[si * 3 + 2], res, feat, wv & 0xFF,
+                               wv >> 8, band_w);
   float out[4];
-  mlp_forward<C>(w, hidden, feat,
+  mlp_forward<C, kB>(w, hidden, feat,
                  dir_out + ((size_t)s * n_rays + rid[si]) * hidden, out);
   sigma[si] = out[0];
   rgb[si * 3 + 0] = out[1];
@@ -67,17 +73,18 @@ triplane_decode_banded_kernel(const float* __restrict__ planes,
   rgb[si * 3 + 2] = out[3];
 }
 
-template <int C>
+template <int C, bool kB>
 int launch(const void* planes, const void* xyz, const void* rid,
            const void* dir_out, const void* params, const void* win,
            void* sigma, void* rgb, int S, int M, int n_rays, int res,
            int hidden, int tile, int band_w, cudaStream_t stream) {
   const int smem = (hidden * 3 * C + 5 * hidden + 4) * (int)sizeof(float);
-  cudaError_t err = allow_smem(triplane_decode_banded_kernel<C>, smem);
+  auto kernel = triplane_decode_banded_kernel<C, kB>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((M + kThreads - 1) / kThreads, S);
-  triplane_decode_banded_kernel<C><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(planes), static_cast<const float*>(xyz),
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const PlaneT<kB>*>(planes), static_cast<const float*>(xyz),
       static_cast<const int32_t*>(rid), static_cast<const float*>(dir_out),
       static_cast<const float*>(params), static_cast<const int32_t*>(win),
       static_cast<float*>(sigma), static_cast<float*>(rgb), M, n_rays, res,
@@ -87,7 +94,8 @@ int launch(const void* planes, const void* xyz, const void* rid,
 
 }  // namespace
 
-// planes: (S, 3, res, res, C) f32 channels-last; xyz: (S, M, 3) f32 in the
+// planes: (S, 3, res, res, C) f32 channels-last, or with bf16 != 0 bf16
+// with C padded to a multiple of 4; xyz: (S, M, 3) f32 in the
 // band layout; rid: (S, M) int32 ray ids into dir_out (S, n_rays, hidden)
 // f32; params: the packed MLP block; win: (S, M / tile) int32 packed
 // window starts wx | (wy << 8) of each tile of `tile` slots.  Outputs
@@ -99,19 +107,13 @@ extern "C" int triplane_decode_banded(const void* planes, const void* xyz,
                                       const void* params, const void* win,
                                       void* sigma, void* rgb, int S, int M,
                                       int n_rays, int res, int C, int hidden,
-                                      int tile, int band_w, void* stream) {
+                                      int tile, int band_w, int bf16,
+                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (C) {
-    case 4:
-      return launch<4>(planes, xyz, rid, dir_out, params, win, sigma, rgb, S,
-                       M, n_rays, res, hidden, tile, band_w, st);
-    case 6:
-      return launch<6>(planes, xyz, rid, dir_out, params, win, sigma, rgb, S,
-                       M, n_rays, res, hidden, tile, band_w, st);
-    case 8:
-      return launch<8>(planes, xyz, rid, dir_out, params, win, sigma, rgb, S,
-                       M, n_rays, res, hidden, tile, band_w, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  auto run = [&](auto c, auto b) {
+    return launch<decltype(c)::value, decltype(b)::value>(
+        planes, xyz, rid, dir_out, params, win, sigma, rgb, S, M, n_rays,
+        res, hidden, tile, band_w, st);
+  };
+  return with_channels(C, bf16, run);
 }

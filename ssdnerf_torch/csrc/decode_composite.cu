@@ -21,6 +21,9 @@
 // segment (a ray's last block past its valid count, the group's tail) carry
 // tau = 0 and w = 0.  A fully truncated ray (soffs == P) gets zeros.
 //
+// A bf16 instance reads bf16 planes (padded to 4-channel taps) and rounds
+// as the Pallas kernel does (triplane.cuh); the composite stays f32.
+//
 // Bound on the H100: the decode's f32 FMAs (~1.5 k MACs per valid slot);
 // the composite adds ~20 flops and two exps per slot.  Design: one block of
 // 256 threads per group.  Phase 1, thread = slot (P / 256 slots a thread):
@@ -37,10 +40,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int C>
+template <int C, bool kB>
 __global__ void __launch_bounds__(kThreads)
 triplane_decode_composite_kernel(
-    const float* __restrict__ planes, const float* __restrict__ xyz,
+    const PlaneT<kB>* __restrict__ planes, const float* __restrict__ xyz,
     const int32_t* __restrict__ rid, const float* __restrict__ dir_out,
     const float* __restrict__ params, const float* __restrict__ pt,
     const float* __restrict__ pdt, const uint8_t* __restrict__ pvalid,
@@ -60,7 +63,8 @@ triplane_decode_composite_kernel(
   const int g = blockIdx.x, s = blockIdx.y;
   const int n_rays = G * GR;
   const size_t base = ((size_t)s * G + g) * P;  // first slot of the group
-  const float* planes_s = planes + (size_t)s * 3 * res * res * C;
+  constexpr int CS = kB ? padded_channels<C>() : C;
+  const PlaneT<kB>* planes_s = planes + (size_t)s * 3 * res * res * CS;
 
   // ---- phase 1: thread = slot ----
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
@@ -69,10 +73,11 @@ triplane_decode_composite_kernel(
     float tau = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f};
     if (valid) {
       float feat[F];
-      sample_features<C>(planes_s, xyz[si * 3 + 0], xyz[si * 3 + 1],
-                         xyz[si * 3 + 2], res, feat);
+      sample_features<C, false, kB>(planes_s, xyz[si * 3 + 0],
+                                    xyz[si * 3 + 1], xyz[si * 3 + 2], res,
+                                    feat);
       float out[4];
-      mlp_forward<C>(w, hidden, feat,
+      mlp_forward<C, kB>(w, hidden, feat,
                      dir_out + ((size_t)s * n_rays + rid[si]) * hidden, out);
       tau = fminf(expf(out[0]) * pdt[si], 60.0f);
 #pragma unroll
@@ -133,7 +138,7 @@ triplane_decode_composite_kernel(
   }
 }
 
-template <int C>
+template <int C, bool kB>
 int launch(const void* planes, const void* xyz, const void* rid,
            const void* dir_out, const void* params, const void* pt,
            const void* pdt, const void* pvalid, const void* soffs,
@@ -142,11 +147,12 @@ int launch(const void* planes, const void* xyz, const void* rid,
            float T_thresh, cudaStream_t stream) {
   const int smem = (hidden * 3 * C + 5 * hidden + 4 + 4 * P) *
                        (int)sizeof(float) + P;
-  cudaError_t err = allow_smem(triplane_decode_composite_kernel<C>, smem);
+  auto kernel = triplane_decode_composite_kernel<C, kB>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(G, S);
-  triplane_decode_composite_kernel<C><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(planes), static_cast<const float*>(xyz),
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const PlaneT<kB>*>(planes), static_cast<const float*>(xyz),
       static_cast<const int32_t*>(rid), static_cast<const float*>(dir_out),
       static_cast<const float*>(params), static_cast<const float*>(pt),
       static_cast<const float*>(pdt), static_cast<const uint8_t*>(pvalid),
@@ -158,7 +164,8 @@ int launch(const void* planes, const void* xyz, const void* rid,
 
 }  // namespace
 
-// planes: (S, 3, res, res, C) f32 channels-last; xyz: (S, G * P, 3) f32;
+// planes: (S, 3, res, res, C) f32 channels-last, or with bf16 != 0 bf16
+// with C padded to a multiple of 4; xyz: (S, G * P, 3) f32;
 // rid: (S, G * P) int32 ray ids into dir_out (S, G * GR, hidden) f32;
 // params: the packed MLP block; pt, pdt: (S, G, P) f32 slot t and dt;
 // pvalid: (S, G, P) uint8 (bool); soffs: (S, G, GR) int32 segment starts
@@ -170,23 +177,14 @@ extern "C" int triplane_decode_composite(
     const void* planes, const void* xyz, const void* rid, const void* dir_out,
     const void* params, const void* pt, const void* pdt, const void* pvalid,
     const void* soffs, void* weights_sum, void* depth, void* image, int S,
-    int G, int P, int GR, int res, int C, int hidden, float scale, float sat,
-    float T_thresh, void* stream) {
+    int G, int P, int GR, int res, int C, int hidden, int bf16, float scale,
+    float sat, float T_thresh, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (C) {
-    case 4:
-      return launch<4>(planes, xyz, rid, dir_out, params, pt, pdt, pvalid,
-                       soffs, weights_sum, depth, image, S, G, P, GR, res,
-                       hidden, scale, sat, T_thresh, st);
-    case 6:
-      return launch<6>(planes, xyz, rid, dir_out, params, pt, pdt, pvalid,
-                       soffs, weights_sum, depth, image, S, G, P, GR, res,
-                       hidden, scale, sat, T_thresh, st);
-    case 8:
-      return launch<8>(planes, xyz, rid, dir_out, params, pt, pdt, pvalid,
-                       soffs, weights_sum, depth, image, S, G, P, GR, res,
-                       hidden, scale, sat, T_thresh, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  auto run = [&](auto c, auto b) {
+    return launch<decltype(c)::value, decltype(b)::value>(
+        planes, xyz, rid, dir_out, params, pt, pdt, pvalid, soffs,
+        weights_sum, depth, image, S, G, P, GR, res, hidden, scale, sat,
+        T_thresh, st);
+  };
+  return with_channels(C, bf16, run);
 }

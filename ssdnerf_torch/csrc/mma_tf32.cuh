@@ -1,5 +1,6 @@
 // f32 matrix products on Hopper's tensor cores in three TF32 passes
-// ("3xTF32"), shared by attention.cu and decode.cu.
+// ("3xTF32"), shared by attention.cu and decode.cu; products of bf16
+// values in one pass.
 //
 // Each operand x is split into hi = tf32(x) and lo = tf32(x - hi), and
 // acc += lo*hi + hi*lo + hi*hi, the small terms first: the three passes
@@ -48,38 +49,43 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4],
 // three TF32 passes, the small terms first.  Each pass runs over all N
 // tiles, so that N independent products separate two that share an
 // accumulator (in-order issue would otherwise wait out the mma latency
-// twice a tile).
-template <int N>
+// twice a tile).  kOne: the operands are bf16 values, which TF32 holds
+// exactly (lo = 0), so the hi pass alone is the whole product.
+template <int N, bool kOne = false>
 __device__ __forceinline__ void mma3_split(float (*acc)[4],
                                            const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4],
                                            const uint32_t (*bh)[2],
                                            const uint32_t (*bl)[2]) {
+  if constexpr (!kOne) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], al, bh[n]);
+    for (int n = 0; n < N; ++n) mma_tf32(acc[n], al, bh[n]);
 #pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bl[n]);
+    for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bl[n]);
+  }
 #pragma unroll
   for (int n = 0; n < N; ++n) mma_tf32(acc[n], ah, bh[n]);
 }
 
 // acc[e][n] += A_e B_en for E x N tiles, operands split, the three passes
 // each over all E x N tiles (E A fragments, each with its own N B
-// fragments).
-template <int E, int N>
+// fragments); kOne as mma3_split.
+template <int E, int N, bool kOne = false>
 __device__ __forceinline__ void mma3_batch(float (*acc)[N][4],
                                            const uint32_t (*ah)[4],
                                            const uint32_t (*al)[4],
                                            const uint32_t (*bh)[N][2],
                                            const uint32_t (*bl)[N][2]) {
+  if constexpr (!kOne) {
 #pragma unroll
-  for (int e = 0; e < E; ++e)
+    for (int e = 0; e < E; ++e)
 #pragma unroll
-    for (int n = 0; n < N; ++n) mma_tf32(acc[e][n], al[e], bh[e][n]);
+      for (int n = 0; n < N; ++n) mma_tf32(acc[e][n], al[e], bh[e][n]);
 #pragma unroll
-  for (int e = 0; e < E; ++e)
+    for (int e = 0; e < E; ++e)
 #pragma unroll
-    for (int n = 0; n < N; ++n) mma_tf32(acc[e][n], ah[e], bl[e][n]);
+      for (int n = 0; n < N; ++n) mma_tf32(acc[e][n], ah[e], bl[e][n]);
+  }
 #pragma unroll
   for (int e = 0; e < E; ++e)
 #pragma unroll

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.activations import silu_xla as _silu
 from ...ops.kernels.attention import attention
 
 
@@ -81,15 +82,6 @@ def _conv(conv, x, dtype):
         return conv._conv_forward(x, w, b)
     y = conv._conv_forward(x, w, None)
     return y + b.reshape((-1,) + (1,) * (y.dim() - 2))
-
-
-def _silu(x):
-    """``jax.nn.silu`` as XLA runs it: x * sigmoid(x) with sigmoid(x) = 1 /
-    (1 + exp(-x)), each step rounded to x's dtype (in bf16 four roundings
-    where ``F.silu`` makes one)."""
-    if x.dtype == torch.float32:
-        return F.silu(x)
-    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def _dense(linear, x):

@@ -29,11 +29,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     'march_occupancy': [_P, _P, _P, _I, _I, _I, _P],
     'march_popcount': [_P, _P, _P, _I, _I, _I, _I, _P],
-    'triplane_decode': [_P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _P],
-    'triplane_decode_bwd': [_P] * 10 + [_I] * 6 + [_P],
-    'triplane_decode_composite': [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P],
-    'triplane_decode_banded': [_P] * 8 + [_I] * 8 + [_P],
+    'triplane_decode': [_P] * 7 + [_I] * 7 + [_P],
+    'triplane_decode_bwd': [_P] * 10 + [_I] * 7 + [_P],
+    'triplane_decode_composite': [_P] * 12 + [_I] * 8 + [_F] * 3 + [_P],
+    'triplane_decode_banded': [_P] * 8 + [_I] * 9 + [_P],
     'attention_fwd': [_P] * 5 + [_I, _I, _I, _F, _P],
     'attention_bwd': [_P] * 10 + [_I, _I, _I, _F, _P],
     'attention_fwd_bf16': [_P] * 6 + [_I, _I, _I, _F, _P],

@@ -15,6 +15,25 @@ trunc_exp / sigmoid).  The kernels are ``csrc/decode.cu``.  Under
 autograd a CUDA call goes through :class:`_DecodeFn`, whose backward is the
 backward kernel: gradients of the planes, the parameter block and
 ``dir_out``; the positions and ray ids get none.
+
+Two operand modes, chosen by the planes' dtype.  f32 planes decode in f32
+(the JAX package's XLA recipe at ``compute_dtype='float32'``).  bf16
+planes decode at the rounding points of the Pallas kernels, which JAX
+feeds bf16 planes and weights (``renderer.py:_prep_decode_operands``):
+the hat weight of the first coordinate of each plane pair (x for planes
+xy and xz, y for yz) is rounded to bf16, the second's stays f32; the
+features, SiLU(base) and SiLU(base + dir_out) are rounded to bf16 before
+their products; dir_out is read rounded to bf16; the parameter block's
+weights are bf16 values (:func:`pack_params` with ``torch.bfloat16``)
+and its biases f32.  The backward rounds the upstream gradients before
+the head products (the bias sums take them unrounded), the base gradient
+before dW_b and dF (the base bias takes it unrounded), the colour head's
+base gradient before d_dir_out, and ``dF * hat`` before the plane
+gradient; its sums stay f32 and come back in the operands' dtypes, bf16
+for the planes (the weights' bf16 rounding is the cast in
+:func:`pack_params`, whose gradient rounds).  The bf16 kernels read planes
+padded to a multiple of 4 channels (16-byte taps at C = 6); their wrappers
+pad.
 """
 import torch
 import torch.nn.functional as F
@@ -28,13 +47,27 @@ BAND_W = 64   # u rows of a tile's plane window
 HIDDEN = (32, 64, 128)   # decoder widths of the decode kernels' instances
 
 
-def pack_params(base, density, color):
+def pack_params(base, density, color, dtype=torch.float32):
     """Flatten the three Linear layers into the kernel's parameter block:
     base weight (hidden, 3C), base bias, density weight (hidden,), colour
-    weight (3, hidden), then [density bias, colour bias (3)]."""
-    return torch.cat([base.weight.reshape(-1), base.bias,
-                      density.weight.reshape(-1), color.weight.reshape(-1),
-                      density.bias, color.bias]).float().contiguous()
+    weight (3, hidden), then [density bias, colour bias (3)].  With
+    ``dtype`` bf16, :func:`round_weights` of it."""
+    block = torch.cat([base.weight.reshape(-1), base.bias,
+                       density.weight.reshape(-1), color.weight.reshape(-1),
+                       density.bias, color.bias]).float().contiguous()
+    if dtype == torch.bfloat16:
+        block = round_weights(block, *base.weight.shape)
+    return block
+
+
+def round_weights(params, hidden, n_feat):
+    """A parameter block with its weights rounded to bf16 and its biases
+    as they are (the block stays f32).  The rounding is a cast, whose
+    gradient rounds too, as JAX's ``astype`` does."""
+    r = lambda t: t.to(torch.bfloat16).float()
+    wb, bb, wd, wc, bd, bc = _unpack_params(params, hidden, n_feat)
+    return torch.cat([r(wb).reshape(-1), bb, r(wd).reshape(-1),
+                      r(wc).reshape(-1), bd, bc]).contiguous()
 
 
 def _unpack_params(params, hidden, n_feat):
@@ -52,10 +85,35 @@ def _taps(c, res):
     return i0, torch.clamp(i0 + 1, max=res - 1), w
 
 
+def _bf16(x):
+    """x rounded to bf16 (kept in x's dtype); the gradient passes
+    unrounded."""
+    return x + (x.to(torch.bfloat16).to(x.dtype) - x).detach()
+
+
+class _GradBf16(torch.autograd.Function):
+    """Identity whose gradient is rounded to bf16: the operand rounding of
+    the Pallas backward's products."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
 def _decode_plain(planes, xyz, params, hidden, rid, dir_out, u_lo=None):
     """The decode; with ``u_lo`` = (x window, y window) per-sample window
     starts, a tap whose u index lies outside [lo, lo + BAND_W) (the x
-    window for planes xy and xz, the y window for yz) has weight 0."""
+    window for planes xy and xz, the y window for yz) has weight 0.  bf16
+    planes take the rounding points of the module docstring.  The sums
+    run in xyz's dtype (at least f32; f64 gives the kernels' reference)."""
+    bf16 = planes.dtype == torch.bfloat16
+    rnd = _bf16 if bf16 else (lambda t: t)
+    grad_rnd = _GradBf16.apply if bf16 else (lambda t: t)
+    planes = planes.to(torch.promote_types(xyz.dtype, torch.float32))
     S, _, res, _, C = planes.shape
     M = xyz.shape[1]
     x, y, z = xyz.unbind(-1)
@@ -69,23 +127,23 @@ def _decode_plain(planes, xyz, params, hidden, rid, dir_out, u_lo=None):
             i = (vi * res + ui)[..., None].expand(S, M, C)
             return torch.gather(flat, 1, i)
 
-        au = 1.0 - wu
+        au, wu = rnd(1.0 - wu), rnd(wu)
         if u_lo is not None:
             lo = u_lo[0 if p < 2 else 1]
             au = au * ((u0 >= lo) & (u0 < lo + BAND_W))
             wu = wu * ((u1 >= lo) & (u1 < lo + BAND_W))
         au, av = au[..., None], (1.0 - wv)[..., None]
         wu, wv = wu[..., None], wv[..., None]
-        feats.append(av * (au * tap(v0, u0) + wu * tap(v0, u1))
-                     + wv * (au * tap(v1, u0) + wu * tap(v1, u1)))
-    feat = torch.stack(feats, dim=-1).reshape(S, M, 3 * C)   # c * 3 + p
+        feats.append(av * grad_rnd(au * tap(v0, u0) + wu * tap(v0, u1))
+                     + wv * grad_rnd(au * tap(v1, u0) + wu * tap(v1, u1)))
+    feat = rnd(torch.stack(feats, dim=-1).reshape(S, M, 3 * C))  # c * 3 + p
     wb, bb, wd, wc, bd, bc = _unpack_params(params, hidden, 3 * C)
-    base = feat @ wb.T + bb
-    sigma = (F.silu(base) @ wd.T)[..., 0] + bd
+    base = grad_rnd(feat @ wb.T) + bb
+    sigma = grad_rnd(rnd(F.silu(base)) @ wd.T)[..., 0] + bd
     if dir_out is None:
         return sigma, None
     d = torch.gather(dir_out, 1, rid.long()[..., None].expand(S, M, hidden))
-    rgb = F.silu(base + d) @ wc.T + bc
+    rgb = grad_rnd(rnd(F.silu(base + grad_rnd(rnd(d)))) @ wc.T) + bc
     return sigma, rgb
 
 
@@ -131,8 +189,13 @@ def _check_operands(name, planes, xyz, params, hidden, rid, dir_out):
     """Validate the operands of a kernel call; returns (S, M, res, C,
     n_rays)."""
     colour = dir_out is not None
+    if planes.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'{name}: needs f32 or bf16 planes, got '
+                        f'{planes.dtype}')
     _build.check_cuda(name, planes, xyz, params,
-                      *([dir_out] if colour else []), dtype=torch.float32)
+                      *([dir_out] if colour else []))
+    _build.check_cuda(name, xyz, params, *([dir_out] if colour else []),
+                      dtype=torch.float32)
     S, _, res, res_w, C = planes.shape
     M = xyz.shape[1]
     if res != res_w or xyz.shape != (S, M, 3) or C not in (4, 6, 8):
@@ -150,6 +213,21 @@ def _check_operands(name, planes, xyz, params, hidden, rid, dir_out):
     return S, M, res, C, n_rays
 
 
+def _kernel_planes(planes):
+    """The planes as the kernels read them, and the bf16 flag: bf16 planes
+    padded with zero channels to a multiple of 4 (a tap is then one 8- or
+    16-byte load)."""
+    C = planes.shape[-1]
+    if planes.dtype != torch.bfloat16:
+        return planes, 0
+    return F.pad(planes, (0, -C % 4)).contiguous(), 1
+
+
+def _count(wrapper, planes):
+    name = 'launches_bf16' if planes.dtype == torch.bfloat16 else 'launches'
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
 def _check_hidden(name, hidden):
     if hidden not in HIDDEN:
         raise ValueError(f'{name}: hidden {hidden} has no instance')
@@ -163,12 +241,13 @@ def _decode_fwd(planes, xyz, params, hidden, rid, dir_out):
     sigma = torch.empty((S, M), dtype=torch.float32, device=planes.device)
     rgb = torch.empty((S, M, 3), dtype=torch.float32,
                       device=planes.device) if colour else None
-    _build.launch('triplane_decode', planes.device, planes.data_ptr(),
+    pk, bf16 = _kernel_planes(planes)
+    _build.launch('triplane_decode', planes.device, pk.data_ptr(),
                   xyz.data_ptr(), rid.data_ptr() if colour else None,
                   dir_out.data_ptr() if colour else None, params.data_ptr(),
                   sigma.data_ptr(), rgb.data_ptr() if colour else None,
-                  S, M, n_rays, res, C, hidden)
-    triplane_decode.launches += 1
+                  S, M, n_rays, res, C, hidden, bf16)
+    _count(triplane_decode, planes)
     return sigma, rgb
 
 
@@ -178,10 +257,11 @@ def triplane_decode_backward(planes, xyz, params, hidden, rid, dir_out,
     ``g_sigma`` (S, M) and ``g_rgb`` (S, M, 3) (None if density-only).
 
     Returns (d_planes, d_params, d_dir_out) shaped like planes, params and
-    dir_out (d_dir_out None if density-only).  CPU tensors take the plain
-    version; CUDA tensors launch the backward kernel of ``csrc/decode.cu``
-    (or raise).  The kernel sums with f32 atomics, so its results vary in
-    the last bits from run to run.
+    dir_out and of their dtypes (d_dir_out None if density-only).  CPU
+    tensors take the plain version; CUDA tensors launch the backward kernel
+    of ``csrc/decode.cu`` (or raise).  The kernel sums with f32 atomics, so
+    its results vary in the last bits from run to run; bf16 plane
+    gradients are rounded once, after the kernel.
     """
     if planes.device.type == 'cpu':
         return triplane_decode_backward_plain(planes, xyz, params, hidden,
@@ -196,17 +276,18 @@ def triplane_decode_backward(planes, xyz, params, hidden, rid, dir_out,
         raise ValueError('triplane_decode_backward: gradients must be '
                          '(S, M) and (S, M, 3)')
     _check_hidden('triplane_decode_backward', hidden)
-    d_planes = torch.zeros_like(planes)
+    d_planes = torch.zeros_like(planes, dtype=torch.float32)
     d_params = torch.zeros_like(params)
     d_dir = torch.zeros_like(dir_out) if colour else None
-    _build.launch('triplane_decode_bwd', planes.device, planes.data_ptr(),
+    pk, bf16 = _kernel_planes(planes)
+    _build.launch('triplane_decode_bwd', planes.device, pk.data_ptr(),
                   xyz.data_ptr(), rid.data_ptr() if colour else None,
                   dir_out.data_ptr() if colour else None, params.data_ptr(),
                   g_sigma.data_ptr(), g_rgb.data_ptr() if colour else None,
                   d_planes.data_ptr(), d_dir.data_ptr() if colour else None,
-                  d_params.data_ptr(), S, M, n_rays, res, C, hidden)
-    triplane_decode_backward.launches += 1
-    return d_planes, d_params, d_dir
+                  d_params.data_ptr(), S, M, n_rays, res, C, hidden, bf16)
+    _count(triplane_decode_backward, planes)
+    return d_planes.to(planes.dtype), d_params, d_dir
 
 
 class _DecodeFn(torch.autograd.Function):
@@ -234,10 +315,12 @@ def triplane_decode(planes, xyz, params, hidden, rid=None, dir_out=None):
     """Decode raw density (and colour) at sample points.
 
     Args:
-        planes: (S, 3, res, res, C) f32 channels-last triplanes
-            (``code.permute(0, 1, 3, 4, 2)``).
+        planes: (S, 3, res, res, C) f32 or bf16 channels-last triplanes
+            (``code.permute(0, 1, 3, 4, 2)``); bf16 selects the bf16
+            operand mode (module docstring).
         xyz: (S, M, 3) f32 points (z already flipped if the decoder flips).
-        params: the :func:`pack_params` block.
+        params: the :func:`pack_params` block (its bf16 form with bf16
+            planes).
         hidden: base width.
         rid: (S, M) int32 ray id of each sample into ``dir_out``; None
             with ``dir_out`` None for density-only decoding.
@@ -340,14 +423,15 @@ def triplane_decode_composite(planes, xyz, params, hidden, rid, dir_out, pt,
     depth = torch.empty_like(weights_sum)
     image = torch.empty((S, n_rays, 3), dtype=torch.float32, device=dev)
     scale = 1 + 2 * sigmoid_saturation if sigmoid_saturation > 0 else 1.0
-    _build.launch('triplane_decode_composite', dev, planes.data_ptr(),
+    pk, bf16 = _kernel_planes(planes)
+    _build.launch('triplane_decode_composite', dev, pk.data_ptr(),
                   xyz.data_ptr(), rid.data_ptr(), dir_out.data_ptr(),
                   params.data_ptr(), pt.data_ptr(), pdt.data_ptr(),
                   pvalid.data_ptr(), soffs.data_ptr(), weights_sum.data_ptr(),
                   depth.data_ptr(), image.data_ptr(), S, G, P, group_rays,
-                  res, C, hidden, scale, max(sigmoid_saturation, 0.0),
-                  T_thresh)
-    triplane_decode_composite.launches += 1
+                  res, C, hidden, bf16, scale,
+                  max(sigmoid_saturation, 0.0), T_thresh)
+    _count(triplane_decode_composite, planes)
     return weights_sum, depth, image
 
 
@@ -393,15 +477,17 @@ def triplane_decode_banded(planes, xyz, params, hidden, rid, dir_out, win):
                          f'{TILE}, win (S, M // {TILE}) and res >= {BAND_W}')
     sigma = torch.empty((S, M), dtype=torch.float32, device=planes.device)
     rgb = torch.empty((S, M, 3), dtype=torch.float32, device=planes.device)
-    _build.launch('triplane_decode_banded', planes.device, planes.data_ptr(),
+    pk, bf16 = _kernel_planes(planes)
+    _build.launch('triplane_decode_banded', planes.device, pk.data_ptr(),
                   xyz.data_ptr(), rid.data_ptr(), dir_out.data_ptr(),
                   params.data_ptr(), win.data_ptr(), sigma.data_ptr(),
-                  rgb.data_ptr(), S, M, n_rays, res, C, hidden, TILE, BAND_W)
-    triplane_decode_banded.launches += 1
+                  rgb.data_ptr(), S, M, n_rays, res, C, hidden, TILE, BAND_W,
+                  bf16)
+    _count(triplane_decode_banded, planes)
     return sigma, rgb
 
 
-triplane_decode.launches = 0
-triplane_decode_backward.launches = 0
-triplane_decode_composite.launches = 0
-triplane_decode_banded.launches = 0
+# launches of the f32 and the bf16 kernels
+for _wrapper in (triplane_decode, triplane_decode_backward,
+                 triplane_decode_composite, triplane_decode_banded):
+    _wrapper.launches = _wrapper.launches_bf16 = 0

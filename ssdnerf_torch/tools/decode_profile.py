@@ -48,7 +48,8 @@ CLASSES = {'LDS': r'LDS', 'FFMA': r'FFMA', 'HMMA': r'HMMA',
            'RED/ATOM': r'(RED|ATOM)G?', 'LDG': r'LDG'}
 
 # Each variant: alternative edit lists, one for each version of decode.cu
-# (the FMA kernels, then the tensor-core kernels that replaced them);
+# (the FMA kernels, the tensor-core kernels that replaced them, then those
+# with the bf16 operand mode; a variant times the f32 mode);
 # the first list whose old texts are all in the source applies, and a
 # variant none of whose lists applies is reported as not applicable.  The
 # stand-ins keep their inputs alive (a store that never runs, a bit
@@ -64,6 +65,8 @@ VARIANTS = {
         [('scatter_features<C>(dplanes_s, x, y, z, res, dfeat);',
           _KEEP_DFEAT)],
         [('scatter_features<C>(d_planes + s * plane_size, x, y, z, res, '
+          'df);', _KEEP_DF)],
+        [('scatter_features<C>(d_planes + s * dplane_size, x, y, z, res, '
           'df);', _KEEP_DF)]],
     'no_products': [
         [('for (int f = 0; f < F; ++f) a += wb[hh * F + f] * feat[f];',
@@ -73,7 +76,9 @@ VARIANTS = {
          ('for (int f = 0; f < F; ++f) dfeat[f] += wb[hh * F + f] * d;',
           'dfeat[0] += d;')],
         [('mma3_batch<2, NTW>(acc, ah, al, fh, fl);', _NO_MMA),
-         ('mma3_batch<2, KF>(acc, ah, al, fh, fl);', _NO_MMA)]],
+         ('mma3_batch<2, KF>(acc, ah, al, fh, fl);', _NO_MMA)],
+        [('mma3_batch<2, NTW, kB>(acc, ah, al, fh, fl);', _NO_MMA),
+         ('mma3_batch<2, KF, kB>(acc, ah, al, fh, fl);', _NO_MMA)]],
 }
 VARIANTS['neither'] = [a + b for a, b in zip(VARIANTS['no_scatter'],
                                              VARIANTS['no_products'])]
@@ -224,7 +229,7 @@ def time_backward(lib, inp):
                                         'params', 'g_sigma', 'g_rgb')]
     args += [t.data_ptr() for t in outs]
     args += [inp[k] for k in ('S', 'M', 'n_rays', 'res', 'C', 'hidden')]
-    return _device_ms(lambda: fn(*args))
+    return _device_ms(lambda: fn(*args, 0))     # the f32 mode
 
 
 def time_forward(lib, inp, colour=True):
@@ -239,7 +244,7 @@ def time_forward(lib, inp, colour=True):
             inp['params'].data_ptr(), sigma.data_ptr(),
             rgb.data_ptr() if colour else None]
     args += [inp[k] for k in ('S', 'M', 'n_rays', 'res', 'C', 'hidden')]
-    return _device_ms(lambda: fn(*args))
+    return _device_ms(lambda: fn(*args, 0))     # the f32 mode
 
 
 def density_inputs(inp, grid=64, seed=1, ordered=False):

@@ -161,9 +161,11 @@ def test_self_attention_bf16_matches_flax(res, channels):
 def _cfg32(dtype='float32'):
     """The tiny model at 32^2: codes 3 x 4 x 32^2, a UNet of widths 64 /
     128 with 2 heads and attention at 32^2 (T = 1024, hd 32) and 16^2
-    (T = 256, hd 64)."""
+    (T = 256, hd 64); an f32 decoder (the UNet's dtype is what these
+    tests vary)."""
     cfg = copy.deepcopy(TINY_MODEL_CFG)
     cfg.update(code_size=(3, 4, 32, 32), code_reshape=(12, 32, 32))
+    cfg['decoder']['compute_dtype'] = 'float32'
     cfg['diffusion']['denoising'].update(
         image_size=32, base_channels=64, attention_res=[32, 16], dtype=dtype)
     return cfg
@@ -617,12 +619,14 @@ def test_bf16_config_and_flagship_build():
     assert bf16.sampling_diffusion is bf16.diffusion_ema
 
 
-def test_decode_stays_f32_while_jax_defaults_to_bf16():
-    """Open divergence: the JAX decoder's ``compute_dtype`` defaults to
-    'bfloat16' (its Pallas kernels take bf16 planes and weights); the port
-    decodes in f32 and takes no ``compute_dtype``.  Pinned here: the port
-    matches JAX's f32 decode (atol 1e-5), sits off its default bf16 decode
-    by more than 1e-3, and a ``compute_dtype`` raises."""
+def test_decode_forward_matches_jax_in_both_compute_dtypes():
+    """The decoder's ``compute_dtype`` is the JAX decoder's field, bf16 by
+    default as there, and ``forward`` (the Flax ``__call__``) follows JAX's
+    XLA recipe in it: the default against JAX's default (bf16) decode and
+    ``compute_dtype='float32'`` against JAX's f32 decode, each at atol 1e-5
+    (colour, and density-only equal to the colour call's density), while
+    the two JAX decodes sit more than 1e-3 apart.  A dtype JAX's decoder
+    lacks raises."""
     from ssdnerf_tpu.models.decoders.triplane import TriPlaneDecoder as JDec
     from ssdnerf_torch.models.decoders.triplane import TriPlaneDecoder
     rng = np.random.RandomState(84)
@@ -633,14 +637,21 @@ def test_decode_stays_f32_while_jax_defaults_to_bf16():
     args = [jnp.asarray(a) for a in (code, xyz, dirs)]
     jf = JDec(compute_dtype='float32', backend='xla')
     params = _noisy(jf.init(jax.random.PRNGKey(6), *args), rng, 0.1)
-    ref32 = jf.apply(params, *args)
-    refbf = JDec(backend='xla').apply(params, *args)
-    tdec = TriPlaneDecoder()
-    load_params(tdec, params)
-    with torch.no_grad():
-        out = tdec(*(torch.from_numpy(a) for a in (code, xyz, dirs)))
-    for o, r32, rbf in zip(out, ref32, refbf):
-        np.testing.assert_allclose(o.numpy(), _np(r32), rtol=0, atol=1e-5)
-        assert np.abs(o.numpy() - _np(rbf)).max() > 1e-3
-    with pytest.raises(TypeError):
-        TriPlaneDecoder(compute_dtype='bfloat16')
+    refs = {'float32': jf.apply(params, *args),
+            'bfloat16': JDec(backend='xla').apply(params, *args)}
+    assert TriPlaneDecoder().compute_dtype == 'bfloat16'
+    for dtype, ref in refs.items():
+        tdec = TriPlaneDecoder(compute_dtype=dtype)
+        load_params(tdec, params)
+        with torch.no_grad():
+            out = tdec(*(torch.from_numpy(a) for a in (code, xyz, dirs)))
+            dens, none = tdec(torch.from_numpy(code), torch.from_numpy(xyz),
+                              density_only=True)
+        assert none is None and torch.equal(dens, out[0])
+        for o, r in zip(out, ref):
+            np.testing.assert_allclose(o.numpy(), _np(r), rtol=0, atol=1e-5,
+                                       err_msg=dtype)
+    for a, b in zip(*refs.values()):
+        assert np.abs(_np(a) - _np(b)).max() > 1e-3
+    with pytest.raises(ValueError):
+        TriPlaneDecoder(compute_dtype='float16')

@@ -41,29 +41,57 @@ def test_march_kernel_matches_plain(cuda_device):
     assert torch.equal(got.cpu(), ref)
 
 
-@pytest.mark.parametrize('C', [4, 6])
-def test_decode_kernel_matches_plain(cuda_device, C):
-    """Colour and density-only decode, border-clamped points: atol 1e-5."""
-    g = torch.Generator().manual_seed(12)
-    dec = TriPlaneDecoder(base_layers=(3 * C, 64))
+def _bf16_close(got, ref, ulps=1.0):
+    """The bf16 decode's tolerance: max |got - ref| within ``ulps`` bf16
+    ulps of ref's largest entry, and the mean error within 1e-5 of that
+    entry.  A rounding to bf16 that falls the other way after f32 sums in
+    another order moves an element by about one ulp of its inputs; such
+    flips are rare."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert _bf16_ulps(got, ref) <= ulps
+    assert ((got - ref).abs().mean() / ref.abs().max()).item() <= 1e-5
+
+
+def _seeded_decoder(g, dtype, **kw):
+    dec = TriPlaneDecoder(compute_dtype=dtype, **kw)
     dec.init_weights(g)
     with torch.no_grad():
         for p in dec.parameters():
             p.add_(torch.randn(p.shape, generator=g) * 0.1)
+    return dec
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('C', [4, 6])
+def test_decode_kernel_matches_plain(cuda_device, C, dtype):
+    """Colour and density-only decode through the decoder's render path
+    (``decode`` on ``planes``, ``dir_out``), border-clamped points: f32
+    atol 1e-5, bf16 as ``_bf16_close``; the kernel of the decoder's
+    dtype launched."""
+    g = torch.Generator().manual_seed(12)
+    dec = _seeded_decoder(g, dtype, base_layers=(3 * C, 64))
     code = torch.randn((2, 3, C, 128, 128), generator=g)
     xyz = torch.rand((2, 5000, 3), generator=g) * 2.1 - 1.05
     dirs = torch.nn.functional.normalize(
         torch.randn((2, 5000, 3), generator=g), dim=-1)
+    rid = torch.arange(5000, dtype=torch.int32).expand(2, -1).contiguous()
+
+    def run(d, dev):
+        args = (d.planes(code.to(dev)), xyz.to(dev))
+        return d.decode(*args, rid.to(dev), d.dir_out(dirs.to(dev))) + (
+            d.decode(*args)[0],)
+
+    attr = 'launches' if dtype == 'float32' else 'launches_bf16'
     with torch.no_grad():
-        ref = dec(code, xyz, dirs)
-        ref_d, _ = dec(code, xyz, density_only=True)
-        dec = dec.to(cuda_device)
-        got = dec(code.to(cuda_device), xyz.to(cuda_device),
-                  dirs.to(cuda_device))
-        got_d, _ = dec(code.to(cuda_device), xyz.to(cuda_device),
-                       density_only=True)
-    for o, r in zip(got + (got_d,), ref + (ref_d,)):
-        torch.testing.assert_close(o.cpu(), r, rtol=1e-5, atol=1e-5)
+        ref = run(dec, 'cpu')
+        before = getattr(k_dec.triplane_decode, attr)
+        got = run(copy.deepcopy(dec).to(cuda_device), cuda_device)
+    assert getattr(k_dec.triplane_decode, attr) == before + 2
+    for o, r in zip(got, ref):
+        if dtype == 'float32':
+            torch.testing.assert_close(o.cpu(), r, rtol=1e-5, atol=1e-5)
+        else:
+            _bf16_close(o, r)
 
 
 def test_march_popcount_kernel_matches_plain(cuda_device):
@@ -197,8 +225,11 @@ def _bf16_ulps(got, ref):
     return ((got.float() - ref.float()).abs().max() / ulp).item()
 
 
-# the UNet levels of the flagship (32^2, 16^2, 8^2) and ragged lengths
-BF16_SHAPES = [(1024, 64), (256, 128), (64, 128), (100, 32), (1000, 64)]
+# the UNet levels of the flagship (32^2, 16^2, 8^2) and ragged lengths;
+# (512, 64) and (1024, 64) take the wgmma forward (attention_fwd_sm90.cu),
+# the others attention.cu's mma.sync forward
+BF16_SHAPES = [(1024, 64), (512, 64), (256, 128), (64, 128), (100, 32),
+               (1000, 64)]
 
 
 @pytest.mark.parametrize('T,hd', BF16_SHAPES)
@@ -230,6 +261,27 @@ def test_attention_bf16_kernels_match_plain(cuda_device, T, hd):
     for a, b in zip(grads, ref_grads):
         assert a.dtype == torch.bfloat16
         assert _bf16_ulps(a, b) <= 2.0
+
+
+@pytest.mark.parametrize('T,hd', BF16_SHAPES)
+def test_attention_bf16_forward_lse_and_o32(cuda_device, T, hd):
+    """What the bf16 forward keeps for the backward, at every shape its
+    dispatch routes: each row's log-sum-exp of the scaled scores within
+    2e-5 of torch.logsumexp (f32 scores, which the kernel forms in its own
+    order), and the f32 output before its rounding within one bf16 ulp of
+    the largest entry of the plain version's (bf16 weights times v, summed
+    in f32), of which the bf16 output is the rounding."""
+    g = torch.Generator().manual_seed(27)
+    q, k, v = (torch.randn((32, T, hd), generator=g).to(cuda_device)
+               .bfloat16() for _ in range(3))
+    scale = 1.0 / math.sqrt(hd)
+    o, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    s = k_attn._scores(q, k, scale)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=0,
+                               atol=2e-5)
+    ref32 = torch.matmul(torch.softmax(s, -1).bfloat16().float(), v.float())
+    assert _bf16_ulps(o32, ref32) <= 1.0
+    assert torch.equal(o, o32.bfloat16())
 
 
 def test_attention_mixed_dtypes_raise(cuda_device):
@@ -268,46 +320,96 @@ def _decode_operands(device, C, hidden, M, n_rays, per_ray, S=2, seed=15):
             (planes, xyz, params, rid, dir_out, g_sigma, g_rgb)]
 
 
+def _as_bf16(planes, params, hidden):
+    """The bf16 mode's operands: bf16 planes, the bf16 parameter block."""
+    C = planes.shape[-1]
+    return (planes.bfloat16(),
+            k_dec.round_weights(params, hidden, 3 * C).contiguous())
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('C,hidden,M,per_ray,S', [(6, 64, 262144, True, 8),
                                                   (6, 64, 20011, False, 2),
                                                   (4, 32, 5003, True, 2)])
 def test_decode_backward_kernel_matches_plain(cuda_device, C, hidden, M,
-                                              per_ray, S):
+                                              per_ray, S, dtype):
     """Plane, parameter and dir_out gradients of the backward kernel vs
     autograd of the plain version: the training shape (8 scenes x 4096
     rays x 64 samples, per-ray ray ids), scattered ray ids, ragged sample
-    counts: max error / max |reference| <= 1e-5 (f32 atomics)."""
+    counts.  f32: max error / max |reference| <= 1e-5 (f32 atomics); bf16
+    (the plain version's rounding points, bf16 plane gradients) as
+    ``_bf16_close`` at 2 ulps."""
     planes, xyz, params, rid, dir_out, g_s, g_c = _decode_operands(
         cuda_device, C, hidden, M, M // 64 + 1, per_ray, S)
+    if dtype == 'bfloat16':
+        planes, params = _as_bf16(planes, params, hidden)
     ref = k_dec.triplane_decode_backward_plain(planes, xyz, params, hidden,
                                                rid, dir_out, g_s, g_c)
     got = k_dec.triplane_decode_backward(planes, xyz, params, hidden, rid,
                                          dir_out, g_s, g_c)
+    assert got[0].dtype == planes.dtype
     for a, b, name in zip(got, ref, ('planes', 'params', 'dir_out')):
-        assert _max_rel_err(a, b) <= 1e-5, name
+        if dtype == 'float32':
+            assert _max_rel_err(a, b) <= 1e-5, name
+        else:
+            _bf16_close(a, b, 2.0)
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('C', [4, 6, 8])
 @pytest.mark.parametrize('hidden', [32, 64, 128])
-def test_decode_instance_matches_plain(cuda_device, C, hidden):
+def test_decode_instance_matches_plain(cuda_device, C, hidden, dtype):
     """Every (C, hidden) instance of the forward (colour and density-only)
-    and of the backward vs the plain version, M = 3001 (not a multiple of
-    the kernels' 128-sample tile), rays of 64 samples: the forward atol
-    1e-5, the backward 1e-5 of each gradient's largest entry."""
+    and of the backward, in both modes, vs the plain version, M = 3001
+    (not a multiple of the kernels' 128-sample tile), rays of 64 samples.
+    f32: the forward atol 1e-5, the backward 1e-5 of each gradient's
+    largest entry; bf16 as ``_bf16_close``, 1 ulp forward, 2 backward."""
     planes, xyz, params, rid, dir_out, g_s, g_c = _decode_operands(
         cuda_device, C, hidden, 3001, 3001 // 64 + 1, True, seed=25)
+    bf16 = dtype == 'bfloat16'
+    if bf16:
+        planes, params = _as_bf16(planes, params, hidden)
     got = k_dec.triplane_decode(planes, xyz, params, hidden, rid, dir_out)
     ref = k_dec.triplane_decode_plain(planes, xyz, params, hidden, rid,
                                       dir_out)
     got_d, _ = k_dec.triplane_decode(planes, xyz, params, hidden)
     for a, b in zip(got + (got_d,), ref + (ref[0],)):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        if bf16:
+            _bf16_close(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
     got = k_dec.triplane_decode_backward(planes, xyz, params, hidden, rid,
                                          dir_out, g_s, g_c)
     ref = k_dec.triplane_decode_backward_plain(planes, xyz, params, hidden,
                                                rid, dir_out, g_s, g_c)
     for a, b, name in zip(got, ref, ('planes', 'params', 'dir_out')):
-        assert _max_rel_err(a, b) <= 1e-5, name
+        if bf16:
+            _bf16_close(a, b, 2.0)
+        else:
+            assert _max_rel_err(a, b) <= 1e-5, name
+
+
+def test_decode_bf16_kernels_hold_f64(cuda_device):
+    """The bf16 forward and backward kernels (C=6, hidden 64, 8 scenes x
+    4096 rays x 64 samples) against the plain version at the same rounding
+    points with f64 sums (f64 positions, dir_out and parameter block,
+    bf16 planes): as ``_bf16_close``, 1 ulp forward, 2 backward, where the
+    plain f32 version is as far off."""
+    planes, xyz, params, rid, dir_out, g_s, g_c = _decode_operands(
+        cuda_device, 6, 64, 262144, 4097, True, 8, seed=26)
+    planes, params = _as_bf16(planes, params, 64)
+    f64 = [t.double() for t in (xyz, params, dir_out, g_s, g_c)]
+    ref = k_dec.triplane_decode_plain(planes, f64[0], f64[1], 64, rid,
+                                      f64[2])
+    for a, b in zip(k_dec.triplane_decode(planes, xyz, params, 64, rid,
+                                          dir_out), ref):
+        _bf16_close(a, b)
+    ref = k_dec.triplane_decode_backward_plain(planes, f64[0], f64[1], 64,
+                                               rid, f64[2], f64[3], f64[4])
+    got = k_dec.triplane_decode_backward(planes, xyz, params, 64, rid,
+                                         dir_out, g_s, g_c)
+    for a, b in zip(got, ref):
+        _bf16_close(a, b, 2.0)
 
 
 @pytest.mark.parametrize('shape', ['training', 'ragged'])
@@ -350,35 +452,42 @@ def test_decode_shape_without_instance_raises(cuda_device):
                                            hidden, rid, dir_out, g_s, g_c)
 
 
-def test_decode_autograd_goes_through_kernels(cuda_device):
-    """Gradients of a loss on the decoder's activated outputs through the
-    autograd Function equal those of the plain version (CPU), and the
-    backward kernel launched once."""
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_decode_autograd_goes_through_kernels(cuda_device, dtype):
+    """Gradients of a loss on the decoder's activated outputs (its render
+    path: ``decode`` of ``planes`` with ``dir_out``) w.r.t. the codes and
+    every parameter, through the autograd Function, equal those of the
+    plain version (CPU): f32 1e-4 of each gradient's largest entry; bf16
+    (the gradients of bf16 planes and weights rounded by the casts) 2
+    ulps as ``_bf16_close``.  The backward kernel of the dtype launched
+    once."""
     g = torch.Generator().manual_seed(16)
-    dec = TriPlaneDecoder(base_layers=(18, 64))
-    dec.init_weights(g)
-    with torch.no_grad():
-        for p in dec.parameters():
-            p.add_(torch.randn(p.shape, generator=g) * 0.1)
+    dec = _seeded_decoder(g, dtype, base_layers=(18, 64))
     code = torch.randn((2, 3, 6, 128, 128), generator=g)
     xyz = torch.rand((2, 3000, 3), generator=g) * 2 - 1
     dirs = torch.nn.functional.normalize(
         torch.randn((2, 3000, 3), generator=g), dim=-1)
+    rid = torch.arange(3000, dtype=torch.int32).expand(2, -1).contiguous()
 
     def grads(dev):
         d = copy.deepcopy(dec).to(dev)
         c = code.to(dev).requires_grad_()
-        sig, rgb = d(c, xyz.to(dev), dirs.to(dev))
+        sig, rgb = d.decode(d.planes(c), xyz.to(dev), rid.to(dev),
+                            d.dir_out(dirs.to(dev)))
         loss = (sig * 0.01).sum() + (rgb ** 2).sum()
         return [t.cpu() for t in torch.autograd.grad(
             loss, [c] + list(d.parameters()))]
 
+    attr = 'launches' if dtype == 'float32' else 'launches_bf16'
     ref = grads('cpu')
-    before = k_dec.triplane_decode_backward.launches
+    before = getattr(k_dec.triplane_decode_backward, attr)
     got = grads(cuda_device)
-    assert k_dec.triplane_decode_backward.launches == before + 1
+    assert getattr(k_dec.triplane_decode_backward, attr) == before + 1
     for a, b in zip(got, ref):
-        assert _max_rel_err(a, b) <= 1e-4
+        if dtype == 'float32':
+            assert _max_rel_err(a, b) <= 1e-4
+        else:
+            _bf16_close(a, b, 2.0)
 
 
 def test_kernels_raise_instead_of_falling_back(cuda_device):
@@ -441,27 +550,36 @@ def _packed_layout(device, S=2, R=4096, K=64, P=512, seed=17):
              soffs.to(torch.int32))]
 
 
-def test_decode_composite_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_decode_composite_kernel_matches_plain(cuda_device, dtype):
     """The fused decode + composite kernel vs its plain version (the split
     path) on the card, on a truncating layout of 2 x 4096 rays, P=512:
-    weights_sum and image atol 1e-5, depth 5e-5 (f32 sums in another
-    order); one launch."""
+    f32 weights_sum and image atol 1e-5, depth 5e-5 (f32 sums in another
+    order); bf16 as ``_bf16_close``; one launch of the dtype's kernel."""
     ops = _packed_layout(cuda_device)
+    if dtype == 'bfloat16':
+        ops[0], ops[2] = _as_bf16(ops[0], ops[2], 64)
     args = ops[:2] + [ops[2], 64] + ops[3:] + [16, 0.001, 1e-4]
-    before = k_dec.triplane_decode_composite.launches
+    attr = 'launches' if dtype == 'float32' else 'launches_bf16'
+    before = getattr(k_dec.triplane_decode_composite, attr)
     got = k_dec.triplane_decode_composite(*args)
-    assert k_dec.triplane_decode_composite.launches == before + 1
+    assert getattr(k_dec.triplane_decode_composite, attr) == before + 1
     ref = k_dec.triplane_decode_composite_plain(*args)
     assert ref[0].max() > 0.1 and (ref[0] == 0).any()
     for a, b, atol in zip(got, ref, (1e-5, 5e-5, 1e-5)):
-        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+        if dtype == 'float32':
+            torch.testing.assert_close(a, b, rtol=0, atol=atol)
+        else:
+            _bf16_close(a, b)
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('shift', [0, 64])
-def test_decode_banded_kernel_matches_plain(cuda_device, shift):
+def test_decode_banded_kernel_matches_plain(cuda_device, shift, dtype):
     """The banded kernel vs its plain version on tile-coherent points
     whose taps fit their windows (shift 0), and with every x window moved
-    off its taps (shift 64, those taps count zero): atol 1e-5."""
+    off its taps (shift 64, those taps count zero): f32 atol 1e-5, bf16
+    as ``_bf16_close``."""
     g = torch.Generator().manual_seed(18)
     S, M, res = 2, 128 * 96, 128
     n_tiles = M // 128
@@ -478,18 +596,27 @@ def test_decode_banded_kernel_matches_plain(cuda_device, shift):
     win = (((lox + shift) % 128) | (loy << 8)).to(torch.int32)
     planes, _, params, rid, dir_out, _, _ = _decode_operands(
         'cpu', 6, 64, M, 100, False, S, 19)
+    if dtype == 'bfloat16':
+        planes, params = _as_bf16(planes, params, 64)
     args = [t.contiguous().to(cuda_device) for t in
             (planes, xyz, params)] + [64] + [
         t.contiguous().to(cuda_device) for t in (rid, dir_out, win)]
-    before = k_dec.triplane_decode_banded.launches
+    attr = 'launches' if dtype == 'float32' else 'launches_bf16'
+    before = getattr(k_dec.triplane_decode_banded, attr)
     got = k_dec.triplane_decode_banded(*args)
-    assert k_dec.triplane_decode_banded.launches == before + 1
+    assert getattr(k_dec.triplane_decode_banded, attr) == before + 1
     ref = k_dec.triplane_decode_banded_plain(*args)
+    full = k_dec.triplane_decode_plain(*args[:-1])
     for a, b in zip(got, ref):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        if dtype == 'float32':
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        else:
+            _bf16_close(a, b)
     if shift == 0:
-        full = k_dec.triplane_decode_plain(*args[:-1])
-        torch.testing.assert_close(got[0], full[0], rtol=0, atol=1e-5)
+        if dtype == 'float32':
+            torch.testing.assert_close(got[0], full[0], rtol=0, atol=1e-5)
+        else:
+            _bf16_close(got[0], full[0])
 
 
 def test_variant_kernels_raise(cuda_device):
@@ -520,16 +647,18 @@ def test_variant_kernels_raise(cuda_device):
                                      dir_out, win)
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('field', ['fused_composite', 'banded_decode'])
-def test_render_variant_matches_cpu(cuda_device, field):
+def test_render_variant_matches_cpu(cuda_device, field, dtype):
     """A render with each variant on the card vs the same render on the
     CPU (plain versions): a ball occupancy seen by one look-at camera at
-    64x64, P=512, where the banded guard engages; atol 1e-4.  The
-    variant's kernel launched."""
+    64x64, P=512, where the banded guard engages; f32 atol 1e-4, bf16 as
+    ``_bf16_close``.  The variant's kernel of the dtype launched."""
     from ssdnerf_torch.models.decoders.renderer import volume_render
     from ssdnerf_torch.ops import get_cam_rays, packbits
     g = torch.Generator().manual_seed(20)
-    dec = TriPlaneDecoder(compact_steps=64, pack_slots=512, **{field: True})
+    dec = TriPlaneDecoder(compact_steps=64, pack_slots=512,
+                          compute_dtype=dtype, **{field: True})
     dec.init_weights(g)
     with torch.no_grad():
         for p in dec.parameters():
@@ -555,16 +684,21 @@ def test_render_variant_matches_cpu(cuda_device, field):
             bitfield]
     wrapper = (k_dec.triplane_decode_composite if field == 'fused_composite'
                else k_dec.triplane_decode_banded)
+    attr = 'launches' if dtype == 'float32' else 'launches_bf16'
     engaged = volume_render.banded_engaged
     with torch.no_grad():
         ref = volume_render(dec, *args, H, dt_gamma=0.5 / 131.25)
-        before = wrapper.launches
+        before = getattr(wrapper, attr)
         got = volume_render(copy.deepcopy(dec).to(cuda_device),
                             *[t.to(cuda_device) for t in args], H,
                             dt_gamma=0.5 / 131.25)
-    assert wrapper.launches == before + 1
+    assert getattr(wrapper, attr) == before + 1
     if field == 'banded_decode':
         assert volume_render.banded_engaged == engaged + 2
     assert ref['weights_sum'].max() > 0.5
     for k in ('weights_sum', 'depth', 'image'):
-        torch.testing.assert_close(got[k].cpu(), ref[k], rtol=0, atol=1e-4)
+        if dtype == 'float32':
+            torch.testing.assert_close(got[k].cpu(), ref[k], rtol=0,
+                                       atol=1e-4)
+        else:
+            _bf16_close(got[k], ref[k])

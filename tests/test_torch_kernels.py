@@ -1,17 +1,19 @@
-"""Plain versions of the port's three kernels vs the JAX package's Pallas
+"""Plain versions of the port's march, decode (f32 and bf16 modes, and
+the decode's backward) and attention kernels vs the JAX package's Pallas
 kernels (interpret mode) and XLA paths on the CPU.  The kernels themselves
 are held against these plain versions on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from ssdnerf_tpu.models.architecture.unet import SelfAttention as JSelfAttn
 from ssdnerf_tpu.models.decoders.triplane import TriPlaneDecoder as JDecoder
 from ssdnerf_tpu.ops import march_rays, near_far_from_aabb, packbits
 from ssdnerf_tpu.ops.pallas.attention import vmem_attention
-from ssdnerf_tpu.ops.pallas.decode import decode_reference
+from ssdnerf_tpu.ops.pallas.decode import decode_reference, triplane_decode
 from ssdnerf_tpu.ops.pallas.march import march_valid_mask, occupancy_table
 from ssdnerf_torch.convert import load_params
 from ssdnerf_torch.models.architecture.unet import SelfAttention
@@ -130,7 +132,7 @@ def _decoder_pair(C=6, hidden=64, res=32, S=2, N=300, seed=0):
     tdec_ = TriPlaneDecoder(base_layers=(3 * C, hidden),
                             density_layers=(hidden, 1),
                             color_layers=(hidden, 3),
-                            dir_layers=(16, hidden))
+                            dir_layers=(16, hidden), compute_dtype='float32')
     load_params(tdec_, params)
     return jdec, params, tdec_, code, xyz, dirs
 
@@ -151,16 +153,16 @@ def test_decode_plain_matches_xla_decoder_f32():
     np.testing.assert_allclose(td.numpy(), ts.numpy(), rtol=0, atol=0)
 
 
-def test_decode_plain_matches_decode_reference():
-    """Raw outputs vs the Pallas kernel's oracle ``decode_reference`` at
-    res 128, whose operands are bf16: atol 3e-2 (the JAX package's own
-    kernel-vs-reference tolerance)."""
-    rng = np.random.RandomState(7)
-    S, R, K, res, C, hidden = 2, 8, 64, 128, 6, 64
+def _pallas_operands(seed, S=2, R=8, K=64, res=128, C=6, hidden=64):
+    """Codes, points, per-ray dir_out (bf16 values, as the Pallas kernel
+    reads it) and decoder weights in both packages' layouts: JAX's Pallas
+    kernel operands (bf16 where its renderer rounds) and the port's
+    parameter block in f32 and in its bf16 form."""
+    rng = np.random.RandomState(seed)
     code = rng.randn(S, 3, C, res, res).astype(np.float32)
-    x, y, z = (rng.uniform(-1, 1, (S, R, K)).astype(np.float32)
+    x, y, z = (rng.uniform(-1.05, 1.05, (S, R, K)).astype(np.float32)
                for _ in range(3))
-    dir_out = (rng.randn(S, R, hidden) * 0.3).astype(np.float32)
+    dir_out = _t(rng.randn(S, R, hidden) * 0.3).float().bfloat16().float()
     wb = (rng.randn(3 * C, hidden) * 0.2).astype(np.float32)  # rows c*3+p
     bb = (rng.randn(hidden) * 0.1).astype(np.float32)
     wd = (rng.randn(hidden) * 0.3).astype(np.float32)
@@ -176,26 +178,140 @@ def test_decode_plain_matches_decode_reference():
     b2 = np.zeros((1, 128), np.float32)
     b2[0, :3] = bc
     bf = jnp.bfloat16
-    refs = decode_reference(
-        jnp.asarray(code.reshape(S, 3, C * res, res)).astype(bf),
-        jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(dir_out),
-        jnp.asarray(wb[perm].T).astype(bf), jnp.asarray(bb[:, None]),
-        jnp.asarray(b1), jnp.asarray(b2), jnp.asarray(w1t).astype(bf),
-        jnp.asarray(w2t).astype(bf), K)
-    params = torch.cat([_t(wb.T).reshape(-1), _t(bb), _t(wd), _t(wc).reshape(
-        -1), torch.tensor([bd]), _t(bc)])
+    jw = (jnp.asarray(wb[perm].T).astype(bf), jnp.asarray(bb[:, None]),
+          jnp.asarray(b1), jnp.asarray(b2), jnp.asarray(w1t).astype(bf),
+          jnp.asarray(w2t).astype(bf))
+    params = torch.cat([_t(wb.T).reshape(-1), _t(bb), _t(wd),
+                        _t(wc).reshape(-1), torch.tensor([bd]), _t(bc)])
     planes = _t(code).permute(0, 1, 3, 4, 2).contiguous()
     xyz = torch.stack([_t(x), _t(y), _t(z)], -1).reshape(S, R * K, 3)
     rid = torch.arange(R, dtype=torch.int32).repeat_interleave(K).expand(
         S, R * K)
-    sig, rgb = tdec.triplane_decode(planes, xyz, params, hidden, rid,
-                                    _t(dir_out))
-    sig_d, _ = tdec.triplane_decode(planes, xyz, params, hidden)
-    outs = [sig, rgb[..., 0], rgb[..., 1], rgb[..., 2]]
-    for o, r, name in zip(outs, refs, 'sigma r g b'.split()):
-        np.testing.assert_allclose(o.reshape(S, R, K).numpy(), np.asarray(r),
-                                   rtol=0, atol=3e-2, err_msg=name)
-    np.testing.assert_array_equal(sig_d.numpy(), sig.numpy())
+    return dict(
+        jplanes=jnp.asarray(code.reshape(S, 3, C * res, res)).astype(bf),
+        jxyz=tuple(jnp.asarray(a) for a in (x, y, z)), jw=jw,
+        jdir=jnp.asarray(dir_out.numpy()), planes=planes, xyz=xyz, rid=rid,
+        dir_out=dir_out, params=params,
+        params_bf16=tdec.round_weights(params, hidden, 3 * C),
+        perm=perm, shape=(S, R, K), hidden=hidden, C=C, res=res)
+
+
+def _near_bf16(got, ref, what):
+    """Outputs at the bf16 rounding points: every element within 2^-8 of
+    ref's largest entry, and their mean within 1e-5 of it.  A rounding to
+    bf16 (a feature, SiLU(base)) that falls the other way after f32 sums
+    in another order moves one input of a head by one bf16 ulp, which the
+    head carries to the output; such flips are rare, so the mean stays at
+    the f32 level."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    err, top = np.abs(got - ref), np.abs(ref).max()
+    assert err.max() <= 2.0 ** -8 * top, (what, err.max(), top)
+    assert err.mean() <= 1e-5 * top, (what, err.mean(), top)
+
+
+def _ulps(got, ref, what, atol_rel=0.0):
+    """|got - ref| within one bf16 ulp of each element (2^-7 relative),
+    plus ``atol_rel`` of ref's largest entry."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    np.testing.assert_allclose(got, ref, rtol=2.0 ** -7,
+                               atol=atol_rel * np.abs(ref).max(),
+                               err_msg=what)
+
+
+def test_decode_plain_matches_decode_reference():
+    """Raw outputs vs the Pallas kernel's oracle ``decode_reference`` at
+    res 128 (bf16 planes and weights, f32 hats and sums): the port's bf16
+    mode (bf16 planes, :func:`pack_params`' bf16 block, dir_out of bf16
+    values) as ``_near_bf16``, the same rounding points with f32 sums in
+    another order; its f32 mode at atol 3e-2 (the JAX
+    package's own kernel-vs-reference tolerance, which the rounding to
+    bf16 sets).  Density-only equals the colour call's density."""
+    op = _pallas_operands(7)
+    refs = decode_reference(op['jplanes'], *op['jxyz'], op['jdir'],
+                            *op['jw'], op['shape'][2])
+    for planes, params in ((op['planes'].bfloat16(), op['params_bf16']),
+                           (op['planes'], op['params'])):
+        args = (planes, op['xyz'], params, op['hidden'])
+        sig, rgb = tdec.triplane_decode(*args, op['rid'], op['dir_out'])
+        sig_d, _ = tdec.triplane_decode(*args)
+        outs = [sig, rgb[..., 0], rgb[..., 1], rgb[..., 2]]
+        for o, r, name in zip(outs, refs, 'sigma r g b'.split()):
+            o = o.reshape(op['shape']).numpy()
+            if planes.dtype == torch.bfloat16:
+                _near_bf16(o, r, name)
+            else:
+                np.testing.assert_allclose(o, np.asarray(r), rtol=0,
+                                           atol=3e-2, err_msg=name)
+        np.testing.assert_array_equal(sig_d.numpy(), sig.numpy())
+
+
+@pytest.mark.parametrize('colour', [True, False])
+def test_decode_bf16_plain_and_backward_match_pallas_kernel(colour):
+    """The bf16 plain decode and its backward (autograd through the
+    rounding points, ``triplane_decode_backward``) vs the Pallas
+    ``triplane_decode`` in interpret mode and its custom VJP, colour and
+    density-only (JAX's density-only operands: zero dir_out and colour
+    head).  Forward as ``_near_bf16`` (outputs of order 4); gradients
+    within one bf16 ulp of each element, the f32 sums (biases, dir_out)
+    besides within 1e-4 of their largest entry: a bf16 rounding that falls
+    the other way after f32 sums in another order moves an element by one
+    ulp.  The planes' and weights' gradients come back bf16-rounded,
+    dir_out's and the biases' f32."""
+    op = _pallas_operands(8, R=16, res=32)
+    S, R, K = op['shape']
+    hidden, C, res = op['hidden'], op['C'], op['res']
+    rng = np.random.RandomState(9)
+    gs = rng.randn(S, R, K).astype(np.float32)
+    gr = (rng.randn(S, R, K, 3) if colour
+          else np.zeros((S, R, K, 3))).astype(np.float32)
+    jdir = op['jdir'] if colour else jnp.zeros_like(op['jdir'])
+    wbt, bbt, b1, b2, w1t, w2t = op['jw']
+    if not colour:
+        b2, w2t = jnp.zeros_like(b2), jnp.zeros_like(w2t)
+
+    def jfn(planes, dir_out, wbt, bbt, b1, b2, w1t, w2t):
+        return triplane_decode(planes, *op['jxyz'], None, dir_out, wbt, bbt,
+                               b1, b2, w1t, w2t, K, None, True)
+
+    outs, vjp = jax.vjp(jfn, op['jplanes'], jdir, wbt, bbt, b1, b2, w1t,
+                        w2t)
+    gp, gdir, gwbt, gbbt, gb1, gb2, gw1t, gw2t = vjp(
+        (jnp.asarray(gs),) + tuple(jnp.asarray(gr[..., c]) for c in range(3)))
+
+    planes = op['planes'].bfloat16()
+    params = op['params_bf16']
+    if not colour:
+        params = params.clone()
+        params[-3:] = 0.0
+        params[hidden * 3 * C + 2 * hidden:-4] = 0.0
+    args = (planes, op['xyz'], params, hidden) + (
+        (op['rid'], op['dir_out']) if colour else (None, None))
+    sig, rgb = tdec.triplane_decode(*args)
+    got = [sig] + ([rgb[..., c] for c in range(3)] if colour else [])
+    for o, r, name in zip(got, outs, 'sigma r g b'.split()):
+        _near_bf16(o.reshape(S, R, K).numpy(), r, name)
+    d_planes, d_params, d_dir = tdec.triplane_decode_backward(
+        *args, _t(gs).reshape(S, R * K),
+        _t(gr).reshape(S, R * K, 3) if colour else None)
+    assert d_planes.dtype == torch.bfloat16 and d_params.dtype == torch.float32
+    ref = np.asarray(gp.astype(jnp.float32)).reshape(
+        S, 3, C, res, res).transpose(0, 1, 3, 4, 2)
+    _ulps(d_planes.float().numpy(), ref, 'planes')
+    wb, bb, wd, wc, bd, bc = (t.numpy() for t in tdec._unpack_params(
+        d_params.bfloat16().float(), hidden, 3 * C))
+    f32 = dict(zip('wb bb wd wc bd bc'.split(), tdec._unpack_params(
+        d_params, hidden, 3 * C)))
+    inv = np.argsort(op['perm'])
+    _ulps(wb, np.asarray(gwbt.astype(jnp.float32)).T[inv].T, 'W_b')
+    _ulps(f32['bb'].numpy(), np.asarray(gbbt)[:, 0], 'b_b', 1e-4)
+    _ulps(wd[0], np.asarray(gw1t.astype(jnp.float32))[0], 'W_d')
+    _ulps(f32['bd'].numpy(), np.asarray(gb1)[0, :1], 'b_d', 1e-4)
+    if colour:
+        _ulps(wc, np.asarray(gw2t.astype(jnp.float32))[:3], 'W_c')
+        _ulps(f32['bc'].numpy(), np.asarray(gb2)[0, :3], 'b_c', 1e-4)
+        _ulps(d_dir.numpy(), np.asarray(gdir), 'dir_out', 1e-4)
+    else:
+        assert d_dir is None
 
 
 # -------------------------------------------------------------- attention

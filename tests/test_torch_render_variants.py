@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from synthetic import look_at_pose
+from test_torch_kernels import _near_bf16
 from ssdnerf_tpu.models.decoders.renderer import (
     volume_render as jax_volume_render)
 from ssdnerf_tpu.models.decoders.triplane import TriPlaneDecoder as JDecoder
@@ -196,7 +197,8 @@ def test_banded_windows_match_jax(scene, engages):
 # ---------------------------------------------------------------- kernels
 def _mlp(rng, C, hidden):
     """Decoder weights in both packages' layouts: the port's parameter
-    block and JAX's kernel operands (bf16 where its kernels round)."""
+    block in its bf16 form (:func:`pack_params` with bf16) and JAX's
+    kernel operands (bf16 where its kernels round)."""
     wb = (rng.randn(3 * C, hidden) * 0.2).astype(np.float32)  # rows c*3+p
     bb = (rng.randn(hidden) * 0.1).astype(np.float32)
     wd = (rng.randn(hidden) * 0.3).astype(np.float32)
@@ -217,7 +219,7 @@ def _mlp(rng, C, hidden):
           jnp.asarray(w2t).astype(bf))
     params = torch.cat([_t(wb.T).reshape(-1), _t(bb), _t(wd),
                         _t(wc).reshape(-1), torch.tensor([bd]), _t(bc)])
-    return jw, params
+    return jw, tdec.round_weights(params, hidden, 3 * C)
 
 
 def _packed_operands(seed, S=2, R=64, K=64, P=512, res=128, C=6,
@@ -244,7 +246,7 @@ def _packed_operands(seed, S=2, R=64, K=64, P=512, res=128, C=6,
 
 def _port_composite(op, plain):
     S, G, P = op['pt'].shape
-    planes = _t(op['code']).permute(0, 1, 3, 4, 2).contiguous()
+    planes = _t(op['code']).permute(0, 1, 3, 4, 2).contiguous().bfloat16()
     rid = (_t(op['prid']) + GR * torch.arange(G)[:, None]).reshape(
         S, G * P).to(torch.int32)
     args = (planes, _t(op['xyz']).reshape(S, G * P, 3), op['params'],
@@ -261,11 +263,12 @@ def _port_composite(op, plain):
 
 
 def test_decode_composite_plain_matches_pallas_and_split_path():
-    """The plain fused decode + composite on a truncating packed layout vs
-    the Pallas ``triplane_decode_composite`` (interpret), atol 2e-2 (JAX
-    rounds planes and weights to bf16, as test_decode_plain_matches_
-    decode_reference states), and vs the port's split path (plain decode,
-    activation, ``composite_packed``), atol 1e-5."""
+    """The plain fused decode + composite in the bf16 mode on a truncating
+    packed layout vs the Pallas ``triplane_decode_composite`` (interpret),
+    which rounds where the bf16 mode rounds: per-ray sums as
+    ``test_torch_kernels._near_bf16`` (every one within 2^-8 of the
+    largest, their mean within 1e-5 of it); and vs the port's split path
+    (plain decode, activation, ``composite_packed``), atol 1e-5."""
     op = _packed_operands(20)
     S, G, P = op['pt'].shape
     ws, depth, image = _port_composite(op, plain=True)
@@ -293,16 +296,17 @@ def test_decode_composite_plain_matches_pallas_and_split_path():
         True)
     got = (ws, depth) + tuple(image.unbind(-1))
     for a, b, name in zip(got, ref, 'ws depth r g b'.split()):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
-                                   atol=2e-2, err_msg=name)
+        _near_bf16(a.numpy(), b, name)
 
 
 def test_decode_banded_plain_matches_pallas_and_full_decode():
-    """The plain banded decode on tile-coherent coordinates whose taps fit
-    the declared windows (``tests/test_pallas_kernels.py:147-183``) vs the
-    Pallas ``triplane_decode_banded`` (interpret), atol 3e-2 (bf16 planes
-    and weights there), and vs the full plain decode within 1e-6; taps
-    outside a window count zero."""
+    """The plain banded decode in the bf16 mode on tile-coherent
+    coordinates whose taps fit the declared windows
+    (``tests/test_pallas_kernels.py:147-183``) vs the Pallas
+    ``triplane_decode_banded`` (interpret), which rounds the windowed hat
+    where the bf16 mode rounds it: raw outputs as
+    ``test_torch_kernels._near_bf16``; and vs the full plain decode within
+    1e-6; taps outside a window count zero."""
     rng = np.random.RandomState(13)
     S, R, K, res, C, hidden = 2, 16, 64, 128, 6, 64
     tile, band_w = tdec.TILE, tdec.BAND_W
@@ -323,7 +327,7 @@ def test_decode_banded_plain_matches_pallas_and_full_decode():
     code = rng.randn(S, 3, C, res, res).astype(np.float32)
     dir_out = (rng.randn(S, R, hidden) * 0.3).astype(np.float32)
     jw, params = _mlp(rng, C, hidden)
-    planes = _t(code).permute(0, 1, 3, 4, 2).contiguous()
+    planes = _t(code).permute(0, 1, 3, 4, 2).contiguous().bfloat16()
     xyz = torch.stack([_t(x), _t(y), _t(z)], -1)
     rid = torch.arange(R, dtype=torch.int32).repeat_interleave(K).expand(
         S, N).contiguous()
@@ -342,8 +346,7 @@ def test_decode_banded_plain_matches_pallas_and_full_decode():
         jnp.asarray(dir_out), *jw, K, rpc=SUB // K, interpret=True)
     got = (sig,) + tuple(rgb.unbind(-1))
     for a, b, name in zip(got, ref, 'sigma r g b'.split()):
-        np.testing.assert_allclose(a.numpy().reshape(S, R, K), np.asarray(b),
-                                   rtol=0, atol=3e-2, err_msg=name)
+        _near_bf16(a.numpy().reshape(S, R, K), b, name)
     # a window that misses the taps zeroes them: x windows moved away
     moved = _t((((lox + 64) % 128) | (loy << 8)).astype(np.int32))
     sig_m, _ = tdec.triplane_decode_banded(planes, xyz, params, hidden, rid,
@@ -353,9 +356,10 @@ def test_decode_banded_plain_matches_pallas_and_full_decode():
 
 # ---------------------------------------------------------------- renders
 def _render_decoders(seed=40, **fields):
-    """JAX decoder (Pallas kernels in interpret mode) and the port's, the
-    same weights (JAX init plus noise, so the direction branch is live),
-    with the decoder fields ``fields`` set on both."""
+    """JAX decoder (Pallas kernels in interpret mode) and the port's, both
+    in their default bf16 ``compute_dtype``, the same weights (JAX init
+    plus noise, so the direction branch is live), with the decoder fields
+    ``fields`` set on both."""
     jdec = JDecoder(backend='pallas-interpret', compact_steps=64, **fields)
     params = jdec.init(jax.random.PRNGKey(1), jnp.zeros((1, 3, 6, 128, 128)),
                        jnp.zeros((1, 8, 3)), jnp.zeros((1, 8, 3)))
@@ -385,13 +389,13 @@ def _renders(scene, dt_gamma, **fields):
 
 
 def _check_render(ref, got, plain):
-    """Variant vs JAX's render of the same variant at the tolerances of
-    ``tests/test_packing.py:335-337`` (bf16 kernel renders, 2e-2 / 2e-2 /
-    3e-2), and vs the port's split render at 1e-5."""
+    """Variant vs JAX's render of the same variant, both decoding in bf16
+    at the Pallas kernels' rounding points (the decoders' default), as
+    ``test_torch_kernels._near_bf16``; and vs the port's split render at
+    1e-5."""
     assert np.asarray(ref['weights_sum']).max() > 0.1
-    for k, atol in (('weights_sum', 2e-2), ('image', 2e-2), ('depth', 3e-2)):
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
-                                   atol=atol, err_msg=k)
+    for k in ('weights_sum', 'image', 'depth'):
+        _near_bf16(got[k].numpy(), ref[k], k)
         np.testing.assert_allclose(got[k].numpy(), plain[k].numpy(),
                                    rtol=0, atol=1e-5, err_msg=k)
 
@@ -450,7 +454,8 @@ def test_packed_branch_condition_matches_jax():
     samples overflow 512 slots.  JAX renders it per ray
     (``(N // 16) * P % 1024 != 0``); the port must too, or its trailing
     rays lose their deepest samples.  Against JAX's render
-    (``backend='pallas-interpret'``), atol 2e-2 (bf16 kernels)."""
+    (``backend='pallas-interpret'``), both decoding in bf16, as
+    ``test_torch_kernels._near_bf16``."""
     rng = np.random.RandomState(30)
     S, N = 1, 16
     code = (0.5 * rng.randn(S, 3, 6, 128, 128)).astype(np.float32)
@@ -461,8 +466,7 @@ def test_packed_branch_condition_matches_jax():
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     ref, got, _ = _renders((code, o, d, bitfield), 0.0, pack_slots=512)
     assert np.asarray(ref['weights_sum']).min() > 0.1
-    for k, atol in (('weights_sum', 2e-2), ('image', 2e-2), ('depth', 3e-2)):
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
-                                   atol=atol, err_msg=k)
+    for k in ('weights_sum', 'image', 'depth'):
+        _near_bf16(got[k].numpy(), ref[k], k)
     assert not trenderer.packed_branch(512, 64, N)
     assert trenderer.packed_branch(512, 64, 2 * N)

@@ -28,13 +28,21 @@ def _np(a):
     return np.array(a)
 
 
+def _cfg_f32():
+    """The tiny model with an f32 decoder (``compute_dtype`` float32)."""
+    cfg = copy.deepcopy(TINY_MODEL_CFG)
+    cfg['decoder']['compute_dtype'] = 'float32'
+    return cfg
+
+
 @pytest.fixture(scope='module')
 def models():
-    """JAX model (XLA renderer, f32 decoder) and the port, same weights:
+    """JAX model (XLA renderer, f32 decoder) and the port (f32 decoder),
+    same weights:
     the JAX init plus seeded noise, so zero-initialised layers are live;
     the density bias is shifted so part of each grid is empty."""
-    jcfg = copy.deepcopy(TINY_MODEL_CFG)
-    jcfg['decoder'].update(compute_dtype='float32', backend='xla')
+    jcfg = _cfg_f32()
+    jcfg['decoder'].update(backend='xla')
     jm = jax_build_model(jcfg, test_cfg=TEST_CFG)
     state = jm.init_state(jax.random.PRNGKey(0))
     rng = np.random.RandomState(0)
@@ -45,7 +53,7 @@ def models():
     dens['bias'] = dens['bias'] - 2.0
     dens['kernel'] = dens['kernel'] * 10.0
     state = dict(state, **jax.tree_util.tree_map(jnp.asarray, tree))
-    tm = build_model(copy.deepcopy(TINY_MODEL_CFG), test_cfg=TEST_CFG)
+    tm = build_model(_cfg_f32(), test_cfg=TEST_CFG)
     load_jax_params(tm, tree)
     return jm, state, tm.eval()
 
@@ -217,7 +225,7 @@ def test_val_uncond_and_render_fused_composite_match_jax(models,
     The JAX side reuses that test's compilations."""
     from ssdnerf_torch.ops.kernels import decode as tdec
     jm, state, _ = models
-    cfg = copy.deepcopy(TINY_MODEL_CFG)
+    cfg = _cfg_f32()
     cfg['decoder']['fused_composite'] = True
     tm = build_model(cfg, test_cfg=TEST_CFG)
     load_jax_params(tm, {k: jax.tree_util.tree_map(_np, state[k])
@@ -253,3 +261,59 @@ def test_val_uncond_and_render_fused_composite_match_jax(models,
     assert np.abs(np.asarray(jimg) - 1.0).max() > 0.05
     np.testing.assert_allclose(img.numpy(), np.asarray(jimg), atol=1e-4)
     np.testing.assert_allclose(dep.numpy(), np.asarray(jdep), atol=1e-4)
+
+
+def test_val_uncond_and_render_bf16_decode_match_jax_pallas(models):
+    """The slice with the decoders' default ``compute_dtype`` (bf16) on
+    both sides: JAX's renderer on its Pallas kernels in interpret mode
+    (``backend='pallas-interpret'``, the kernels its TPU path runs, fed
+    bf16 planes and weights) and the port's bf16 decode, the same weights,
+    noise and jitter: DDIM -> density rebuild -> render.  Codes atol 1e-4
+    (the UNet, as the f32 slice); the f16 density grid: all but 0.1% of
+    the voxels within 2 f16 ulps (rtol 2e-3), every one within 5% (a
+    rounding to bf16 that falls the other way after f32 sums in another
+    order, carried through the tenfold density head and exp), at most
+    0.1% of the bits flipped; images and depths, rendered from JAX's
+    codes and bitfields, as ``test_torch_kernels._near_bf16``."""
+    from test_torch_kernels import _near_bf16
+    _, state, _ = models
+    cfg = dict(copy.deepcopy(TINY_MODEL_CFG), grid_size=64)
+    test_cfg = dict(TEST_CFG, density_step=1, march_slots=32)
+    jcfg = copy.deepcopy(cfg)
+    jcfg['decoder']['backend'] = 'pallas-interpret'
+    jm = jax_build_model(jcfg, test_cfg=test_cfg)
+    tm = build_model(cfg, test_cfg=test_cfg)
+    load_jax_params(tm, {k: jax.tree_util.tree_map(_np, state[k])
+                         for k in ('decoder_ema', 'diffusion_ema')})
+    tm.eval()
+    assert tm.ema_decoder.compute_dtype == 'bfloat16'
+    S = 2
+    noise = np.random.RandomState(8).randn(S, *jm.code_size).astype(
+        np.float32)
+    key = jax.random.PRNGKey(9)
+    jcode, jgrid, jbf = jm.val_uncond(state, jnp.asarray(noise), key)
+    jitter = _jax_jitter(key, jm.grid_size, jm.decoder.bound, 1)
+    code, grid, bitfield = tm.val_uncond(torch.from_numpy(noise),
+                                         jitter=torch.from_numpy(jitter))
+    np.testing.assert_allclose(code.numpy(), np.asarray(jcode), atol=1e-4)
+    g, jg = grid.float().numpy(), np.asarray(jgrid, np.float32)
+    err = np.abs(g - jg)
+    assert (err > 2e-3 * np.abs(jg) + 1e-4).mean() <= 1e-3
+    assert (err <= 0.05 * np.abs(jg) + 1e-4).all()
+    bits = np.unpackbits(np.asarray(jbf))
+    assert 0.05 < bits.mean() < 0.95, bits.mean()
+    assert (np.unpackbits(bitfield.numpy()) != bits).mean() <= 1e-3
+
+    poses = np.stack([look_at_pose(1.3 * np.array(
+        [np.cos(a), 0.3, np.sin(a)])) for a in (0.4, 2.2)])
+    poses = np.broadcast_to(poses, (S, 2, 4, 4)).copy()
+    intr = np.broadcast_to(np.array([16.4, 16.4, 8, 8], np.float32),
+                           (S, 2, 4)).copy()
+    jimg, jdep = jm.render(state, jcode, jbf, 16, 16, jnp.asarray(intr),
+                           jnp.asarray(poses))
+    img, dep = tm.render(torch.from_numpy(_np(jcode)),
+                         torch.from_numpy(_np(jbf)), 16, 16,
+                         torch.from_numpy(intr), torch.from_numpy(poses))
+    assert np.abs(np.asarray(jimg) - 1.0).max() > 0.05
+    _near_bf16(img.numpy(), jimg, 'image')
+    _near_bf16(dep.numpy(), jdep, 'depth')

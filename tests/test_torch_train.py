@@ -140,7 +140,7 @@ def _decoder_pair(C=6, hidden=64, res=32, S=2, N=400, seed=30):
     tdec_ = TriPlaneDecoder(base_layers=(3 * C, hidden),
                             density_layers=(hidden, 1),
                             color_layers=(hidden, 3),
-                            dir_layers=(16, hidden))
+                            dir_layers=(16, hidden), compute_dtype='float32')
     load_params(tdec_, params)
     return jdec, params, tdec_, code, xyz, dirs
 
@@ -260,7 +260,8 @@ def _render_decoders(seed=40, **torch_kwargs):
     params = jdec.init(jax.random.PRNGKey(1), jnp.zeros((1, 3, 6, 128, 128)),
                        jnp.zeros((1, 8, 3)), jnp.zeros((1, 8, 3)))
     params = _noisy(params, np.random.RandomState(seed), 0.05)
-    tdec_ = TriPlaneDecoder(compact_steps=64, **torch_kwargs)
+    tdec_ = TriPlaneDecoder(compact_steps=64, compute_dtype='float32',
+                            **torch_kwargs)
     load_params(tdec_, params)
     return jdec, params, tdec_
 
@@ -341,13 +342,14 @@ LR_CONFIG = dict(policy='step', warmup='linear', warmup_iters=2,
 @pytest.fixture(scope='module')
 def models():
     """The JAX model (XLA renderer, f32 decoder) with its optimizers, and
-    the port with the same four weight trees (live and EMA): the JAX init
-    plus seeded noise, so zero-initialised layers are live, and a density
-    head that leaves part of each grid empty."""
+    the port (f32 decoder) with the same four weight trees (live and
+    EMA): the JAX init plus seeded noise, so zero-initialised layers are
+    live, and a density head that leaves part of each grid empty."""
     cfg = copy.deepcopy(TINY_MODEL_CFG)
     cfg['update_extra_interval'] = INTERVAL
+    cfg['decoder']['compute_dtype'] = 'float32'
     jcfg = copy.deepcopy(cfg)
-    jcfg['decoder'].update(compute_dtype='float32', backend='xla')
+    jcfg['decoder'].update(backend='xla')
     jm = jax_build_model(jcfg, train_cfg=TRAIN_CFG, test_cfg={})
     txs, schedules = jax_build_optimizers(jm, OPT_CFGS, LR_CONFIG)
     state = jm.init_state(jax.random.PRNGKey(0), OPT_CFGS, schedules)
@@ -676,3 +678,69 @@ def test_weight_decay_raises(models):
     with pytest.raises(NotImplementedError, match='weight decay'):
         build_optimizers(tm, dict(decoder=dict(type='Adam', lr=1e-3,
                                                weight_decay=1e-4)))
+
+
+def test_train_step_bf16_decode_matches_jax_pallas(models):
+    """One ``train_step`` with the decoders' default ``compute_dtype``
+    (bf16) on both sides: JAX's renderer on its Pallas kernels and their
+    custom VJP in interpret mode (``backend='pallas-interpret'``, a 64^3
+    grid, which its Pallas march needs) and the port's bf16 decode and
+    backward, the same weights, scenes and replayed draws as
+    :func:`test_train_step_matches_jax`.  Losses rtol 1e-4 and the codes'
+    and the UNet's Adam moments max-normalised 2e-3, as there; the
+    decoder's moments 2^-6 (its weights' gradients are rounded to bf16,
+    one ulp 2^-7 relative, two for the squares); the f16 density grid:
+    all but 0.5% of the voxels within rtol 5e-3 (as there), every one
+    within 5% (a rounding to bf16 that falls the other way, carried
+    through the tenfold density head and exp); at most 0.1% of the bits
+    flipped."""
+    jm0, state, txs, _ = models
+    cfg = copy.deepcopy(TINY_MODEL_CFG)
+    cfg.update(update_extra_interval=INTERVAL, grid_size=64)
+    jcfg = copy.deepcopy(cfg)
+    jcfg['decoder']['backend'] = 'pallas-interpret'
+    jm = jax_build_model(jcfg, train_cfg=TRAIN_CFG, test_cfg={})
+    tm = build_model(cfg, train_cfg=TRAIN_CFG, test_cfg={})
+    load_jax_params(tm, {k: jax.tree_util.tree_map(_np, state[k]) for k in
+                         ('decoder', 'decoder_ema', 'diffusion',
+                          'diffusion_ema')})
+    assert tm.decoder.compute_dtype == 'bfloat16'
+    data_np = make_batch(num_scenes=S, num_views=V, h=H, w=W, seed=5)
+    data_np = {k: data_np[k] for k in
+               ('cond_imgs', 'cond_poses', 'cond_intrinsics')}
+    code0 = (np.random.RandomState(53).randn(S, *jm.code_size) * 0.5
+             ).astype(np.float32)
+    grid0 = np.zeros((S, jm.grid_size ** 3), np.float16)
+    bits0 = np.zeros((S, jm.grid_size ** 3 // 8), np.uint8)
+    jbatch = dict(code_=jnp.asarray(code0), opt=jax_adam_init(
+        jnp.asarray(code0)), density_grid=jnp.asarray(grid0),
+        density_bitfield=jnp.asarray(bits0))
+    tbatch = dict(code_=_t(code0), opt=adam_init(_t(code0)),
+                  density_grid=_t(grid0), density_bitfield=_t(bits0))
+    opts, scheds = build_optimizers(tm, OPT_CFGS, LR_CONFIG)
+    key = jax.random.PRNGKey(58)
+    new_state, jbatch, jlogs = jax.jit(lambda s, b, d, k: jm.train_step(
+        s, b, d, k, txs['diffusion'], txs['decoder']))(
+        state, jbatch, {k: jnp.asarray(v) for k, v in data_np.items()}, key)
+    tbatch, tlogs = tm.train_step(
+        tbatch, {k: _t(v) for k, v in data_np.items()}, opts, scheds,
+        draws=_jax_step_draws(jm, key, V * H * W))
+    for name in ('loss_diffusion', 'loss_decoder', 'pixel_loss', 'reg_loss'):
+        np.testing.assert_allclose(np.asarray(tlogs[name]),
+                                   np.asarray(jlogs[name]), rtol=1e-4,
+                                   err_msg=name)
+    _max_normalised(tbatch['opt'].m.numpy(), jbatch['opt'].m, 'code m', 2e-3)
+    _max_normalised(tbatch['opt'].v.numpy(), jbatch['opt'].v, 'code v', 2e-3)
+    g = tbatch['density_grid'].float().numpy()
+    jg = np.asarray(jbatch['density_grid'], np.float32)
+    err = np.abs(g - jg)
+    assert (err > 5e-3 * np.abs(jg) + 1e-4).mean() <= 5e-3
+    assert (err <= 0.05 * np.abs(jg) + 1e-4).all()
+    bits = np.unpackbits(np.asarray(jbatch['density_bitfield']))
+    assert 0.02 < bits.mean() < 0.98, bits.mean()
+    assert (np.unpackbits(tbatch['density_bitfield'].numpy())
+            != bits).mean() <= 1e-3
+    _compare_moments(tm.decoder, opts['decoder'], new_state['opt_decoder'],
+                     'decoder', 2.0 ** -6)
+    _compare_moments(tm.diffusion.denoising, opts['diffusion'],
+                     new_state['opt_diffusion'], 'unet', 2e-3)
