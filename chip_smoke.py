@@ -167,7 +167,7 @@ PORT_KERNELS = (('decode_bwd_bf16', 'triplane_decode_bwd_kernel.*' + _BF16),
                 ('decode_composite', 'triplane_decode_composite'),
                 ('decode_banded', 'triplane_decode_banded'),
                 ('decode', 'triplane_decode_kernel'),
-                ('attention_bwd_bf16', 'attention_bwd.*(bf16|bfloat16)'),
+                ('attention_bwd_bf16', 'attention_bwd.*(sm90|bf16|bfloat16)'),
                 ('attention_bf16', 'attention_fwd_(bf16|sm90)'),
                 ('attention_bwd', 'attention_bwd'),
                 ('attention', 'attention_fwd'),
@@ -202,7 +202,8 @@ KERNEL_META = {
     # attention.cu's mma.sync one
     'attention_bf16': ('ssdnerf_torch/csrc/attention_fwd_sm90.cu',
                        'ssdnerf_tpu/ops/pallas/attention.py:44'),
-    'attention_bwd_bf16': ('ssdnerf_torch/csrc/attention.cu',
+    # likewise the wgmma backward
+    'attention_bwd_bf16': ('ssdnerf_torch/csrc/attention_bwd_sm90.cu',
                            'ssdnerf_tpu/ops/pallas/attention.py:58'),
 }
 
@@ -444,7 +445,8 @@ def phase_kernels(dev):
 
     def compare(name, tag, kernel, plain, tol, flops, moved,
                 relative=False, library=None, tensor_flops=0,
-                tensor_rate=PEAK_TF32_FLOPS, passes=3, f32_plain=None):
+                tensor_rate=PEAK_TF32_FLOPS, passes=3, f32_plain=None,
+                kernels=()):
         """max |kernel - plain| <= tol (a number, or one per output), or
         with ``relative`` each output's max |kernel - plain| / max |plain|
         <= tol; the times of kernel, plain and ``library`` (one PyTorch
@@ -456,7 +458,9 @@ def phase_kernels(dev):
         |plain| must be <= 1e-5 (:func:`bf16_errors`), and its relative L2
         distance from the plain version at most half of the plain
         version's from ``f32_plain`` (the bf16-vs-f32 gap), which a kernel
-        that skipped the bf16 roundings would not meet."""
+        that skipped the bf16 roundings would not meet.  Each name in
+        ``kernels`` must be among the kernels of the row's device trace,
+        whose names are printed."""
         out, ref = kernel(), plain()
         out = out if isinstance(out, tuple) else (out,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -489,7 +493,16 @@ def phase_kernels(dev):
         ms, plain_ms, lib_ms = (
             None if fn is None else median_ms(fn, dev, 7, warmup=2)
             for fn in (kernel, plain, library))
-        dev_ms = sum(device_profile(kernel, expect=name).values())
+        traced = device_profile(kernel, expect=name)
+        dev_ms = sum(traced.values())
+        if kernels:
+            names = [re.sub(r'^(void )?(\(anonymous namespace\)::)?', '',
+                            n).split('(')[0] for n in traced]
+            log(f'phase 2 {tag}: device trace ' + ', '.join(
+                f'{n} {t:.4f} ms' for n, t in zip(names, traced.values())))
+        for k_name in kernels:
+            check(any(k_name in n for n in traced),
+                  f'{tag}: {k_name} not in the device trace {sorted(traced)}')
         lib_dev_ms = (None if library is None
                       else sum(device_profile(library).values()))
         check(dev_ms > 0 and (lib_dev_ms is None or lib_dev_ms > 0),
@@ -653,18 +666,27 @@ def phase_kernels(dev):
     # the bf16 mode at the same levels: one bf16 pass on the tensor cores
     # (bound at the dense bf16 rate), bf16 operands and outputs; within one
     # bf16 ulp of the largest entry (forward) and two (backward) of the
-    # plain version at the Pallas kernels' rounding points
+    # plain version at the Pallas kernels' rounding points, a mean within
+    # 1e-5 of it, and within half the gap to f32 (compare's f32_plain).
+    # At hd 64 and T a multiple of 128 the wgmma kernels run (their names
+    # must be in the row's trace), elsewhere attention.cu's mma.sync ones
     for T_, hd in ((1024, 64), (256, 128), (64, 128)):
         q, k, v, do = (torch.randn((32, T_, hd), generator=g).to(dev)
                        .bfloat16() for _ in range(4))
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
         scale = 1.0 / math.sqrt(hd)
+        sm90 = T_ % 128 == 0 and hd == 64
         compare('attention_bf16', f'attention bf16 G=32 T={T_} hd={hd}',
                 lambda: k_attn.attention(q, k, v, scale),
                 lambda: k_attn.attention_plain(q, k, v, scale), 2.0 ** -7,
                 32 * T_ * T_ * 4, 4 * nbytes(q), relative=True,
                 library=lambda: sdpa(q, k, v, scale),
                 tensor_flops=32 * T_ * T_ * 4 * hd,
-                tensor_rate=PEAK_BF16_FLOPS, passes=1)
+                tensor_rate=PEAK_BF16_FLOPS, passes=1,
+                f32_plain=lambda: k_attn.attention_plain(q32, k32, v32,
+                                                         scale),
+                kernels=(('attention_fwd_sm90_kernel',) if sm90 else
+                         ('attention_fwd_bf16_kernel',)))
         _, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out_lib = sdpa(*leaves, scale)
@@ -678,7 +700,13 @@ def phase_kernels(dev):
                 library=lambda: torch.autograd.grad(out_lib, leaves, do,
                                                     retain_graph=True),
                 tensor_flops=32 * T_ * T_ * 10 * hd,
-                tensor_rate=PEAK_BF16_FLOPS, passes=1)
+                tensor_rate=PEAK_BF16_FLOPS, passes=1,
+                f32_plain=lambda: k_attn.attention_backward_plain(
+                    q32, k32, v32, do32, scale),
+                kernels=(('attention_bwd_dkdv_sm90_kernel',
+                          'attention_bwd_dq_sm90_kernel') if sm90 else
+                         ('attention_bwd_dkdv_bf16_kernel',
+                          'attention_bwd_dq_bf16_kernel')))
         del leaves, out_lib
 
     # decode forward and backward at the training shapes: 8 scenes x 4096
@@ -1214,7 +1242,8 @@ def profile_step(run, ranges=TRAIN_PARTS, group_of=kernel_group):
     under the op that launched it: by the profiler range of ``ranges``
     whose host span holds the launch (autograd's backward thread launches
     inside the span of the ``autograd.grad`` call), and by ``group_of``.
-    Returns (profiled wall ms, device ms, parts, groups, top kernels)."""
+    Returns (profiled wall ms, device ms, parts, groups, kernels by
+    device time: (name, (launches, ms)))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1258,8 +1287,8 @@ def profile_step(run, ranges=TRAIN_PARTS, group_of=kernel_group):
             group = group_of(name, None)
             groups[group] = groups.get(group, 0.0) + ms - ms0
             kernels[name] = (n, ms)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
-    return wall_ms, sum(parts.values()), parts, groups, top
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    return wall_ms, sum(parts.values()), parts, groups, ranked
 
 
 def phase_train(model, cfg, data, code, dev, timed=4, phase=5,
@@ -1325,8 +1354,14 @@ def phase_train(model, cfg, data, code, dev, timed=4, phase=5,
     log(f'phase {phase} device time by group: ' + ', '.join(
         f'{k} {v:.1f} ms ({v / dev_ms:.1%})'
         for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
-    for name, (n, ms) in top:
+    for name, (n, ms) in top[:8]:
         log(f'phase {phase} kernel {ms:8.2f} ms x{n:4d} {name[:90]}')
+    # the attention kernels, each with the group it is billed to
+    for name, (n, ms) in top:
+        group = kernel_group(name, None)
+        if group.startswith('attention'):
+            log(f'phase {phase} attention kernel {ms:8.4f} ms x{n:4d} '
+                f'[{group}] {name[:90]}')
     norm = model.diffusion.norm_factor.item()
     occ = np.unpackbits(bank.density_bitfield[:S].cpu().numpy()).mean()
     moved = (bank.code_[:S] - code0).abs().max().item()

@@ -28,6 +28,13 @@
 // Two kernels instead of one with atomics on dQ: every output element has
 // one writer, so the gradients are bitwise reproducible.
 //
+// bf16 operands (the "bf16 operands" section below) take the same flash
+// form on mma.sync bf16 products; at hd 64 and T a multiple of 128 (the
+// bf16 UNet's 32^2 level) the forward and the backward dispatch to the
+// wgmma + TMA kernels of attention_fwd_sm90.cu and attention_bwd_sm90.cu,
+// so this file's bf16 kernels serve hd 32 and 128 (the 16^2 and 8^2
+// levels) and hd 64 at other lengths.
+//
 // Products: every matrix product (Q K^T and P V forward; K Q^T, V dO^T,
 // P^T dO, dS^T Q, Q K^T, dO V^T and dS K backward) runs on the tensor cores
 // as mma.sync.m16n8k8 TF32 with f32 accumulators, in three passes: each
@@ -338,25 +345,19 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------- backward
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// D[r] = sum_c dO[r, c] * O[r, c], one warp per row of the (G * T, hd) view;
-// O in f32, dO in the operand type.
-template <typename TD>
+// D[r] = sum_c dO[r, c] * O[r, c], one warp per row of the (G * T, hd)
+// view.
 __global__ void attention_bwd_dot_kernel(const float* __restrict__ o,
-                                         const TD* __restrict__ dout,
+                                         const float* __restrict__ dout,
                                          float* __restrict__ D, int rows,
                                          int hd) {
   const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;  // uniform over the warp
   const float* a = o + (size_t)r * hd;
-  const TD* b = dout + (size_t)r * hd;
+  const float* b = dout + (size_t)r * hd;
   float s = 0.0f;
-  for (int c = lane; c < hd; c += 32) s += a[c] * to_f32(b[c]);
+  for (int c = lane; c < hd; c += 32) s += a[c] * b[c];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -565,7 +566,7 @@ int launch_bwd(const float* q, const float* k, const float* v,
                float* dq, float* dk, float* dv, float* D, int G, int T,
                float scale, cudaStream_t stream) {
   const int nrows = G * T;
-  attention_bwd_dot_kernel<float><<<(nrows * 32 + kMaxThreads - 1) / kMaxThreads,
+  attention_bwd_dot_kernel<<<(nrows * 32 + kMaxThreads - 1) / kMaxThreads,
                              kMaxThreads, 0, stream>>>(o, dout, D, nrows, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -598,8 +599,13 @@ int launch_bwd(const float* q, const float* k, const float* v,
 // instead, at other values, so the forward makes two passes over the key
 // tiles: the row max and sum (the log-sum-exp) first, then P = exp(s -
 // lse) rounded to bf16 into P V.  The backward is the flash form of the
-// f32 kernels above, with the row term D = rowsum(dO * O) taken from the
-// f32 output the forward keeps, not from the bf16-rounded one.
+// f32 kernels above, with the Pallas kernel's row term D = rowsum(P * dP)
+// of the f32 softmax, which the dQ kernel recomputes in a first pass over
+// the key tiles (rowsum(dO * O) of the forward's output would hold bf16(P)
+// in place of P).  These
+// kernels serve the shapes the wgmma kernels do not tile: hd 32 and 128,
+// and hd 64 at a T that is not a multiple of 128 (attention_fwd_bf16 and
+// attention_bwd_bf16 below dispatch).
 //
 // Tiles are bf16 rows padded by 8 elements (row stride HD + 8: 16-byte
 // cp.async copies stay aligned, and HD / 2 + 4 words = 4 mod 32 banks keeps
@@ -949,8 +955,13 @@ attention_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
   store_rows_bf16<HD>(dk + base, nullptr, acc_k, k0 + warp * 16, T);
 }
 
-// Block: (g, query rows blockIdx.x * R .. + R): dQ of those rows, streaming
-// every key tile (K and V double-buffered).
+// Block: (g, query rows blockIdx.x * R .. + R): the row terms D of those
+// rows and then dQ, streaming every key tile twice (K and V
+// double-buffered).  D = rowsum(P * dP) with the f32 softmax P, the Pallas
+// kernel's row term; rowsum(dO * O) with the forward's output would put
+// bf16(P) in its place (O = bf16(P) V), which moves dq and dk by about half
+// the bf16-vs-f32 gap.  D goes to global memory for the dK/dV kernel,
+// launched after this one.
 template <int HD>
 __global__ void __launch_bounds__(kMaxThreads)
 attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
@@ -958,8 +969,8 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ v,
                              const bf16* __restrict__ dout,
                              const float* __restrict__ lse,
-                             const float* __restrict__ D,
-                             bf16* __restrict__ dq, int T, float scale) {
+                             float* __restrict__ D, bf16* __restrict__ dq,
+                             int T, float scale) {
   constexpr int RS = HD + 8, BN = tile_rows<HD>(), NT = BN / 8, NO = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int R = blockDim.x / 2;
@@ -968,7 +979,6 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   bf16* sK = sdO + R * RS;       // two buffers
   bf16* sV = sK + 2 * BN * RS;   // two buffers
   float* sL = reinterpret_cast<float*>(sV + 2 * BN * RS);
-  float* sD = sL + R;
   const int g = blockIdx.y, q0 = blockIdx.x * R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, t = lane & 3;
@@ -979,19 +989,21 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   load_rows_bf16<HD>(sQ, q + base, q0, R, T);
   load_rows_bf16<HD>(sdO, dout + base, q0, R, T);
   load_vec(sL, lse + (size_t)g * T, q0, R, T);
-  load_vec(sD, D + (size_t)g * T, q0, R, T);
   load_rows_bf16<HD>(sK, kg, 0, BN, T);
   load_rows_bf16<HD>(sV, vg, 0, BN, T);
   cp_async_commit();
 
   float acc[NO][4] = {};
   const int w0 = warp * 16;  // the warp's rows within the block
+  float Dr[2] = {0.0f, 0.0f};  // per-lane partial sums during pass 1
   const int tiles = (T + BN - 1) / BN;
-  for (int it = 0; it < tiles; ++it) {
+  // iterations 0 .. tiles - 1: pass 1 (D); tiles .. 2 tiles - 1: dQ
+  for (int it = 0; it < 2 * tiles; ++it) {
     const int cur = it & 1, nxt = cur ^ 1;
-    if (it + 1 < tiles) {
-      load_rows_bf16<HD>(sK + nxt * BN * RS, kg, (it + 1) * BN, BN, T);
-      load_rows_bf16<HD>(sV + nxt * BN * RS, vg, (it + 1) * BN, BN, T);
+    if (it + 1 < 2 * tiles) {
+      const int k1 = ((it + 1) % tiles) * BN;
+      load_rows_bf16<HD>(sK + nxt * BN * RS, kg, k1, BN, T);
+      load_rows_bf16<HD>(sV + nxt * BN * RS, vg, k1, BN, T);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -1004,14 +1016,22 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     float s[NT][4] = {}, dp[NT][4] = {};
     mma_abt_bf16<HD / 16, NT, RS>(s, sQ + w0 * RS, cK);    // S = Q K^T
     mma_abt_bf16<HD / 16, NT, RS>(dp, sdO + w0 * RS, cV);  // dP = dO V^T
-    const int kb = it * BN;
-    float Lr[2], Dr[2];
+    const int kb = (it % tiles) * BN;
+    float Lr[2];
     bool row_in[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       Lr[h] = sL[w0 + gr + 8 * h];
-      Dr[h] = sD[w0 + gr + 8 * h];
       row_in[h] = q0 + w0 + gr + 8 * h < T;
+    }
+    if (it == tiles) {  // D complete: the quad's sum, stored for dK/dV
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Dr[h] += __shfl_xor_sync(0xffffffffu, Dr[h], 1);
+        Dr[h] += __shfl_xor_sync(0xffffffffu, Dr[h], 2);
+        if (t == 0 && row_in[h])
+          D[(size_t)g * T + q0 + w0 + gr + 8 * h] = Dr[h];
+      }
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -1020,11 +1040,16 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         const int h = e >> 1;
         const bool in = row_in[h] && kb + 8 * n + 2 * t + (e & 1) < T;
         const float p = in ? expf(s[n][e] * scale - Lr[h]) : 0.0f;
-        s[n][e] = p * (dp[n][e] - Dr[h]) * scale;  // dS * scale
+        if (it < tiles)
+          Dr[h] += p * dp[n][e];
+        else
+          s[n][e] = p * (dp[n][e] - Dr[h]) * scale;  // dS * scale
       }
-    uint32_t dsf[NT / 2][4];
-    pack_frags<NT>(dsf, s);
-    mma_pb_bf16<NT / 2, NO, RS>(acc, dsf, cK);  // dQ += dS K
+    if (it >= tiles) {
+      uint32_t dsf[NT / 2][4];
+      pack_frags<NT>(dsf, s);
+      mma_pb_bf16<NT / 2, NO, RS>(acc, dsf, cK);  // dQ += dS K
+    }
     __syncthreads();  // this buffer is free for the copy after next
   }
   store_rows_bf16<HD>(dq + base, nullptr, acc, q0 + w0, T);
@@ -1044,33 +1069,27 @@ int launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   return (int)cudaGetLastError();
 }
 
+// The dQ kernel (which writes D), then the dK/dV kernel.
 template <int HD>
 int launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
-                    const float* o32, const bf16* dout, const float* lse,
-                    bf16* dq, bf16* dk, bf16* dv, float* D, int G, int T,
-                    float scale, cudaStream_t stream) {
-  const int nrows = G * T;
-  attention_bwd_dot_kernel<bf16>
-      <<<(nrows * 32 + kMaxThreads - 1) / kMaxThreads, kMaxThreads, 0,
-         stream>>>(o32, dout, D, nrows, HD);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
+                    const bf16* dout, const float* lse, bf16* dq, bf16* dk,
+                    bf16* dv, float* D, int G, int T, float scale,
+                    cudaStream_t stream) {
   const int rows = rows_per_block(T);
   dim3 grid((T + rows - 1) / rows, G);
+  const int smem_q = bwd_bf16_smem<HD>(rows, rows);
+  cudaError_t err = raise_smem(attention_bwd_dq_bf16_kernel<HD>, smem_q);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dq_bf16_kernel<HD><<<grid, 2 * rows, smem_q, stream>>>(
+      q, k, v, dout, lse, D, dq, T, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
   const int smem_kv = bwd_bf16_smem<HD>(rows, 4 * tile_rows<HD>());
   err = raise_smem(attention_bwd_dkdv_bf16_kernel<HD>, smem_kv);
   if (err != cudaSuccess) return (int)err;
   attention_bwd_dkdv_bf16_kernel<HD><<<grid, 2 * rows, smem_kv, stream>>>(
       q, k, v, dout, lse, D, dk, dv, T, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int smem_q = bwd_bf16_smem<HD>(rows, 2 * rows);
-  err = raise_smem(attention_bwd_dq_bf16_kernel<HD>, smem_q);
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_bf16_kernel<HD><<<grid, 2 * rows, smem_q, stream>>>(
-      q, k, v, dout, lse, D, dq, T, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1135,11 +1154,11 @@ extern "C" int attention_fwd_bf16_sm90(const void* q, const void* k,
                                        void* stream);
 
 // The bf16 instances.  q, k, v, o: (G, T, hd) bf16 contiguous, 16-byte
-// aligned; o32: (G, T, hd) f32 or nullptr (the output before its rounding,
-// which the backward reads); lse: (G, T) f32 or nullptr.  The forward runs
-// attention_fwd_sm90.cu's wgmma kernel where it tiles the shape (hd 64, T
-// a multiple of 128: the bf16 UNet's 32^2 level), this file's mma.sync
-// kernel elsewhere.
+// aligned; o32: (G, T, hd) f32 or nullptr (the output before its
+// rounding); lse: (G, T) f32 or nullptr (what the backward reads).  The
+// forward runs attention_fwd_sm90.cu's wgmma kernel where it tiles the
+// shape (hd 64, T a multiple of 128: the bf16 UNet's 32^2 level), this
+// file's mma.sync kernel elsewhere.
 extern "C" int attention_fwd_bf16(const void* q, const void* k, const void* v,
                                   void* o, void* o32, void* lse, int G, int T,
                                   int hd, float scale, void* stream) {
@@ -1164,18 +1183,33 @@ extern "C" int attention_fwd_bf16(const void* q, const void* k, const void* v,
   }
 }
 
+extern "C" int attention_bwd_bf16_sm90_supported(int T, int hd);
+extern "C" int attention_bwd_bf16_sm90(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, void* dq, void* dk,
+                                       void* dv, void* D, int G, int T,
+                                       float scale, void* stream);
+
 // q, k, v, dout, dq, dk, dv: (G, T, hd) bf16 contiguous, 16-byte aligned;
-// o32 (G, T, hd) and lse (G, T) f32 from attention_fwd_bf16; D: (G, T) f32
-// scratch.
+// lse (G, T) f32 from attention_fwd_bf16, 16-byte aligned; D: (G, T) f32
+// scratch, where the dQ kernel puts the row terms.  o32 is not read: the
+// row terms are rowsum(P * dP) with the f32 softmax, recomputed (see
+// attention_bwd_dq_bf16_kernel); the argument keeps the f32 entry's
+// order.  attention_bwd_sm90.cu's wgmma kernels
+// run where they tile the shape (the forward's gate: hd 64, T a multiple
+// of 128, the bf16 UNet's 32^2 level), this file's mma.sync kernels
+// elsewhere (hd 32 and 128, and hd 64 at other lengths).
 extern "C" int attention_bwd_bf16(const void* q, const void* k, const void* v,
                                   const void* o32, const void* dout,
                                   const void* lse, void* dq, void* dk,
                                   void* dv, void* D, int G, int T, int hd,
                                   float scale, void* stream) {
+  if (attention_bwd_bf16_sm90_supported(T, hd))
+    return attention_bwd_bf16_sm90(q, k, v, dout, lse, dq, dk, dv, D, G, T,
+                                   scale, stream);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
-  const float* of = static_cast<const float*>(o32);
   const bf16* gb = static_cast<const bf16*>(dout);
   const float* lf = static_cast<const float*>(lse);
   bf16* dqb = static_cast<bf16*>(dq);
@@ -1185,13 +1219,13 @@ extern "C" int attention_bwd_bf16(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 32:
-      return launch_bwd_bf16<32>(qb, kb, vb, of, gb, lf, dqb, dkb, dvb, Df, G,
-                                 T, scale, st);
+      return launch_bwd_bf16<32>(qb, kb, vb, gb, lf, dqb, dkb, dvb, Df, G, T,
+                                 scale, st);
     case 64:
-      return launch_bwd_bf16<64>(qb, kb, vb, of, gb, lf, dqb, dkb, dvb, Df, G,
-                                 T, scale, st);
+      return launch_bwd_bf16<64>(qb, kb, vb, gb, lf, dqb, dkb, dvb, Df, G, T,
+                                 scale, st);
     case 128:
-      return launch_bwd_bf16<128>(qb, kb, vb, of, gb, lf, dqb, dkb, dvb, Df, G,
+      return launch_bwd_bf16<128>(qb, kb, vb, gb, lf, dqb, dkb, dvb, Df, G,
                                   T, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -30,16 +30,10 @@
 // on it are complete, so the producer runs up to 4 tiles ahead of the
 // slower warpgroup.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kHD = 64;          // head dim
 constexpr int kBM = 128;         // query rows a CTA (2 x 64)
 constexpr int kBN = 64;          // keys a tile
 constexpr int kStages = 4;
@@ -49,138 +43,11 @@ constexpr int kTileBytes = kBN * kHD * 2;   // one K or V tile
 constexpr int kQBytes = kBM * kHD * 2;
 constexpr int kSmemBytes = 1024 + kQBytes + 2 * kStages * kTileBytes + 256;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2D TMA load (coordinates: column, row) into shared memory, completing
-// on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int col, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor of a 128-byte-swizzled tile (rows of
-// 128 bytes, 8-row atoms of 1024 bytes, 1024-byte aligned): start address,
-// leading and stride byte offsets.  K-major operands use only the stride
-// (1024, from one 8-row atom to the next); the transposed V tile steps its
-// k atoms by the same 1024, which is passed as both offsets.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  const uint32_t a = smem_u32(p);
-  return (uint64_t)((a & 0x3ffff) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3fff) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (64 x 64 f32 over the warpgroup, 32 a thread) = or += A B, A and B
-// from shared memory (K-major), one k16 step.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B, A (64 x 16 bf16) from registers in the mma.sync A fragment
-// layout, B from shared memory transposed (MN-major), one k16 step.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // S = Q K^T for the warpgroup's 64 rows against one 64-key tile: four k16
 // steps over the head dim (32 bytes each in the swizzled rows).
 __device__ __forceinline__ void scores(float (&s)[32], const bf16* q,
                                        const bf16* k) {
-  const uint64_t dq = smem_desc(q, 16, 1024), dk = smem_desc(k, 16, 1024);
+  const uint64_t dq = desc_k_major(q), dk = desc_k_major(k);
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < kHD / 16; ++ks)
@@ -188,9 +55,6 @@ __device__ __forceinline__ void scores(float (&s)[32], const bf16* q,
   wgmma_commit();
   wgmma_wait();
 }
-
-// Accumulator element e of a thread (lane = 4 gr + t of warp w): row 16 w
-// + gr + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 t + (e & 1).
 
 // Grid (T / 128, G); block: warpgroups 0-1 consume (64 query rows each),
 // warp 8 produces.  lse, o32 may be null.
@@ -316,10 +180,8 @@ attention_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         p[ks][r] = pack_bf16(ex2(fmaf(s[e], c, -m[h])) * inv[h],
                              ex2(fmaf(s[e + 1], c, -m[h])) * inv[h]);
       }
-    const uint64_t dv = smem_desc(sV + st * (kTileBytes / 2), 1024, 1024);
     wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_rs(acc, p[ks], dv + 128 * ks);
+    wgmma_rs_tile(acc, p, sV + st * (kTileBytes / 2));
     wgmma_commit();
     wgmma_wait();
     __syncwarp();
@@ -342,45 +204,6 @@ attention_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lse != nullptr && t == 0)
       lse[row0 + r0 + 8 * h] = m[h] * 0.6931471805599453f + logf(l[h]);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (the library
-// links no libcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The (rows, 64) bf16 matrix at `ptr` as a TMA map with boxes of
-// `box_rows` rows of 128 bytes, 128-byte swizzled.
-bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {kHD, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {kHD * sizeof(bf16)};
-  const cuuint32_t box[2] = {kHD, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-            const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

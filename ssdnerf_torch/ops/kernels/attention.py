@@ -10,9 +10,13 @@ f32 accumulation puts them ~5e-6 (forward) and ~1.1e-5 (backward) off this
 module's plain f32 version on an H100.  For bf16 operands, one bf16 pass
 with f32 accumulation, rounding where the Pallas kernel rounds: the
 forward finds each row's log-sum-exp first and rounds the normalised
-weights to bf16 for the product with v; the backward's row term is taken
-from the f32 output.  They run at every attention level of the UNet (head
-dims 32, 64 and 128).  Under autograd a CUDA call goes through
+weights to bf16 for the product with v; the backward recomputes the
+Pallas kernel's row term rowsum(p * dp) with the f32 softmax p (the f32
+output ``o32`` holds bf16(p) v, so its rowsum(do * o32) would differ).
+They run at every attention level of the UNet (head dims 32, 64 and
+128); at hd 64 and T a multiple of 128 (the 32^2 level) the bf16 forward
+and backward are ``wgmma`` + TMA kernels (``csrc/attention_fwd_sm90.cu``,
+``csrc/attention_bwd_sm90.cu``).  Under autograd a CUDA call goes through
 :class:`_AttentionFn`, whose forward also keeps each row's log-sum-exp and
 the f32 output and whose backward is the backward kernel.
 """
@@ -90,7 +94,8 @@ def attention_forward(q, k, v, scale, with_lse=False):
     """The forward kernel on CUDA tensors: (o, lse, o32).  With
     ``with_lse``, lse (G, T) is each row's log-sum-exp of the scaled scores
     and o32 the output in f32, before bf16 operands round it (``o`` itself
-    for f32 operands): what the backward reads.  Else both are None."""
+    for f32 operands): what the backward reads (the f32 backward its row
+    terms from o32; the bf16 backward only lse).  Else both are None."""
     G, T, hd = _check('attention', q, k, v)
     bf16 = q.dtype == torch.bfloat16
     o = torch.empty_like(q)
@@ -113,7 +118,9 @@ def attention_backward(q, k, v, o32, lse, do, scale):
     gradient ``do``, in the operand dtype; ``o32`` and ``lse`` (G, T) come
     from :func:`attention_forward`.  CPU tensors take the plain version
     (which recomputes the forward); CUDA tensors launch the backward
-    kernels of ``csrc/attention.cu`` (or raise)."""
+    kernels of ``csrc/attention.cu`` (or raise), which for bf16 operands
+    at hd 64 and T a multiple of 128 are the ``wgmma`` kernels of
+    ``csrc/attention_bwd_sm90.cu``."""
     if q.device.type == 'cpu':
         return attention_backward_plain(q, k, v, do, scale)
     G, T, hd = _check('attention_backward', q, k, v, do)
@@ -122,9 +129,10 @@ def attention_backward(q, k, v, o32, lse, do, scale):
                 or not t.is_contiguous():
             raise TypeError(f'attention_backward: {what} must be a '
                             'contiguous f32 tensor on the operands\' device')
-    if o32.shape != q.shape or o32.data_ptr() % 16 or lse.shape != (G, T):
-        raise ValueError('attention_backward: o32 must be (G, T, hd) and '
-                         'aligned, lse (G, T)')
+    if o32.shape != q.shape or lse.shape != (G, T) \
+            or o32.data_ptr() % 16 or lse.data_ptr() % 16:
+        raise ValueError('attention_backward: o32 must be (G, T, hd), lse '
+                         '(G, T), both 16-byte aligned')
     bf16 = q.dtype == torch.bfloat16
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     scratch = torch.empty((G, T), dtype=torch.float32, device=q.device)

@@ -203,13 +203,16 @@ def test_attention_kernels_hold_f64(cuda_device, T, hd):
         torch.testing.assert_close(a.double(), b, rtol=0, atol=3e-5)
 
 
-@pytest.mark.parametrize('T,hd', [(1024, 64), (100, 128)])
-def test_attention_backward_is_deterministic(cuda_device, T, hd):
+@pytest.mark.parametrize('T,hd,dtype', [
+    (1024, 64, torch.float32), (100, 128, torch.float32),
+    (1024, 64, torch.bfloat16), (512, 64, torch.bfloat16)])
+def test_attention_backward_is_deterministic(cuda_device, T, hd, dtype):
     """No atomics: two backward runs on the same inputs give bitwise equal
-    dq, dk, dv."""
+    dq, dk, dv (the bf16 cases run the wgmma kernels of
+    attention_bwd_sm90.cu)."""
     g = torch.Generator().manual_seed(23)
     q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
-                   for _ in range(4))
+                   .to(dtype) for _ in range(4))
     scale = 1.0 / math.sqrt(hd)
     _, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
     first = k_attn.attention_backward(q, k, v, o32, lse, do, scale)
@@ -226,10 +229,11 @@ def _bf16_ulps(got, ref):
 
 
 # the UNet levels of the flagship (32^2, 16^2, 8^2) and ragged lengths;
-# (512, 64) and (1024, 64) take the wgmma forward (attention_fwd_sm90.cu),
-# the others attention.cu's mma.sync forward
-BF16_SHAPES = [(1024, 64), (512, 64), (256, 128), (64, 128), (100, 32),
-               (1000, 64)]
+# (1024, 64), (768, 64) and (512, 64) take the wgmma kernels
+# (attention_fwd_sm90.cu, attention_bwd_sm90.cu), the others attention.cu's
+# mma.sync kernels
+SM90_SHAPES = [(1024, 64), (768, 64), (512, 64)]
+BF16_SHAPES = SM90_SHAPES + [(256, 128), (64, 128), (100, 32), (1000, 64)]
 
 
 @pytest.mark.parametrize('T,hd', BF16_SHAPES)
@@ -237,15 +241,22 @@ def test_attention_bf16_kernels_match_plain(cuda_device, T, hd):
     """bf16 operands at G = 8 scenes x 4 heads: the forward kernel and,
     through the autograd Function, the backward kernels against the plain
     version at the Pallas kernels' rounding points, within one bf16 ulp
-    (forward) and two (backward) of each output's largest entry; the
-    outputs and gradients are bf16, the
-    f32 kernels are not launched and the bf16 ones are."""
+    (forward) and two (backward) of each output's largest entry, a mean
+    error within 1e-5 of it and a relative L2 distance within half of the
+    plain version's own bf16-vs-f32 gap (rounding flips after f32 sums in
+    another order are rare; a row term or a rounding point that differs
+    from the Pallas kernel's moves every element); the outputs and
+    gradients are bf16, the f32 kernels are not launched and the bf16
+    ones are."""
     g = torch.Generator().manual_seed(25)
     q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
                    .bfloat16() for _ in range(4))
     scale = 1.0 / math.sqrt(hd)
     ref = k_attn.attention_plain(q, k, v, scale)
     ref_grads = k_attn.attention_backward_plain(q, k, v, do, scale)
+    f32 = [t.float() for t in (q, k, v, do)]
+    ref32 = (k_attn.attention_plain(*f32[:3], scale),) + \
+        k_attn.attention_backward_plain(*f32, scale)
     counts = (k_attn.attention.launches, k_attn.attention.launches_bf16,
               k_attn.attention_backward.launches,
               k_attn.attention_backward.launches_bf16)
@@ -261,6 +272,10 @@ def test_attention_bf16_kernels_match_plain(cuda_device, T, hd):
     for a, b in zip(grads, ref_grads):
         assert a.dtype == torch.bfloat16
         assert _bf16_ulps(a, b) <= 2.0
+    for a, b, b32 in zip((out,) + grads, (ref,) + ref_grads, ref32):
+        a, b = a.float(), b.float()
+        assert ((a - b).abs().mean() / b.abs().max()).item() <= 1e-5
+        assert (a - b).norm() <= 0.5 * (b32 - b).norm()
 
 
 @pytest.mark.parametrize('T,hd', BF16_SHAPES)
@@ -282,6 +297,34 @@ def test_attention_bf16_forward_lse_and_o32(cuda_device, T, hd):
     ref32 = torch.matmul(torch.softmax(s, -1).bfloat16().float(), v.float())
     assert _bf16_ulps(o32, ref32) <= 1.0
     assert torch.equal(o, o32.bfloat16())
+
+
+@pytest.mark.parametrize('T,hd', SM90_SHAPES + [(256, 128), (1000, 64)])
+def test_attention_bf16_backward_dispatch(cuda_device, T, hd):
+    """The kernels a bf16 backward launches, by their names in a
+    torch.profiler trace: the wgmma dK/dV and dQ kernels of
+    attention_bwd_sm90.cu at hd 64 and T a multiple of 128, attention.cu's
+    mma.sync ones elsewhere; the dQ kernels form the row terms, so the f32
+    path's row-term kernel does not run."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(28)
+    q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
+                   .bfloat16() for _ in range(4))
+    scale = 1.0 / math.sqrt(hd)
+    _, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k_attn.attention_backward(q, k, v, o32, lse, do, scale)
+        torch.cuda.synchronize()
+    names = ' '.join(e.key for e in prof.key_averages())
+    sm90 = (T, hd) in SM90_SHAPES
+    for kernel in ('attention_bwd_dkdv_sm90_kernel',
+                   'attention_bwd_dq_sm90_kernel'):
+        assert (kernel in names) == sm90, (kernel, names)
+    for kernel in ('attention_bwd_dkdv_bf16_kernel',
+                   'attention_bwd_dq_bf16_kernel'):
+        assert (kernel in names) != sm90, (kernel, names)
+    assert 'attention_bwd_dot_kernel' not in names
 
 
 def test_attention_mixed_dtypes_raise(cuda_device):
