@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ssdnerf_torch/csrc into build/kernels/, then
-runs six phases, any failure of which exits non-zero:
+runs eight phases, any failure of which exits non-zero:
 
 1. device: a CUDA card is present; TF32 is switched off for matmuls and
    convolutions, so every plain f32 reference is full f32;
@@ -67,7 +67,22 @@ runs six phases, any failure of which exits non-zero:
    bf16.  Phase 2 holds the bf16 attention kernels against their plain
    bf16 versions at the three flagship levels, bounded at the dense bf16
    tensor rate (at T=1024, hd=64 the forward is the wgmma kernel of
-   csrc/attention_fwd_sm90.cu).
+   csrc/attention_fwd_sm90.cu);
+8. reconstruction: configs/paper_cfgs/ssdnerf_cars_recons1v.py unchanged
+   (random seeded weights), 8 scenes with one 128x128 conditioning view
+   each (view 0 of phase 5's synthetic images): ``eval_mode`` (its
+   ``override_cfg``), ``val_step`` in 'guide_optim' (75 guided DDIM steps
+   at 2^14 rays, then 25 ``val_optim`` steps of 4 inverse steps each),
+   ``train_mode``, then a render of 4 other views per scene with its PSNR
+   against them; wall seconds of the guide and the optimisation, the
+   launch counts (the f32 attention backward and the bf16 decode backward
+   among them), device time by range and kernel group of one profiled
+   guided step and one ``val_optim`` step, peak memory of a few guided
+   steps with ``guide_remat`` off and on, the guided DDIM under
+   ``use_fp16`` (the bf16 attention forward and backward must launch);
+   then 1 scene, 2 guided steps and 1 ``val_optim`` step on the card and
+   on the CPU with the same weights and draws, in the shipped bf16 decode
+   and in f32 (rays cut to 4096 a guide or inverse step for the CPU).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the result JSON.  Imports nothing of JAX.
@@ -110,6 +125,7 @@ from ssdnerf_torch.tools.march_scalar_probe import median_ms  # noqa: E402
 
 CONFIG = ROOT / 'configs' / 'paper_cfgs' / 'ssdnerf_cars_uncond.py'
 CONFIG_BF16 = ROOT / 'configs' / 'new_cfgs' / 'ssdnerf_cars_uncond_bf16.py'
+CONFIG_RECONS = ROOT / 'configs' / 'paper_cfgs' / 'ssdnerf_cars_recons1v.py'
 SEED = 0
 SRN_INTRINSICS = (131.25, 131.25, 64.0, 64.0)
 # H100 SXM peaks the bounds are taken against (NVIDIA's data sheet): f32
@@ -153,6 +169,14 @@ VARIANTS = {'decode_composite_bf16': 'fused_composite',
             'decode_banded_bf16': 'banded_decode'}
 TRAIN_PARTS = ('train_step.diffusion', 'train_step.inverse',
                'train_step.decoder')
+# the kernels of a reconstruction (f32 UNet, bf16 decode as shipped), and
+# those only the use_fp16 guide runs
+RECONS = ('march', 'decode_bf16', 'decode_bwd_bf16', 'attention',
+          'attention_bwd')
+RECONS_FP16 = ('attention_bf16', 'attention_bwd_bf16')
+# phase 5's synthetic views: view 0 conditions a reconstruction, these are
+# rendered from the result
+RECONS_VIEWS = (10, 20, 30, 40)
 # (group, pattern of the kernel's name), most specific first; the decode
 # kernels' bf16 instances have a last template argument true (Lb1E
 # mangled)
@@ -1192,6 +1216,8 @@ def phase_card_vs_cpu(model_cpu, model_dev, dev):
 def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
     return None if tree is None else tree.to(dev)
 
 
@@ -1594,6 +1620,277 @@ def phase_unet_precision(unet_f32, unet_bf16, dev):
     return ms
 
 
+def recons_inputs(data, S=8):
+    """The conditioning data of a reconstruction (view 0 of ``data``, one
+    128x128 view a scene) and its test views (RECONS_VIEWS)."""
+    cond = {k: v[:S, :1].contiguous() for k, v in data.items()}
+    test = {k: v[:S, list(RECONS_VIEWS)].contiguous()
+            for k, v in data.items()}
+    return cond, test
+
+
+@contextlib.contextmanager
+def timed_ranges(model, walls):
+    """Adds to ``walls`` the wall seconds (to a device synchronise) of each
+    ``val_guide`` and ``val_optim`` call ``val_step`` makes, under their
+    ranges' names."""
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    model.val_guide = timed('val_step.guide', model.val_guide)
+    model.val_optim = timed('val_step.optim', model.val_optim)
+    try:
+        yield
+    finally:
+        del model.val_guide, model.val_optim
+
+
+def psnr_db(img, target):
+    mse = ((img.float() - target.float()) ** 2).mean().item()
+    return -10 * math.log10(max(mse, 1e-10))
+
+
+def phase_recons(model, data, dev):
+    """Single-view reconstruction at the flagship width (recons1v's
+    test_cfg unchanged): ``eval_mode``, ``val_step`` ('guide_optim') on 8
+    scenes, ``train_mode``, a render of the 4 test views; then one guided
+    step and one ``val_optim`` step under the profiler, a few guided steps
+    with ``guide_remat`` off and on (peak memory), and the guided DDIM
+    under ``use_fp16``.  Each of RECONS must launch in the reconstruction,
+    each of RECONS_FP16 under ``use_fp16``."""
+    tcfg = model.test_cfg
+    cond, test = recons_inputs(data)
+    S = cond['cond_imgs'].shape[0]
+    num_pixels = math.prod(cond['cond_imgs'].shape[1:4])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    model.eval_mode()
+    check(model.diffusion_ema.ddpm_loss.weight_scale == 1.0
+          and model.diffusion.ddpm_loss.weight_scale == 1.0,
+          'eval_mode: override_cfg not applied')
+    walls = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_ranges(model, walls):
+        code, grid, bitfield = model.val_step(cond, generator=gen)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.train_mode()
+    check(model.diffusion_ema.ddpm_loss.weight_scale == 4.0,
+          'train_mode: weight_scale not restored')
+    h, w = test['cond_imgs'].shape[2:4]
+    img, depth = model.render(code, bitfield, h, w,
+                              test['cond_intrinsics'], test['cond_poses'])
+    psnrs = [psnr_db(img[i], test['cond_imgs'][i]) for i in range(S)]
+    occ = np.unpackbits(bitfield.cpu().numpy()).mean()
+    log(f'phase 8 reconstruction ({tcfg["cond_mode"]}, {S} scenes, 1 view '
+        f'of 128x128): val_step {total_s:.3f} s = guide '
+        f'{walls["val_step.guide"]:.3f} s ({tcfg["num_timesteps"]} guided '
+        f'DDIM steps at {tcfg["n_inverse_rays"]} rays) + optim '
+        f'{walls["val_step.optim"]:.3f} s ({tcfg["n_inverse_steps"]} steps x '
+        f'{tcfg["extra_scene_step"] + 1} inverse steps); peak memory '
+        f'{peak:.2f} GiB; launches {launches}')
+    log(f'phase 8 outputs: code {tuple(code.shape)} |code|max='
+        f'{code.abs().max().item():.3f}; grid {grid.dtype} max '
+        f'{grid.float().max().item():.4g}; occupancy {occ:.4f}; render of '
+        f'{len(RECONS_VIEWS)} other views PSNR (dB) mean '
+        f'{statistics.mean(psnrs):.3f}, per scene '
+        + ' '.join(f'{p:.2f}' for p in psnrs) + ' (random weights: no bar)')
+    check(code.shape == (S,) + model.code_size, 'recons code shape')
+    check(torch.isfinite(code).all().item(), 'recons codes not finite')
+    check(not torch.isnan(grid).any().item(), 'recons grid NaN')
+    check(grid.dtype == torch.float16, 'recons grid dtype')
+    for name, t in (('image', img), ('depth', depth)):
+        check(torch.isfinite(t).all().item(), f'recons {name} not finite')
+    for name in RECONS:
+        check(launches[name] > 0, f'kernel {name} was not launched by the '
+              'reconstruction')
+
+    # one guided step and one val_optim step under the profiler
+    model.test_cfg = dict(tcfg, num_timesteps=1, n_inverse_steps=1)
+    try:
+        draws = model.val_draws(S, num_pixels, gen, dev)
+        profiles = {
+            'guide': profile_step(lambda: model.val_guide(
+                cond, draws['noise'], draws), ranges=('val_step.guide',)),
+            'optim': profile_step(lambda: model.val_optim(
+                cond, draws, code_=model.code_activation.inverse(code),
+                density_grid=grid, density_bitfield=bitfield),
+                ranges=('val_step.optim',))}
+    finally:
+        model.test_cfg = tcfg
+    for part, (wall_ms, dev_ms, _, groups, top) in profiles.items():
+        log(f'phase 8 profiled {part} step: wall {wall_ms:.1f} ms, device '
+            f'{dev_ms:.1f} ms; by group: ' + ', '.join(
+                f'{k} {v:.2f} ms ({v / dev_ms:.1%})'
+                for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+        for name, (n, ms) in top[:6]:
+            log(f'phase 8 {part} kernel {ms:8.3f} ms x{n:4d} {name[:90]}')
+        for name in ('attention_bwd', 'decode_bwd_bf16'):
+            check(groups.get(name, 0.0) > 0, f'kernel {name} read no device '
+                  f'time in the profiled {part} step')
+
+    # guide_remat off and on: peak memory of a few guided steps
+    few = dict(tcfg, num_timesteps=3, cond_mode='guide')
+    remat = {}
+    for on in (False, True):
+        model.test_cfg = dict(few, guide_remat=on)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 2 ** 30
+            t0 = time.perf_counter()
+            model.val_guide(cond, draws['noise'], generator=gen)
+            torch.cuda.synchronize()
+            remat[on] = dict(peak_gib=torch.cuda.max_memory_allocated()
+                             / 2 ** 30, base_gib=base,
+                             wall_s=time.perf_counter() - t0)
+        finally:
+            model.test_cfg = tcfg
+    log('phase 8 guide_remat off / on, 3 guided steps: peak memory '
+        f'{remat[False]["peak_gib"]:.2f} / {remat[True]["peak_gib"]:.2f} '
+        f'GiB (allocated before them {remat[False]["base_gib"]:.2f} GiB), '
+        f'wall {remat[False]["wall_s"]:.3f} / {remat[True]["wall_s"]:.3f} s')
+
+    # the guided DDIM under use_fp16: bf16 chain and UNet
+    model.test_cfg = dict(tcfg, cond_mode='guide')
+    model.autocast_dtype = 'bfloat16'
+    reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        code16, _, _ = model.val_guide(cond, draws['noise'], generator=gen)
+        torch.cuda.synchronize()
+        fp16_s = time.perf_counter() - t0
+    finally:
+        model.test_cfg, model.autocast_dtype = tcfg, None
+    fp16_launches = launch_counts()
+    log(f'phase 8 guided DDIM {tcfg["num_timesteps"]} steps x {S} scenes, '
+        f'wall s f32 / use_fp16: {walls["val_step.guide"]:.3f} / '
+        f'{fp16_s:.3f}; use_fp16 launches {fp16_launches}')
+    check(torch.isfinite(code16).all().item(), 'use_fp16 recons codes')
+    for name in RECONS_FP16:
+        check(fp16_launches[name] > 0, f'kernel {name} was not launched by '
+              'the use_fp16 guide')
+    return launches, fp16_launches, dict(
+        val_step_s=total_s, range_wall_s=walls, peak_gib=peak,
+        psnr_db=psnrs, occupancy=occ, use_fp16_guide_s=fp16_s,
+        profiled={k: dict(wall_ms=v[0], device_ms=v[1],
+                          device_ms_by_group=v[3])
+                  for k, v in profiles.items()},
+        remat={str(k): v for k, v in remat.items()})
+
+
+def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev):
+    """1 scene: 2 guided DDIM steps, then 1 ``val_optim`` step (4 inverse
+    steps) from the guide's codes and f16 grid, then a render of one test
+    view, on the card and on the CPU with the same weights and draws, in
+    the shipped bf16 decode and in f32.  The rays of a guide or inverse
+    step are cut from 2^14 to 4096 (ray batches of the view) for the CPU;
+    the prior's timestep is a mid one (phase 6: the SNR weight of the last
+    is 0).  Tolerances (PERF.md): f32: guide codes max abs 1e-3, the guide's
+    f32 grid max rel 5e-3 (phase 4), the final codes at most 1e-3 of the
+    entries off by more than 1e-3 and none by more than 2 x lr x 4 steps
+    (an Adam step is about +-lr whatever the gradient's size, so an entry
+    whose gradient is within the card's error of 0 steps the other way),
+    the image max 2e-2 / mean 1e-3 (phase 4); bf16: each limit or half the
+    CPU's bf16-vs-f32 gap of the same measure, where that is larger (phase
+    6); bits flipped at most 1e-3 in both."""
+    cond, test = recons_inputs({k: v.cpu() for k, v in data.items()}, S=1)
+    tcfg = dict(model_cpu.test_cfg, num_timesteps=2, n_inverse_steps=1,
+                n_inverse_rays=4096)
+    lr = tcfg['optimizer']['lr']
+    saved = model_cpu.test_cfg
+    model_cpu.test_cfg = tcfg
+    try:
+        draws = model_cpu.val_draws(
+            1, math.prod(cond['cond_imgs'].shape[1:4]),
+            torch.Generator().manual_seed(SEED + 10))
+    finally:
+        model_cpu.test_cfg = saved
+    draws['optim'][0]['t'] = torch.tensor(
+        [model_cpu.diffusion.num_timesteps // 2])
+    view = {k: v[:, :1] for k, v in test.items()}
+    outs = {}
+    for dtype in ('bfloat16', 'float32'):
+        for tag, model, d in (('card', model_dev, dev), ('cpu', model_cpu,
+                                                         'cpu')):
+            t0 = time.perf_counter()
+            saved = model.test_cfg
+            model.test_cfg = tcfg
+            model.eval_mode()
+            try:
+                with decode_dtype(model, dtype):
+                    c = to_device(cond, d)
+                    dr = to_device(draws, d)
+                    g_code, g_grid, g_bits = model.val_guide(
+                        c, dr['noise'], dr)
+                    code, _, bits = model.val_optim(
+                        c, dr, code_=model.code_activation.inverse(g_code),
+                        density_grid=g_grid.half(), density_bitfield=g_bits)
+                    img, _ = model.render(code, bits, *view[
+                        'cond_imgs'].shape[2:4], view['cond_intrinsics'].to(d),
+                        view['cond_poses'].to(d))
+            finally:
+                model.train_mode()
+                model.test_cfg = saved
+            outs[dtype, tag] = {k: v.cpu() for k, v in dict(
+                g_code=g_code, g_grid=g_grid, g_bits=g_bits, code=code,
+                bits=bits, img=img).items()}
+            log(f'phase 8 card vs cpu {tag} ({dtype}): '
+                f'{time.perf_counter() - t0:.2f} s')
+
+    def flipped(a, b):
+        return float((np.unpackbits(a.numpy())
+                      != np.unpackbits(b.numpy())).mean())
+
+    measures = {
+        'guide code max abs': (lambda a, b: (a['g_code'] - b['g_code']).abs(
+            ).max().item(), 1e-3),
+        'guide grid max rel': (lambda a, b: ((a['g_grid'] - b['g_grid']).abs()
+                                             / (b['g_grid'].abs() + 1e-3)
+                                             ).max().item(), 5e-3),
+        'guide bits flipped': (lambda a, b: flipped(a['g_bits'], b['g_bits']),
+                               1e-3),
+        'code share off > 1e-3': (lambda a, b: ((a['code'] - b['code']).abs()
+                                                > 1e-3).float().mean().item(),
+                                  1e-3),
+        'code max abs': (lambda a, b: (a['code'] - b['code']).abs().max(
+            ).item(), 2 * lr * (tcfg['extra_scene_step'] + 1)),
+        'bits flipped': (lambda a, b: flipped(a['bits'], b['bits']), 1e-3),
+        'image max abs': (lambda a, b: (a['img'] - b['img']).abs().max(
+            ).item(), 2e-2),
+        'image mean abs': (lambda a, b: (a['img'] - b['img']).abs().mean(
+            ).item(), 1e-3)}
+    result = {}
+    ok = True
+    for dtype in ('bfloat16', 'float32'):
+        card, cpu = outs[dtype, 'card'], outs[dtype, 'cpu']
+        for name, (fn, f32_tol) in measures.items():
+            err, tol, gap = fn(card, cpu), f32_tol, None
+            if dtype == 'bfloat16' and 'flipped' not in name:
+                gap = fn(cpu, outs['float32', 'cpu'])
+                tol = max(f32_tol, 0.5 * gap)
+            log(f'phase 8 card vs cpu ({dtype}) {name}: {err:.3e} (tol '
+                f'{tol:.3e}' + (f'; bf16-vs-f32 gap on the cpu {gap:.3e}'
+                                if gap is not None else '') + ')')
+            result[f'{dtype} {name}'] = dict(err=err, tol=tol, gap=gap)
+            ok = ok and err <= tol
+    check(ok, 'phase 8 card vs cpu')
+    return result
+
+
 def main():
     log(f'torch {torch.__version__} cuda {torch.version.cuda} python '
         f'{sys.version.split()[0]}')
@@ -1656,6 +1953,16 @@ def main():
     bf16_train_launches, bf16_train = phase_train(
         model_bf16_dev, cfg_bf16, data, code, dev, timed=3, phase=7,
         required=TRAIN + ('attention_bf16', 'attention_bwd_bf16'))
+    del model_bf16_dev, model_bf16_cpu
+    torch.cuda.empty_cache()
+
+    # reconstruction: the recons1v configuration, the same seeded weights
+    model_recons_cpu = make_model(SEED, CONFIG_RECONS)
+    model_recons_dev = copy.deepcopy(model_recons_cpu).to(dev)
+    recons_launches, recons_fp16_launches, recons = phase_recons(
+        model_recons_dev, data, dev)
+    recons['card_vs_cpu'] = phase_recons_card_vs_cpu(
+        model_recons_cpu, model_recons_dev, data, dev)
 
     # launches: the generation kernels' counts from the phase-3 slice, the
     # render variants' from the phase-3 variant renders, the probe's from
@@ -1675,8 +1982,13 @@ def main():
                 for n in WRAPPERS}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'device_ms', 'library_device_ms')
+    # the reconstruction's counts: the f32-UNet reconstruction's, the bf16
+    # attention's from the use_fp16 guide
+    recons['launches'] = {n: recons_fp16_launches[n] if n in RECONS_FP16
+                          else recons_launches[n] for n in WRAPPERS}
     report = [dict(name=name, route='cuda', source=KERNEL_META[name][0],
                    replaces=KERNEL_META[name][1], launches=launches[name],
+                   recons_launches=recons['launches'][name],
                    **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
@@ -1685,7 +1997,8 @@ def main():
                     'probe': probe, 'library_kernels': lib_kernels,
                     'bf16': dict(generation=bf16_gen, card_vs_cpu=bf16_vs_cpu,
                                  train=bf16_train,
-                                 unet_forward_device_ms=precision_ms)}))
+                                 unet_forward_device_ms=precision_ms),
+                    'recons': recons}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -103,13 +103,14 @@ class TimeEmbedding(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """GN-SiLU-conv, scale-shift GN from the embedding, GN-SiLU-conv,
-    residual with a 1x1 shortcut when the width changes."""
+    """GN-SiLU-conv, scale-shift GN from the embedding, GN-SiLU-(dropout)-
+    conv, residual with a 1x1 shortcut when the width changes."""
 
     def __init__(self, in_channels, out_channels, emb_channels, norm_groups,
-                 use_scale_shift_norm=True):
+                 use_scale_shift_norm=True, dropout=0.0):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
+        self.dropout = dropout
         self.norm_1 = _gn(norm_groups, in_channels)
         self.conv_1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.embedding_dense = nn.Linear(
@@ -119,7 +120,11 @@ class ResBlock(nn.Module):
         self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                          if in_channels != out_channels else None)
 
-    def forward(self, x, emb, dtype=torch.float32):
+    def forward(self, x, emb, dtype=torch.float32, keep=None):
+        """``keep``: the dropout mask (a bool tensor like the block's
+        output, True where a value is kept), or None (deterministic).  A
+        kept value is scaled by 1 / (1 - dropout), as Flax's ``Dropout``
+        scales it."""
         h = _conv(self.conv_1, _silu(_norm(self.norm_1, x, dtype)), dtype)
         emb_out = _dense(self.embedding_dense, F.silu(emb))[:, :, None, None]
         emb_out = emb_out.to(dtype)
@@ -128,7 +133,11 @@ class ResBlock(nn.Module):
             h = _norm(self.norm_2, h, dtype) * (1 + scale) + shift
         else:
             h = _norm(self.norm_2, h + emb_out, dtype)
-        h = _conv(self.conv_2, _silu(h), dtype)
+        h = _silu(h)
+        if keep is not None:
+            h = torch.where(keep, h / (1.0 - self.dropout),
+                            torch.zeros_like(h))
+        h = _conv(self.conv_2, h, dtype)
         if self.shortcut is not None:
             x = _conv(self.shortcut, x, dtype)
         return (x + h).to(dtype)
@@ -214,9 +223,6 @@ class DenoisingUnet(nn.Module):
         if groups != 1 or not downsample_conv or not upsample_conv:
             raise ValueError('DenoisingUnet: only groups=1 with conv '
                              'down/up-sampling is ported')
-        if dropout > 0:
-            raise NotImplementedError('DenoisingUnet: dropout > 0 is not '
-                                      'ported')
         if isinstance(image_size, int):
             image_size = (image_size, image_size)
         self.dtype = getattr(torch, dtype)
@@ -225,6 +231,9 @@ class DenoisingUnet(nn.Module):
         self.use_rescale_timesteps = use_rescale_timesteps
         self.channels_cfg = tuple(channels_cfg)
         self.rpd = resblocks_per_downsample
+        self.dropout = dropout
+        # each ResBlock's downsampling factor, for its dropout mask's shape
+        self.res_scales = {}
         self.attention_scale = [min(image_size) // int(r)
                                 for r in attention_res]
         emb_ch = base_channels * 4 if embedding_channels == -1 \
@@ -232,7 +241,8 @@ class DenoisingUnet(nn.Module):
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock(cin, cout, emb_ch, norm_groups,
-                                           use_scale_shift_norm))
+                                           use_scale_shift_norm, dropout))
+            self.res_scales[name] = scale
 
         def attn(name, ch):
             self.add_module(name, SelfAttention(ch, num_heads, norm_groups))
@@ -287,13 +297,31 @@ class DenoisingUnet(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
-    def forward(self, x_t, t):
-        """x_t: (B, C_in, H, W); t: (B,) timesteps -> (B, C_in, H, W) f32,
-        computed in ``self.dtype`` under :func:`precision`."""
-        with precision():
-            return self._forward(x_t, t, self.dtype)
+    def dropout_masks(self, batch, height, width, generator=None,
+                      device='cpu'):
+        """The keep masks of one non-deterministic forward at (batch,
+        height, width): {ResBlock name: bool (batch, C, h, w)}, each value
+        kept with probability 1 - ``dropout``, drawn from ``generator`` in
+        the blocks' order; None when ``dropout`` is 0."""
+        if not self.dropout:
+            return None
+        masks = {}
+        for name, scale in self.res_scales.items():
+            shape = (batch, self._modules[name].conv_2.out_channels,
+                     height // scale, width // scale)
+            masks[name] = torch.rand(shape, generator=generator,
+                                     device=device) >= self.dropout
+        return masks
 
-    def _forward(self, x_t, t, dtype):
+    def forward(self, x_t, t, dropout=None):
+        """x_t: (B, C_in, H, W); t: (B,) timesteps -> (B, C_in, H, W) f32,
+        computed in ``self.dtype`` under :func:`precision`.  ``dropout``:
+        the ResBlocks' keep masks (:meth:`dropout_masks`), or None for the
+        deterministic forward (Flax's ``deterministic=True``)."""
+        with precision():
+            return self._forward(x_t, t, self.dtype, dropout or {})
+
+    def _forward(self, x_t, t, dtype, keep):
         if self.use_rescale_timesteps:
             t = t.float() * (1000.0 / self.num_timesteps)
         emb = self.time_embedding(t)
@@ -303,7 +331,8 @@ class DenoisingUnet(nn.Module):
         i = 0
         for level in range(len(self.channels_cfg)):
             for _ in range(self.rpd):
-                h = mods[f'in_res_{i}'](h, emb, dtype)
+                h = mods[f'in_res_{i}'](h, emb, dtype,
+                                        keep.get(f'in_res_{i}'))
                 if f'in_attn_{i}' in mods:
                     h = mods[f'in_attn_{i}'](h, dtype)
                 hs.append(h)
@@ -311,13 +340,14 @@ class DenoisingUnet(nn.Module):
             if f'down_{level}' in mods:
                 h = mods[f'down_{level}'](h, dtype)
                 hs.append(h)
-        h = self.mid_res_0(h, emb, dtype)
-        h = self.mid_res_1(self.mid_attn(h, dtype), emb, dtype)
+        h = self.mid_res_0(h, emb, dtype, keep.get('mid_res_0'))
+        h = self.mid_res_1(self.mid_attn(h, dtype), emb, dtype,
+                           keep.get('mid_res_1'))
         i = 0
         for level in range(len(self.channels_cfg)):
             for _ in range(self.rpd + 1):
                 h = mods[f'out_res_{i}'](torch.cat([h, hs.pop()], dim=1), emb,
-                                         dtype)
+                                         dtype, keep.get(f'out_res_{i}'))
                 if f'out_attn_{i}' in mods:
                     h = mods[f'out_attn_{i}'](h, dtype)
                 i += 1

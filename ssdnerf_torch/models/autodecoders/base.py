@@ -44,17 +44,43 @@ def code_adam_cfg(optimizer_cfg):
 def adam_step(code_, grad, state, lr, betas=(0.9, 0.999), eps=1e-8):
     """One Adam step over stacked per-scene codes, torch.optim.Adam's
     formula and eps placement (``p -= lr / bc1 * m / (sqrt(v) / sqrt(bc2)
-    + eps)``), with a step count per scene.  Returns (code_, state)."""
+    + eps)``), with a step count per scene.  ``lr`` is a number or a (S,)
+    tensor of per-scene rates (:func:`scene_lr`).  Returns (code_,
+    state)."""
     b1, b2 = betas
     step = state.step + 1
     m = b1 * state.m + (1 - b1) * grad
     v = b2 * state.v + (1 - b2) * grad * grad
     shape = (-1,) + (1,) * (code_.dim() - 1)
+    if torch.is_tensor(lr):
+        lr = lr.reshape(shape)
     stepf = step.float().reshape(shape)
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
     denom = torch.sqrt(v) / torch.sqrt(bc2) + eps
     return code_ - (lr / bc1) * m / denom, SceneOptState(m=m, v=v, step=step)
+
+
+def lr_gamma(lr_scheduler_cfg):
+    """The decay factor of a code learning-rate schedule: ``gamma`` of an
+    ``ExponentialLR`` config, None without one; any other schedule raises,
+    as the JAX package asserts."""
+    if not lr_scheduler_cfg:
+        return None
+    if lr_scheduler_cfg.get('type') != 'ExponentialLR':
+        raise NotImplementedError(
+            f'code lr scheduler {lr_scheduler_cfg.get("type")} is not '
+            'ported')
+    return lr_scheduler_cfg['gamma']
+
+
+def scene_lr(lr0, gamma, state):
+    """Per-scene ExponentialLR: ``lr0 * gamma ** step`` with each scene's
+    Adam step count before this step's increment (JAX ``base.py:257-258``);
+    ``lr0`` itself when ``gamma`` is None."""
+    if gamma is None:
+        return lr0
+    return lr0 * gamma ** state.step.float()
 
 
 # ---------------------------------------------------------- ray sampling
@@ -156,19 +182,23 @@ def inverse_code(decoder, code_activation, cond_rays_o, cond_rays_d,
                  cond_imgs, code_, opt_state, density_grid, density_bitfield,
                  draws, *, grid_size, pixel_loss, reg_loss=None,
                  bg_color=1.0, dt_gamma=0.0, n_inverse_steps, n_inverse_rays,
-                 loss_coef=None, optimizer_cfg=None, prior_grad=None,
-                 density_thresh=0.01, update_extra_interval=16):
+                 loss_coef=None, optimizer_cfg=None, lr_scheduler_cfg=None,
+                 prior_grad=None, density_thresh=0.01,
+                 update_extra_interval=16):
     """Optimise the raw codes by inverse volume rendering for
     ``n_inverse_steps`` Adam steps: every ``update_extra_interval`` steps
     (step 0 included) the density grid is refreshed from the current codes;
     each step renders a ray batch, and ``prior_grad`` (S, *code_size), the
     diffusion prior's gradient, is added to every step's gradient.
-    ``draws`` are :func:`inverse_draws`'.  The decoder gets no update.
+    ``draws`` are :func:`inverse_draws`'.  ``lr_scheduler_cfg`` (an
+    ``ExponentialLR``) decays each scene's rate by its Adam step count
+    (:func:`scene_lr`).  The decoder gets no update.
 
     Returns (code_, opt_state, density_grid, density_bitfield, aux) with
     the last step's losses in aux.
     """
     lr, betas = code_adam_cfg(optimizer_cfg)
+    gamma = lr_gamma(lr_scheduler_cfg)
     num_pixels = math.prod(cond_imgs.shape[1:4])
     aux = {}
     for i in range(n_inverse_steps):
@@ -192,7 +222,7 @@ def inverse_code(decoder, code_activation, cond_rays_o, cond_rays_d,
         grad, = torch.autograd.grad(loss, leaf)
         if prior_grad is not None:
             grad = grad + prior_grad
-        code_, opt_state = adam_step(code_.detach(), grad, opt_state, lr,
-                                     betas)
+        code_, opt_state = adam_step(code_.detach(), grad, opt_state,
+                                     scene_lr(lr, gamma, opt_state), betas)
         aux = dict(loss=loss.detach(), **loss_dict)
     return code_, opt_state, density_grid, density_bitfield, aux

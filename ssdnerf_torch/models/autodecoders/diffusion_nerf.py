@@ -1,12 +1,17 @@
-"""Single-stage diffusion NeRF: the training step and unconditional
-generation (port of ``DiffusionNeRF.train_step`` and ``val_uncond`` of
+"""Single-stage diffusion NeRF: the training step, unconditional
+generation and reconstruction (port of ``DiffusionNeRF.train_step``,
+``val_uncond``, ``val_guide``, ``val_optim`` and ``val_step`` of
 ``ssdnerf_tpu/models/autodecoders/diffusion_nerf.py``).
 
 The live ``diffusion`` and ``decoder`` are trained; ``diffusion_ema`` and
-``decoder_ema`` are what generation and rendering read.  The EMA update
-itself belongs to the runner, which is not ported.  With
+``decoder_ema`` are what generation, reconstruction and rendering read.
+The EMA update itself belongs to the runner, which is not ported.  With
 ``autocast_dtype`` ('float16' or 'bfloat16', both bf16 as in the JAX
 package) sampling runs a bf16 copy of the EMA diffusion on a bf16 chain.
+The test-time diffusion losses (``val_optim``, the polish of
+``val_uncond``) run the EMA UNet in its own dtype with the live module's
+scale-norm factor, as JAX runs its EMA parameters with its one loss
+state.
 """
 import copy
 import math
@@ -18,8 +23,9 @@ from ..decoders.renderer import (density_jitter, get_density,
                                  update_density_grid)
 from ..architecture.unet import precision
 from ..diffusions.gaussian_diffusion import GaussianDiffusion
-from .base import (adam_step, code_adam_cfg, inverse_code, inverse_draws,
-                   random_subsets, ray_sample, rendering_loss)
+from .base import (adam_init, adam_step, code_adam_cfg, inverse_code,
+                   inverse_draws, lr_gamma, make_raybatch_indices,
+                   random_subsets, ray_sample, rendering_loss, scene_lr)
 from .multiscene import MultiSceneNeRF, psnr
 
 
@@ -46,6 +52,9 @@ class DiffusionNeRF(MultiSceneNeRF):
         for key in ('density_partial_update', 'log_grad_stats'):
             if self.train_cfg.get(key):
                 raise NotImplementedError(f'train_cfg.{key} is not ported')
+        if self.test_cfg.get('density_partial_update'):
+            raise NotImplementedError('test_cfg.density_partial_update is '
+                                      'not ported')
 
     @property
     def ema_diffusion(self):
@@ -93,7 +102,8 @@ class DiffusionNeRF(MultiSceneNeRF):
         ``t`` and ``noise``; the inner loop's ``inverse`` draws
         (:func:`inverse_draws`); the final density sweep's ``jitter``; the
         decoder step's ``ray_inds`` (None when a scene has no more pixels
-        than the batch) and start-t ``perturb``."""
+        than the batch) and start-t ``perturb``; the UNet's ``dropout``
+        keep masks (None without dropout)."""
         tc = self.train_cfg
         S = num_scenes
         n_dec = tc.get('n_decoder_rays', 4096)
@@ -111,7 +121,9 @@ class DiffusionNeRF(MultiSceneNeRF):
             ray_inds=random_subsets(S, num_pixels, n_dec, generator, device)
             if num_pixels > n_dec else None,
             perturb=torch.rand((S, min(n_dec, num_pixels)),
-                               generator=generator, device=device))
+                               generator=generator, device=device),
+            dropout=self.diffusion.denoising.dropout_masks(
+                S, *shape[-2:], generator=generator, device=device))
 
     @staticmethod
     def _apply_grads(params, grads, optimizer, scheduler):
@@ -138,6 +150,7 @@ class DiffusionNeRF(MultiSceneNeRF):
         named ``train_step.diffusion``, ``train_step.inverse`` and
         ``train_step.decoder``.  The scale-norm factor is updated unless
         ``freeze_norm``; the UNet's backward runs under its precision pin.
+        The UNet drops (``dropout`` > 0) with the draws' keep masks.
 
         Args:
             scene_batch: dict(code_, opt, density_grid, density_bitfield),
@@ -168,7 +181,8 @@ class DiffusionNeRF(MultiSceneNeRF):
             leaf = code_.detach().requires_grad_()
             loss_diff, log_vars = self.diffusion.forward_train(
                 self.code_diff_pr(self.code_activation(leaf)), t=draws['t'],
-                noise=draws['noise'], update_norm=not self.freeze_norm)
+                noise=draws['noise'], update_norm=not self.freeze_norm,
+                dropout=draws.get('dropout'))
             unet_params = list(self.diffusion.parameters())
             with precision():
                 *g_diff, prior_grad = torch.autograd.grad(
@@ -249,7 +263,7 @@ class DiffusionNeRF(MultiSceneNeRF):
         x = self.code_diff_pr(noise)
         if self.autocast:
             x = x.to(torch.bfloat16)
-        code_diff = self.sampling_diffusion.sample_from_noise(
+        code_diff, _ = self.sampling_diffusion.sample_from_noise(
             x, self.test_cfg, draws, generator)
         return self.code_diff_pr_inv(code_diff.float())
 
@@ -267,14 +281,334 @@ class DiffusionNeRF(MultiSceneNeRF):
         return get_density(self.ema_decoder, code, self.grid_size, jitter,
                            density_thresh=tcfg.get('density_thresh', 0.01))
 
-    def val_uncond(self, noise, generator=None, jitter=None, draws=None):
-        """Unconditional generation: sampling then the density rebuild,
-        their draws from ``generator`` unless ``draws`` / ``jitter`` replay
-        them.  Returns (code, density_grid, density_bitfield)."""
-        if self.test_cfg.get('n_inverse_steps', 0) > 0:
-            raise NotImplementedError('diffusion-prior code polish '
-                                      '(n_inverse_steps > 0) is not ported')
+    def val_uncond(self, noise, generator=None, jitter=None, draws=None,
+                   polish=None):
+        """Unconditional generation (JAX ``diffusion_nerf.py:308-360``):
+        sampling, then with ``test_cfg['n_inverse_steps'] > 0`` a polish of
+        the codes (:meth:`polish_codes`), then the density rebuild.  The
+        draws come from ``generator`` unless ``draws`` (the chain's
+        noises), ``polish`` (one :meth:`diffusion_draws` a polish step) and
+        ``jitter`` replay them.  Returns (code, density_grid,
+        density_bitfield)."""
         code = self.sample_codes(noise, draws, generator)
+        n_polish = self.test_cfg.get('n_inverse_steps', 0)
+        if n_polish > 0:
+            if polish is None:
+                polish = [self.diffusion_draws(code.shape[0], generator,
+                                               code.device)
+                          for _ in range(n_polish)]
+            code = self.polish_codes(code, polish)
         grid, bitfield = self.rebuild_density(code, generator, jitter)
         return code, grid, bitfield
 
+    # ----------------------------------------------------- reconstruction
+    def diffusion_draws(self, num_scenes, generator=None, device='cpu'):
+        """The draws of one diffusion-loss evaluation: timesteps ``t`` (S,)
+        and ``noise`` (S, *code_reshape)."""
+        shape = (num_scenes,) + (self.code_reshape or self.code_size)
+        return dict(
+            t=self.diffusion.timestep_sampler.sample(num_scenes, generator,
+                                                     device),
+            noise=torch.randn(shape, generator=generator, device=device))
+
+    def _optim_step_draws(self, S, num_pixels, generator, device):
+        """One outer step of :meth:`val_optim`: the diffusion draws, then
+        ``inverse`` (:func:`inverse_draws` of ``extra_scene_step + 1``
+        steps) or, without extra scene steps, the decoder-rays step's
+        density ``jitter`` (H^3, 3), ``ray_inds`` (S, n) or None and
+        ``perturb`` (S, n)."""
+        tcfg = self.test_cfg
+        d = self.diffusion_draws(S, generator, device)
+        ess = tcfg.get('extra_scene_step', 0)
+        if ess > 0:
+            d['inverse'] = inverse_draws(
+                S, num_pixels, tcfg.get('n_inverse_rays', 4096), ess + 1,
+                self.update_extra_interval, self.grid_size,
+                self.decoder.bound, generator, device)
+            return d
+        n_dec = tcfg.get('n_decoder_rays', 4096)
+        d.update(
+            jitter=density_jitter(self.grid_size, self.decoder.bound, 1,
+                                  generator, device)[0],
+            ray_inds=random_subsets(S, num_pixels, n_dec, generator, device)
+            if num_pixels > n_dec else None,
+            perturb=torch.rand((S, min(n_dec, num_pixels)),
+                               generator=generator, device=device))
+        return d
+
+    def val_draws(self, num_scenes, num_pixels=None, generator=None,
+                  device='cpu', cond_mode=None):
+        """Every random draw of one :meth:`val_step` in ``cond_mode``
+        (default ``test_cfg``'s; unconditional when ``num_pixels``, the
+        pixels of a scene's conditioning views, is None), from
+        ``generator`` in this order:
+
+        - ``noise`` (S, *code_size): the chain's start;
+        - ``sample``: the chain's noises, (steps, calls a step, S,
+          *code_reshape) (``GaussianDiffusion.chain_draws``), or None when
+          the chain draws none;
+        - unconditional: ``polish``, one :meth:`diffusion_draws` a polish
+          step (None without one), and ``jitter`` (density_step, H^3, 3);
+        - 'guide' and 'guide_optim': ``guide``, the draws of every guide
+          call: ``ray_inds`` (calls, S, n_inverse_rays) or None when a
+          scene has no more pixels than that, the density sweep's
+          ``jitter`` (calls, H^3, 3) and the render's ``perturb`` (calls,
+          S, n);
+        - 'optim': ``init`` (S, *code_size), the starting raw codes;
+        - 'optim' and 'guide_optim': ``optim``, one dict a
+          ``n_inverse_steps`` outer step (:meth:`_optim_step_draws`).
+        """
+        tcfg = self.test_cfg
+        S = num_scenes
+        gen = dict(generator=generator, device=device)
+        mode = 'uncond' if num_pixels is None else (
+            cond_mode or tcfg.get('cond_mode', 'guide'))
+        if mode not in ('uncond', 'guide', 'optim', 'guide_optim'):
+            raise ValueError(f'unknown cond_mode {mode}')
+        draws = dict(noise=torch.randn((S,) + self.code_size, **gen))
+        if mode != 'optim':
+            steps = self.ema_diffusion.chain_draws(tcfg)
+            draws['sample'] = None if steps is None else torch.randn(
+                steps + (S,) + (self.code_reshape or self.code_size), **gen)
+        if mode == 'uncond':
+            draws['polish'] = [self.diffusion_draws(S, **gen) for _ in range(
+                tcfg.get('n_inverse_steps', 0))] or None
+            draws['jitter'] = density_jitter(
+                self.grid_size, self.decoder.bound,
+                tcfg.get('density_step', 8), **gen)
+        if mode in ('guide', 'guide_optim'):
+            calls = self.ema_diffusion.guide_calls(tcfg)
+            n_rays = tcfg.get('n_inverse_rays', 4096)
+            draws['guide'] = dict(
+                ray_inds=make_raybatch_indices(S, num_pixels, n_rays, calls,
+                                               **gen),
+                jitter=density_jitter(self.grid_size, self.decoder.bound,
+                                      calls, **gen),
+                perturb=torch.rand((calls, S, min(n_rays, num_pixels)),
+                                   **gen))
+        if mode == 'optim':
+            draws['init'] = self.get_init_code(S, **gen)
+        if mode in ('optim', 'guide_optim'):
+            draws['optim'] = [
+                self._optim_step_draws(S, num_pixels, generator, device)
+                for _ in range(tcfg.get('n_inverse_steps', 100))]
+        return draws
+
+    def prior_grad(self, code_, draws):
+        """The gradient w.r.t. the raw codes ``code_`` of the EMA UNet's
+        diffusion loss with the live scale-norm factor, left as it is
+        (JAX ``diffusion.forward_train(diff_params, ..., state['ddpm_loss'],
+        update_norm=False)``); ``draws`` are :meth:`diffusion_draws`'.
+        Only the codes' gradient is formed; the UNet's backward runs under
+        its precision pin."""
+        leaf = code_.detach().requires_grad_()
+        with torch.enable_grad():
+            loss, _ = self.ema_diffusion.forward_train(
+                self.code_diff_pr(self.code_activation(leaf)), t=draws['t'],
+                noise=draws['noise'], update_norm=False,
+                norm_factor=self.diffusion.norm_factor)
+            with precision():
+                grad, = torch.autograd.grad(loss, leaf)
+        return grad
+
+    def _code_adam(self):
+        tcfg = self.test_cfg
+        lr0, betas = code_adam_cfg(tcfg.get('optimizer'))
+        return lr0, betas, lr_gamma(tcfg.get('lr_scheduler'))
+
+    def polish_codes(self, code, polish):
+        """Adam steps on the raw codes against the diffusion prior alone,
+        one a :meth:`diffusion_draws` of ``polish`` (``test_cfg``'s
+        optimizer and ExponentialLR; JAX ``diffusion_nerf.py:324-353``), in
+        the ``val_step.polish`` range.  Returns the activated codes."""
+        with record_function('val_step.polish'):
+            lr0, betas, gamma = self._code_adam()
+            code_ = self.code_activation.inverse(code)
+            opt = adam_init(code_)
+            for d in polish:
+                code_, opt = adam_step(code_, self.prior_grad(code_, d), opt,
+                                       scene_lr(lr0, gamma, opt), betas)
+            return self.code_activation(code_)
+
+    def val_guide(self, data, noise, draws=None, generator=None):
+        """Reconstruction-guided sampling (JAX ``diffusion_nerf.py:
+        362-428``) in the ``val_step.guide`` range: each prediction of the
+        chain is steered by the gradient of the EMA decoder's rendering
+        loss (times S) of the predicted codes against the conditioning
+        views.  A guide call first sweeps the density grid (decay 0.9,
+        from an f32 grid of zeros) from the predicted codes, then renders a
+        batch of ``n_inverse_rays`` rays (all of a scene's when it has no
+        more pixels).  ``draws`` are :meth:`val_draws`' (``sample`` and
+        ``guide``), drawn from ``generator`` when None.
+
+        Args:
+            data: dict(cond_imgs (S, V, h, w, 3), cond_poses (S, V, 4, 4),
+                cond_intrinsics (S, V, 4)) on the model's device.
+            noise: (S, *code_size) the chain's start.
+
+        Returns (code, density_grid (S, H^3) f32, density_bitfield).
+        """
+        tcfg = self.test_cfg
+        cond_imgs = data['cond_imgs']
+        S = cond_imgs.shape[0]
+        num_pixels = math.prod(cond_imgs.shape[1:4])
+        if draws is None:
+            draws = self.val_draws(S, num_pixels, generator,
+                                   cond_imgs.device, 'guide')
+        rays_o, rays_d, dt_gamma = self.cond_rays(data, tcfg)
+        n_rays = tcfg.get('n_inverse_rays', 4096)
+        density_thresh = tcfg.get('density_thresh', 0.01)
+        decoder = self.ema_decoder
+        gd = draws['guide']
+
+        def grad_guide_fn(x_0, state):
+            i = state['step']
+            code = self.code_diff_pr_inv(x_0.float())
+            grid, bitfield, _ = update_density_grid(
+                decoder, decoder.planes(code.detach()),
+                state['density_grid'], gd['jitter'][i], self.grid_size,
+                density_thresh=density_thresh)
+            inds = gd['ray_inds']
+            b_o, b_d, target = ray_sample(
+                rays_o, rays_d, cond_imgs, n_rays,
+                sample_inds=None if inds is None else inds[i % len(inds)])
+            loss, _, _ = rendering_loss(
+                decoder, code, bitfield, target, b_o, b_d, self.grid_size,
+                self.pixel_loss, self.reg_loss, self.bg_color, dt_gamma,
+                perturb=gd['perturb'][i], scale_num_ray=target.shape[1],
+                loss_coef=tcfg.get('loss_coef'))
+            return loss * S, dict(density_grid=grid,
+                                  density_bitfield=bitfield, step=i + 1)
+
+        H3 = self.grid_size ** 3
+        state = dict(
+            density_grid=torch.zeros((S, H3), device=cond_imgs.device),
+            density_bitfield=torch.zeros((S, H3 // 8), dtype=torch.uint8,
+                                         device=cond_imgs.device),
+            step=0)
+        x = self.code_diff_pr(noise)
+        if self.autocast:
+            x = x.to(torch.bfloat16)
+        with record_function('val_step.guide'):
+            code_diff, state = self.sampling_diffusion.sample_from_noise(
+                x, tcfg, draws['sample'], generator, grad_guide_fn, state)
+        return (self.code_diff_pr_inv(code_diff.float()),
+                state['density_grid'], state['density_bitfield'])
+
+    def val_optim(self, data, draws=None, generator=None, code_=None,
+                  density_grid=None, density_bitfield=None):
+        """Optimisation-based reconstruction (JAX ``diffusion_nerf.py:
+        430-543``) in the ``val_step.optim`` range: ``n_inverse_steps``
+        outer steps, each the prior gradient of the EMA UNet's diffusion
+        loss (:meth:`prior_grad`) and then either ``extra_scene_step + 1``
+        inverse-rendering steps with it added (:func:`inverse_code`, the
+        EMA decoder) or, without extra scene steps, a density sweep and one
+        Adam step on a batch of ``n_decoder_rays`` rays.  One code Adam of
+        ``test_cfg``'s optimizer and per-scene ExponentialLR runs through
+        all of them.  ``draws`` are :meth:`val_draws`' (``optim``, and
+        ``init`` when ``code_`` is None), drawn from ``generator`` when
+        None.  ``code_`` / ``density_grid`` / ``density_bitfield`` start
+        the codes (raw) and the f16 grids; else the codes start from
+        ``init`` and the grids empty.
+
+        Returns (code, density_grid, density_bitfield).
+        """
+        tcfg = self.test_cfg
+        if tcfg.get('x_t_detach', False):
+            raise NotImplementedError('x_t_detach is not ported')
+        cond_imgs = data['cond_imgs']
+        S = cond_imgs.shape[0]
+        dev = cond_imgs.device
+        num_pixels = math.prod(cond_imgs.shape[1:4])
+        if draws is None:
+            draws = self.val_draws(S, num_pixels, generator, dev,
+                                   'optim' if code_ is None
+                                   else 'guide_optim')
+        rays_o, rays_d, dt_gamma = self.cond_rays(data, tcfg)
+        ess = tcfg.get('extra_scene_step', 0)
+        lr0, betas, gamma = self._code_adam()
+        density_thresh = tcfg.get('density_thresh', 0.01)
+        loss_coef = tcfg.get('loss_coef')
+        decoder = self.ema_decoder
+        H3 = self.grid_size ** 3
+        if code_ is None:
+            code_ = draws['init']
+        grid = torch.zeros((S, H3), dtype=torch.float16, device=dev) \
+            if density_grid is None else density_grid
+        bitfield = torch.zeros((S, H3 // 8), dtype=torch.uint8, device=dev) \
+            if density_bitfield is None else density_bitfield
+        opt = adam_init(code_)
+        with record_function('val_step.optim'), torch.enable_grad():
+            for d in draws['optim']:
+                prior_grad = self.prior_grad(code_, d)
+                if ess > 0:
+                    code_, opt, grid, bitfield, _ = inverse_code(
+                        decoder, self.code_activation, rays_o, rays_d,
+                        cond_imgs, code_, opt, grid, bitfield, d['inverse'],
+                        grid_size=self.grid_size, pixel_loss=self.pixel_loss,
+                        reg_loss=self.reg_loss, bg_color=self.bg_color,
+                        dt_gamma=dt_gamma, n_inverse_steps=ess + 1,
+                        n_inverse_rays=tcfg.get('n_inverse_rays', 4096),
+                        loss_coef=loss_coef,
+                        optimizer_cfg=tcfg.get('optimizer'),
+                        lr_scheduler_cfg=tcfg.get('lr_scheduler'),
+                        prior_grad=prior_grad, density_thresh=density_thresh,
+                        update_extra_interval=self.update_extra_interval)
+                    continue
+                grid, bitfield, _ = update_density_grid(
+                    decoder, decoder.planes(self.code_activation(code_)),
+                    grid, d['jitter'], self.grid_size,
+                    density_thresh=density_thresh)
+                b_o, b_d, target = ray_sample(
+                    rays_o, rays_d, cond_imgs,
+                    tcfg.get('n_decoder_rays', 4096),
+                    sample_inds=d['ray_inds'])
+                leaf = code_.detach().requires_grad_()
+                loss, _, _ = rendering_loss(
+                    decoder, self.code_activation(leaf), bitfield, target,
+                    b_o, b_d, self.grid_size, self.pixel_loss, self.reg_loss,
+                    self.bg_color, dt_gamma, perturb=d['perturb'],
+                    scale_num_ray=num_pixels, loss_coef=loss_coef)
+                grad, = torch.autograd.grad(loss, leaf)
+                code_, opt = adam_step(code_.detach(), grad + prior_grad,
+                                       opt, scene_lr(lr0, gamma, opt), betas)
+        return self.code_activation(code_), grid, bitfield
+
+    def val_step(self, data, draws=None, generator=None):
+        """Dispatch on ``test_cfg['cond_mode']`` (JAX
+        ``diffusion_nerf.py:545-570``): with conditioning views
+        (``data['cond_imgs']``) 'guide' (:meth:`val_guide`), 'optim'
+        (:meth:`val_optim`) or 'guide_optim' (the guide, then
+        :meth:`val_optim` from its codes and f16 density grids, with the
+        same draws); without, :meth:`val_uncond` of ``len(data[
+        'scene_id'])`` scenes.  The chain starts from ``data['noise']``
+        when given.  ``draws`` are :meth:`val_draws`', drawn from
+        ``generator`` when None.  Returns (code, density_grid,
+        density_bitfield)."""
+        cond = 'cond_imgs' in data
+        if cond:
+            S = data['cond_imgs'].shape[0]
+            num_pixels = math.prod(data['cond_imgs'].shape[1:4])
+            dev = data['cond_imgs'].device
+        else:
+            S, num_pixels = len(data['scene_id']), None
+            dev = next(self.parameters()).device
+        if draws is None:
+            draws = self.val_draws(S, num_pixels, generator, dev)
+        noise = data.get('noise')
+        if noise is None:
+            noise = draws['noise']
+        if not cond:
+            return self.val_uncond(noise, generator, draws['jitter'],
+                                   draws['sample'], draws['polish'])
+        mode = self.test_cfg.get('cond_mode', 'guide')
+        if mode == 'guide':
+            return self.val_guide(data, noise, draws)
+        if mode == 'optim':
+            return self.val_optim(data, draws)
+        if mode == 'guide_optim':
+            code, grid, bitfield = self.val_guide(data, noise, draws)
+            return self.val_optim(
+                data, draws, code_=self.code_activation.inverse(code),
+                density_grid=grid.half(), density_bitfield=bitfield)
+        raise ValueError(f'unknown cond_mode {mode}')

@@ -2,6 +2,7 @@
 scene bank and image rendering (port of
 ``ssdnerf_tpu/models/autodecoders/multiscene.py``)."""
 import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -120,14 +121,95 @@ class MultiSceneNeRF(nn.Module):
         self.cache_size = cfg.get('cache_size', 0)
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
-        for key in ('max_render_rays', 'override_cfg'):
-            if self.test_cfg.get(key):
-                raise NotImplementedError(f'test_cfg.{key} is not ported')
+        if self.test_cfg.get('max_render_rays'):
+            raise NotImplementedError('test_cfg.max_render_rays is not '
+                                      'ported')
+        self._override_backup = {}
 
     @property
     def ema_decoder(self):
         """The decoder evaluation uses (``_ema_decoder`` in JAX)."""
         return self.decoder if self.decoder_ema is None else self.decoder_ema
+
+    # mutable-config surface (ModelUpdaterHook, test_cfg.override_cfg)
+    def set_dotted(self, key, value):
+        """Set a dotted config path (JAX ``multiscene.py:364-395``, the
+        paths the configs use): ``train_cfg.*`` / ``test_cfg.*`` entries,
+        a field of ``pixel_loss`` / ``reg_loss``, a decoder field (on the
+        live and the EMA decoder, which JAX's one module definition
+        serves), and ``diffusion.ddpm_loss.<field>`` or
+        ``diffusion_ema.ddpm_loss.<field>``: ``freeze_norm`` is the
+        model's attribute, any other field is set on the loss of both
+        diffusion modules (JAX has one loss for the live and EMA
+        parameters).  Another path raises KeyError."""
+        parts = key.split('.')
+        root = parts[0]
+        if root in ('train_cfg', 'test_cfg'):
+            d = getattr(self, root)
+            for p in parts[1:-1]:
+                d = d.setdefault(p, {})
+            d[parts[-1]] = value
+        elif root in ('pixel_loss', 'reg_loss') and len(parts) == 2:
+            setattr(self, root, dataclasses.replace(getattr(self, root),
+                                                    **{parts[1]: value}))
+        elif root == 'decoder' and len(parts) == 2:
+            for dec in (self.decoder, self.decoder_ema):
+                if dec is not None:
+                    setattr(dec, parts[1], value)
+        elif self._loss_path(parts):
+            if parts[2] == 'freeze_norm':
+                self.freeze_norm = value
+            else:
+                for diff in self._diffusions():
+                    diff.ddpm_loss = dataclasses.replace(
+                        diff.ddpm_loss, **{parts[2]: value})
+        else:
+            raise KeyError(f'Unsupported config path: {key}')
+
+    def get_dotted(self, key, default=None):
+        """The value at a dotted config path of :meth:`set_dotted`, or
+        ``default`` (a decoder field reads ``default``, as in JAX)."""
+        parts = key.split('.')
+        root = parts[0]
+        if root in ('train_cfg', 'test_cfg'):
+            d = getattr(self, root)
+            for p in parts[1:]:
+                if not isinstance(d, dict) or p not in d:
+                    return default
+                d = d[p]
+            return d
+        if root in ('pixel_loss', 'reg_loss'):
+            return getattr(getattr(self, root), parts[-1], default)
+        if self._loss_path(parts):
+            if parts[2] == 'freeze_norm':
+                return getattr(self, 'freeze_norm', default)
+            return getattr(self._diffusions()[0].ddpm_loss, parts[2],
+                           default)
+        return default
+
+    def _loss_path(self, parts):
+        return (parts[0] in ('diffusion', 'diffusion_ema') and len(parts) == 3
+                and parts[1] == 'ddpm_loss' and bool(self._diffusions()))
+
+    def _diffusions(self):
+        """The diffusion modules (live, EMA) of a model that has them."""
+        return [d for d in (getattr(self, 'diffusion', None),
+                            getattr(self, 'diffusion_ema', None))
+                if d is not None]
+
+    def eval_mode(self):
+        """Apply ``test_cfg.override_cfg`` (JAX ``multiscene.py:417-422``),
+        keeping the values it replaces for :meth:`train_mode`."""
+        self._override_backup = {}
+        for key, value in self.test_cfg.get('override_cfg', {}).items():
+            self._override_backup[key] = self.get_dotted(key)
+            self.set_dotted(key, value)
+
+    def train_mode(self):
+        """Put back what :meth:`eval_mode` replaced."""
+        for key, value in self._override_backup.items():
+            self.set_dotted(key, value)
+        self._override_backup = {}
 
     def reset_ema(self):
         """Copy the live weights into the EMA modules (the state JAX's

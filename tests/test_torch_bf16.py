@@ -352,7 +352,7 @@ def test_sampler_matches_jax(tiny16, unet32, name, dtype):
         diff.denoising_var_mode = var or 'FIXED_LARGE'
         x = torch.from_numpy(noise)
         x = x.bfloat16() if autocast else x
-        out = diff.sample_from_noise(x, cfg, draws)
+        out, _ = diff.sample_from_noise(x, cfg, draws)
         assert out.dtype == x.dtype
         diff.sample_method, diff.denoising_var_mode = 'ddim', 'FIXED_LARGE'
         return out.float().numpy()
@@ -585,7 +585,7 @@ def test_unet_pins_precision(monkeypatch):
     ('train_cfg', 'density_partial_update', True),
     ('train_cfg', 'log_grad_stats', True),
     ('test_cfg', 'max_render_rays', 4096),
-    ('test_cfg', 'override_cfg', {'diffusion_ema.ddpm_loss.weight_scale': 1.0})])
+    ('test_cfg', 'density_partial_update', True)])
 def test_unported_config_keys_raise(section, key, value):
     """A config key the port does not read raises when set, instead of
     being ignored."""

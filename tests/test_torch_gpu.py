@@ -745,3 +745,148 @@ def test_render_variant_matches_cpu(cuda_device, field, dtype):
                                        atol=1e-4)
         else:
             _bf16_close(got[k], ref[k])
+
+
+# ---------------------------------------------------------- reconstruction
+def _recons_model(seed=21):
+    """The tiny model at 32^2 (a UNet of widths 64 / 128, one head, so the
+    32^2 level runs the hd-64 attention kernels, the ``wgmma`` ones in
+    bf16) with an f32 decoder, random weights (init plus N(0, 0.02), the
+    density bias lowered) and a single-view reconstruction test_cfg."""
+    from synthetic import TINY_MODEL_CFG
+    from ssdnerf_torch import Config, init_model
+    cfg = copy.deepcopy(TINY_MODEL_CFG)
+    cfg.update(code_size=(3, 4, 32, 32), code_reshape=(12, 32, 32))
+    cfg['decoder']['compute_dtype'] = 'float32'
+    cfg['diffusion']['denoising'].update(
+        image_size=32, base_channels=64, num_heads=1, attention_res=[32, 16],
+        dropout=0.1)
+    tcfg = dict(num_timesteps=1, clip_range=[-2, 2], density_thresh=0.1,
+                dt_gamma_scale=0.5, n_inverse_rays=256, loss_coef=0.1 / 256,
+                guidance_gain=0.05 * 256, cond_mode='guide',
+                n_inverse_steps=1, extra_scene_step=3,
+                optimizer=dict(type='Adam', lr=0.005),
+                lr_scheduler=dict(type='ExponentialLR', gamma=0.998))
+    model = init_model(Config._wrap(dict(model=cfg, test_cfg=tcfg)), 'cpu',
+                       seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+        model.decoder.density_net.dense_0.bias -= 2.0
+    model.reset_ema()
+    return model
+
+
+def _recons_data(device='cpu'):
+    import numpy as np
+    from synthetic import make_batch
+    d = make_batch(num_scenes=2, num_views=1, h=16, w=16, seed=22)
+    return {k: torch.from_numpy(np.asarray(d[k])).to(device)
+            for k in ('cond_imgs', 'cond_poses', 'cond_intrinsics')}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return None if tree is None else tree.to(device)
+
+
+def _l2(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _flipped(a, b):
+    import numpy as np
+    return (np.unpackbits(a.cpu().numpy())
+            != np.unpackbits(b.cpu().numpy())).mean()
+
+
+@pytest.mark.parametrize('fp16', [False, True])
+def test_guided_step_matches_cpu(cuda_device, fp16):
+    """One guided DDIM step (``val_guide``, 2 scenes, one 16^2 view each)
+    on the card against the CPU's plain path, same weights, noise and
+    draws.  f32: codes atol 1e-3, the f32 density grid max rel 5e-3 and at
+    most 1e-3 of the bits flipped (the card-vs-CPU rules of chip_smoke
+    phase 4); the f32 attention and decode backward kernels launched.
+    ``use_fp16`` (bf16 autocast): the card's codes within 1.25 x the CPU's
+    bf16-vs-f32 gap of the CPU's bf16 codes (relative L2) and at least half
+    the gap from its f32 codes; the bf16 attention backward launched."""
+    model = _recons_model()
+    data = _recons_data()
+    draws = model.val_draws(2, 256, torch.Generator().manual_seed(23))
+    noise = draws['noise']
+
+    def run(m, device, autocast):
+        m.autocast_dtype = 'bfloat16' if autocast else None
+        return [t.cpu() for t in m.val_guide(
+            _to(data, device), noise.to(device), _to(draws, device))]
+
+    card_model = copy.deepcopy(model).to(cuda_device)
+    counts = {name: getattr(k_attn.attention_backward, name)
+              for name in ('launches', 'launches_bf16')}
+    dec_bwd = k_dec.triplane_decode_backward.launches
+    card = run(card_model, cuda_device, fp16)
+    cpu = run(model, 'cpu', fp16)
+    assert all(torch.isfinite(t.float()).all() for t in card[:2])
+    if fp16:
+        f32 = run(model, 'cpu', False)
+        err, gap, far = (_l2(card[0], cpu[0]), _l2(cpu[0], f32[0]),
+                         _l2(card[0], f32[0]))
+        assert gap > 0 and err <= 1.25 * gap and far >= 0.5 * gap, (
+            err, gap, far)
+        assert k_attn.attention_backward.launches_bf16 > \
+            counts['launches_bf16']
+    else:
+        assert (card[0] - cpu[0]).abs().max() <= 1e-3
+        rel = ((card[1] - cpu[1]).abs() / (cpu[1].abs() + 1e-3)).max()
+        assert rel <= 5e-3, rel
+        assert _flipped(card[2], cpu[2]) <= 1e-3
+        assert k_attn.attention_backward.launches > counts['launches']
+    assert k_dec.triplane_decode_backward.launches > dec_bwd
+
+
+@pytest.mark.parametrize('fp16', [False, True])
+def test_val_optim_step_matches_cpu(cuda_device, fp16):
+    """One ``val_optim`` outer step (the EMA UNet's prior gradient, then 4
+    inverse-rendering steps with ExponentialLR) on the card against the
+    CPU, same weights, starting codes and draws, with and without
+    ``use_fp16`` (which ``val_optim`` does not read: JAX runs it with the
+    f32 EMA parameters either way).  The prior gradient within 1e-3 of its
+    largest entry (chip_smoke phase 6's gradient rule); the codes: Adam
+    moves each entry about +-lr a step whatever its gradient's size, so an
+    entry whose gradient is within the card's error of 0 may step the
+    other way: at most 1e-3 of them off by more than 1e-3, none by more
+    than 2 x lr x 4 steps; bits flipped at most 1e-3.  The f32 attention
+    and decode backward kernels launched."""
+    model = _recons_model()
+    model.test_cfg['cond_mode'] = 'optim'
+    model.autocast_dtype = 'bfloat16' if fp16 else None
+    data = _recons_data()
+    draws = model.val_draws(2, 256, torch.Generator().manual_seed(24))
+    # mid timesteps: the SNR weight of the last one is 0, which would leave
+    # no prior gradient to compare
+    draws['optim'][0]['t'] = torch.tensor([8, 12])
+    code_ = model.code_activation.inverse(model.sample_codes(draws['noise']))
+    card_model = copy.deepcopy(model).to(cuda_device)
+    attn = k_attn.attention_backward.launches
+    dec_bwd = k_dec.triplane_decode_backward.launches
+    card = [t.cpu() for t in card_model.val_optim(
+        _to(data, cuda_device), _to(draws, cuda_device),
+        code_=code_.to(cuda_device))]
+    assert k_attn.attention_backward.launches > attn
+    assert k_dec.triplane_decode_backward.launches > dec_bwd
+    cpu = model.val_optim(data, draws, code_=code_)
+    step = draws['optim'][0]
+    g_card = card_model.prior_grad(code_.to(cuda_device),
+                                   _to(step, cuda_device)).cpu()
+    g_cpu = model.prior_grad(code_, step)
+    assert ((g_card - g_cpu).abs().max() / g_cpu.abs().max()) <= 1e-3
+    assert torch.isfinite(card[0]).all()
+    off = (card[0] - cpu[0]).abs()
+    assert (off > 1e-3).float().mean() <= 1e-3
+    assert off.max() <= 2 * 0.005 * 4
+    assert _flipped(card[2], cpu[2]) <= 1e-3

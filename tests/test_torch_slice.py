@@ -84,8 +84,8 @@ def test_ddim_chain_matches_jax(models):
     ref, _ = jm.diffusion.ddim_sample(state['diffusion_ema'],
                                       jnp.asarray(noise),
                                       jax.random.PRNGKey(0), cfg=TEST_CFG)
-    out = tm.diffusion_ema.sample_from_noise(torch.from_numpy(noise),
-                                             TEST_CFG)
+    out, _ = tm.diffusion_ema.sample_from_noise(torch.from_numpy(noise),
+                                                TEST_CFG)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
 
 
