@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ssdnerf_torch/csrc into build/kernels/, then
-runs eight phases, any failure of which exits non-zero:
+runs nine phases, any failure of which exits non-zero:
 
 1. device: a CUDA card is present; TF32 is switched off for matmuls and
    convolutions, so every plain f32 reference is full f32;
@@ -82,7 +82,21 @@ runs eight phases, any failure of which exits non-zero:
    ``use_fp16`` (the bf16 attention forward and backward must launch);
    then 1 scene, 2 guided steps and 1 ``val_optim`` step on the card and
    on the CPU with the same weights and draws, in the shipped bf16 decode
-   and in f32 (rays cut to 4096 a guide or inverse step for the CPU).
+   and in f32 (rays cut to 4096 a guide or inverse step for the CPU);
+9. evaluation: a synthetic SRN-layout test set (8 scenes x 251 orbit
+   views of 128x128 at SRN intrinsics, rendered from phase 3's scenes,
+   PNGs by the port's writer), a checkpoint of the seed-0 model written by
+   the port and read back bitwise through ``init_model(checkpoint=)``,
+   the real-image Inception statistics of the set, then the port's CLI
+   (``ssdnerf_torch.test.main``) on ssdnerf_cars_uncond.py (DDIM, density
+   rebuild, render of 251 views, FIDKID) and ssdnerf_cars_recons1v.py
+   (view 64 conditions 'guide_optim', render of the other 250 views,
+   PSNR / SSIM / substitute LPIPS, FID), at batch 8 with
+   ``test_cfg.max_render_rays`` set from a measured render memory a ray;
+   wall seconds by stage, peak memory of ``val_step`` and the render, the
+   launch counts of both runs, one scene's mesh at 128^3 through
+   ``save_mesh``; then the metrics, the Inception features and a cut-down
+   ``evaluate_3d`` (1 scene, 4 views) on the card and on the CPU.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the result JSON.  Imports nothing of JAX.
@@ -91,10 +105,12 @@ import contextlib
 import copy
 import json
 import math
+import pickle
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -105,6 +121,21 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from ssdnerf_torch import Config, init_model  # noqa: E402
+from ssdnerf_torch import test as test_cli  # noqa: E402
+from ssdnerf_torch.apis import eval_utils  # noqa: E402
+from ssdnerf_torch.apis.test import _save_scenes, evaluate_3d  # noqa: E402
+from ssdnerf_torch.core.checkpoint import (  # noqa: E402
+    model_state, save_checkpoint)
+from ssdnerf_torch.core.evaluation import feature_nets  # noqa: E402
+from ssdnerf_torch.core.evaluation.feature_nets import (  # noqa: E402
+    make_inception_extractor, make_lpips)
+from ssdnerf_torch.core.evaluation.fid import FID, FIDKID  # noqa: E402
+from ssdnerf_torch.core.metrics import (  # noqa: E402
+    eval_psnr, eval_ssim_skimage)
+from ssdnerf_torch.core.png import write_pngs  # noqa: E402
+from ssdnerf_torch.data import ShapeNetSRN, build_dataset  # noqa: E402
+from ssdnerf_torch.models.autodecoders import (  # noqa: E402
+    DiffusionNeRF, MultiSceneNeRF)
 from ssdnerf_torch.ops.kernels import _build  # noqa: E402
 from ssdnerf_torch.ops.kernels import attention as k_attn  # noqa: E402
 from ssdnerf_torch.ops.kernels import decode as k_dec  # noqa: E402
@@ -1891,6 +1922,463 @@ def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev):
     return result
 
 
+# ------------------------------------------------------------ phase 9
+# the kernels of the two evaluations: generation (f32 UNet, bf16 decode)
+# and reconstruction (the guide's and val_optim's backwards too)
+EVAL_UNCOND = ('march', 'decode_bf16', 'attention')
+EVAL_RECONS = RECONS
+EVAL_VIEWS = 251            # SRN cars_test: 251 views a scene
+EVAL_SIZE = 128             # of 128 x 128
+MESH_RES = 128              # the mesh's grid, 128^3 (256 by default)
+# the render's share of the card a chunk of max_render_rays may take
+RENDER_BUDGET_GIB = 16.0
+
+
+def write_srn_set(model, code, bitfield, root, num_views, chunk):
+    """An SRN-layout test set (``tools/make_synthetic_srn.py``'s layout,
+    poses in the raw SRN frame, the dataset's radius 0.5 undone) of the
+    port's renders of ``code`` from ``num_views`` orbit views of 128x128
+    at SRN intrinsics, PNGs by the port's writer.  Returns the wall
+    seconds of rendering and of writing."""
+    S = code.shape[0]
+    poses, intr = orbit_cameras(S, num_views, code.device)
+    t0 = time.perf_counter()
+    imgs = torch.cat([model.render(code, bitfield, EVAL_SIZE, EVAL_SIZE,
+                                   intr[:, i:i + chunk],
+                                   poses[:, i:i + chunk])[0]
+                      for i in range(0, num_views, chunk)], 1)
+    imgs = (imgs.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+    t1 = time.perf_counter()
+    raw = poses.cpu().numpy().astype(np.float64)
+    raw[..., :3, 3] *= 0.5
+    f, _, cx, cy = SRN_INTRINSICS
+    for s in range(S):
+        scene = root / f'car_{s:04d}'
+        (scene / 'rgb').mkdir(parents=True)
+        (scene / 'pose').mkdir()
+        (scene / 'intrinsics.txt').write_text(
+            f'{f} {cx} {cy} 0.\n0. 0. 0.\n1.\n{EVAL_SIZE} {EVAL_SIZE}\n')
+        for v in range(num_views):
+            (scene / 'pose' / f'{v:06d}.txt').write_text(
+                ' '.join(f'{x:.17g}' for x in raw[s, v].reshape(-1)) + '\n')
+        write_pngs([str(scene / 'rgb' / f'{v:06d}.png')
+                    for v in range(num_views)], imgs[s])
+    return t1 - t0, time.perf_counter() - t1
+
+
+def render_bytes_per_ray(model, code, bitfield, views=4):
+    """Peak device bytes a ray of a render of ``views`` orbit views a scene
+    takes (the render's peak over what was allocated before it)."""
+    S = code.shape[0]
+    poses, intr = orbit_cameras(S, views, code.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.render(code, bitfield, EVAL_SIZE, EVAL_SIZE, intr, poses)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / (S * views * EVAL_SIZE ** 2)
+
+
+@contextlib.contextmanager
+def stage_walls(walls, targets):
+    """For the block, each ``(owner, attribute, stage)`` of ``targets``
+    replaced by a wrapper that adds its wall seconds (to a device
+    synchronise) to ``walls[stage]`` and counts its calls; the stages
+    'render' and 'val_step' also keep their largest peak of device memory
+    over what was allocated when they started (``walls[stage +
+    '_peak_gib']``)."""
+    saved = []
+
+    def wrap(fn, stage):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            peak = stage in ('render', 'val_step')
+            if peak:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[stage] = walls.get(stage, 0.0) + time.perf_counter() - t0
+            walls[stage + '_calls'] = walls.get(stage + '_calls', 0) + 1
+            if peak:
+                walls[stage + '_peak_gib'] = max(
+                    walls.get(stage + '_peak_gib', 0.0),
+                    (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+            if stage == 'dataset read':
+                walls['pngs'] = walls.get('pngs', 0) + sum(
+                    len(out.get(k, ())) for k in ('cond_imgs', 'test_imgs'))
+            return out
+        return run
+
+    for owner, attr, stage in targets:
+        saved.append((owner, attr, owner.__dict__[attr]))
+        setattr(owner, attr, wrap(getattr(owner, attr), stage))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def timed_lpips(walls):
+    """``feature_nets.make_lpips`` whose LPIPS calls add to
+    ``walls['lpips']``."""
+    make = feature_nets.make_lpips
+
+    def make_timed(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def run(a, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(a, b)
+            torch.cuda.synchronize()
+            walls['lpips'] = walls.get('lpips', 0.0) + time.perf_counter() - t0
+            return out
+
+        run.substitute_weights = inner.substitute_weights
+        run.model = inner.model
+        return run
+
+    return make_timed
+
+
+def eval_stages(walls):
+    return stage_walls(walls, [
+        (ShapeNetSRN, '__getitem__', 'dataset read'),
+        (DiffusionNeRF, 'val_step', 'val_step'),
+        (MultiSceneNeRF, 'render', 'render'),
+        (eval_utils, 'eval_psnr', 'psnr_ssim'),
+        (eval_utils, 'eval_ssim_skimage', 'psnr_ssim'),
+        (eval_utils, 'write_pngs', 'viz dumps'),
+        (eval_utils, 'visualize_triplane', 'viz dumps'),
+        (FID, 'feed', 'inception feed'),
+        (FID, 'summary', 'fid/kid summary (host)'),
+        (FIDKID, 'summary', 'fid/kid summary (host)')])
+
+
+def eval_entry(cfg, data_key, root, pkl, num_images):
+    """The config's evaluation entry of ``data_key`` as a literal for
+    ``--cfg-options``: batch 8, ``num_images`` images, the statistics
+    pickle ``pkl``."""
+    ev = copy.deepcopy(next(e for e in cfg.evaluation
+                            if e['data'] == data_key))
+    ev.update(feed_batch_size=8, viz_dir=str(root / f'viz_{data_key}'))
+    ev['metrics'].update(num_images=num_images, inception_pkl=str(pkl))
+    return repr([dict(ev)])
+
+
+def flat_arrays(tree):
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in flat_arrays(tree[k])]
+    return [tree]
+
+
+def phase_eval(model, model_cpu, code, bitfield, dev):
+    """Evaluation at full width: a synthetic SRN test set (8 scenes x 251
+    views of 128^2 rendered from ``code``), a checkpoint of the seed-0
+    model written and read back, the real-image Inception statistics, then
+    the port's CLI (``ssdnerf_torch.test.main``) on ssdnerf_cars_uncond.py
+    and ssdnerf_cars_recons1v.py, timed by stage; one scene's mesh at 128^3
+    (``_save_scenes`` with ``save_mesh``); then the card against the CPU
+    (:func:`phase_eval_card_vs_cpu`) on the same test set.  ``model`` and
+    ``model_cpu`` are the seed-0 recons1v models of phase 8."""
+    S = code.shape[0]
+    out = {}
+    per_ray = render_bytes_per_ray(model, code, bitfield)
+    full = S * EVAL_VIEWS * EVAL_SIZE ** 2
+    views = max(1, int(RENDER_BUDGET_GIB * 2 ** 30 / (S * EVAL_SIZE ** 2
+                                                      * per_ray)))
+    max_rays = -1 if views >= EVAL_VIEWS else views * EVAL_SIZE ** 2
+    out.update(render_bytes_per_ray=per_ray,
+               unchunked_render_peak_gib=per_ray * full / 2 ** 30,
+               max_render_rays=max_rays)
+    log(f'phase 9 render memory: {per_ray:.0f} B a ray (8 x 4 views); '
+        f'{S} x {EVAL_VIEWS} views unchunked ({full} rays): '
+        f'{out["unchunked_render_peak_gib"]:.1f} GiB predicted -> '
+        + (f'test_cfg.max_render_rays={max_rays} ({views} views a scene a '
+           f'chunk, {RENDER_BUDGET_GIB:.0f} GiB budget)' if max_rays > 0
+           else 'no chunking'))
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        root = Path(tmp)
+        data_dir = root / 'cars_test'
+        render_s, write_s = write_srn_set(model, code, bitfield, data_dir,
+                                          EVAL_VIEWS, chunk=min(views, 16))
+        log(f'phase 9 test set: {S} scenes x {EVAL_VIEWS} views of '
+            f'{EVAL_SIZE}x{EVAL_SIZE} '
+            f'rendered in {render_s:.2f} s, {S * EVAL_VIEWS} PNGs written in '
+            f'{write_s:.2f} s')
+
+        # checkpoint round trip
+        ckpt = str(root / 'seed0.ckpt')
+        save_checkpoint(ckpt, model_cpu, iteration=0)
+        back = init_model(Config.fromfile(str(CONFIG)), 'cpu', SEED + 11,
+                          checkpoint=ckpt)
+        want, got = model_state(model_cpu), model_state(back)
+        want, got = flat_arrays(want), flat_arrays(got)
+        same = len(want) == len(got) > 0 and all(
+            np.array_equal(a, b) for a, b in zip(want, got))
+        log(f'phase 9 checkpoint: {Path(ckpt).stat().st_size / 2 ** 20:.1f}'
+            f' MiB written and read back through init_model(checkpoint=): '
+            f'bitwise equal {same}')
+        check(same, 'checkpoint round trip not bitwise')
+        del back
+
+        # the real-image statistics (tools/inception_stat.py)
+        cfg = Config.fromfile(str(CONFIG))
+        cache = root / 'cars_test_cache.pkl'
+        data_opts = [f'data.{k}.{f}={v}' for k in ('val_uncond', 'val_cond')
+                     for f, v in (('data_prefix', data_dir),
+                                  ('cache_path', cache))]
+        t0 = time.perf_counter()
+        stats_set = build_dataset(dict(cfg.data.val_uncond,
+                                       data_prefix=str(data_dir),
+                                       cache_path=str(cache), load_imgs=True))
+        reals = np.concatenate([np.round(stats_set[i]['test_imgs'] * 255)
+                                .astype(np.uint8) for i in range(S)])
+        t1 = time.perf_counter()
+        extract = make_inception_extractor(None, device=dev)
+        feats = extract(reals)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pkl = root / 'inception_stats.pkl'
+        with open(pkl, 'wb') as f:
+            pickle.dump(dict(mean=feats.mean(0),
+                             cov=np.cov(feats, rowvar=False),
+                             feats_np=feats), f)
+        out.update(png_read_per_s=len(reals) / (t1 - t0),
+                   stats_inception_s=t2 - t1)
+        log(f'phase 9 statistics: {len(reals)} PNGs read in {t1 - t0:.2f} s '
+            f'({len(reals) / (t1 - t0):.0f} a second, '
+            f'{stats_set.decode_threads} threads), Inception features '
+            f'{feats.shape} in {t2 - t1:.2f} s')
+
+        runs = {}
+        for name, config, key, n in (
+                ('uncond', CONFIG, 'val_uncond', S * EVAL_VIEWS),
+                ('recons', CONFIG_RECONS, 'val_cond', S * (EVAL_VIEWS - 1))):
+            opts = data_opts + [
+                'evaluation=' + eval_entry(Config.fromfile(str(config)), key,
+                                           root, pkl, n)]
+            if name == 'uncond':
+                opts.append(f'test_cfg.save_dir={root / "save"}')
+            if max_rays > 0:
+                opts.append(f'test_cfg.max_render_rays={max_rays}')
+            log(f'phase 9 {name}: python -m ssdnerf_torch.test '
+                f'{config.relative_to(ROOT)} <ckpt> --cfg-options '
+                + ' '.join(o.split('=')[0] for o in opts)
+                + f' (reductions: feed_batch_size 32 -> 8, num_images '
+                f'{n}' + (f', max_render_rays {max_rays}' if max_rays > 0
+                          else '') + ')')
+            walls = {}
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with eval_stages(walls), mock_attr(
+                    feature_nets, 'make_lpips', timed_lpips(walls)):
+                (log_vars, metrics), = test_cli.main(
+                    [str(config), ckpt, '--device', str(dev), '--seed',
+                     str(SEED), '--cfg-options', *opts])
+            torch.cuda.synchronize()
+            walls['total'] = time.perf_counter() - t0
+            launches = launch_counts()
+            results = dict(log_vars, **metrics[0].result_dict)
+            log(f'phase 9 {name} results: ' + ', '.join(
+                f'{k} {v:.6g}' for k, v in results.items()))
+            log(f'phase 9 {name} stages (wall s): ' + ', '.join(
+                f'{k} {v:.3f}' if isinstance(v, float) else f'{k} {v}'
+                for k, v in walls.items()))
+            log(f'phase 9 {name} launches: {launches}')
+            check(all(math.isfinite(v) for v in results.values()),
+                  f'{name}: metric values not finite')
+            for kname in (EVAL_UNCOND if name == 'uncond' else EVAL_RECONS):
+                check(launches[kname] > 0, f'kernel {kname} was not '
+                      f'launched by the {name} evaluation')
+            runs[name] = dict(results=results, stages=walls,
+                              launches=launches)
+        expect = {'code_rms', 'fid_substitute', 'kid_substitute'}
+        check(expect <= set(runs['uncond']['results']), 'uncond keys')
+        check({'test_psnr', 'test_ssim', 'test_lpips_substitute',
+               'fid_substitute'} <= set(runs['recons']['results']),
+              'recons keys')
+        saved = sorted(p.name for p in (root / 'save').iterdir())
+        check(saved == [f'{i:04d}.npz' for i in range(S)],
+              f'save_dir holds {saved}')
+
+        # one scene's mesh through the save path; random weights leave no
+        # surface at the default threshold (10), so the threshold is the
+        # 99th percentile of the scene's occupied density grid
+        blob = np.load(root / 'save' / '0000.npz')
+        grid = blob['density_grid'].astype(np.float32)
+        thresh = float(np.quantile(grid[grid > 0], 0.99))
+        tcfg = model.test_cfg
+        model.test_cfg = dict(tcfg, save_mesh=True, mesh_resolution=MESH_RES,
+                              mesh_threshold=thresh)
+        try:
+            t0 = time.perf_counter()
+            _save_scenes(model, {'scene_id': [0], 'scene_name': ['0000']}, *[
+                torch.from_numpy(blob[k][None]).to(dev) for k in (
+                    'code', 'density_grid', 'density_bitfield')], 1,
+                str(root / 'mesh'))
+            mesh_s = time.perf_counter() - t0
+        finally:
+            model.test_cfg = tcfg
+        stl = (root / 'mesh' / '0000.stl').read_bytes()
+        tris = int.from_bytes(stl[80:84], 'little')
+        log(f'phase 9 mesh of scene 0000 at {MESH_RES}^3 (threshold '
+            f'{thresh:.4g}): {tris} triangles, '
+            f'{len(stl) / 2 ** 20:.1f} MiB STL in {mesh_s:.2f} s')
+        check(tris > 0 and len(stl) == 84 + 50 * tris, 'mesh STL empty')
+        out.update(runs=runs, mesh_triangles=tris, mesh_s=mesh_s,
+                   render_s=render_s, write_s=write_s)
+        out['card_vs_cpu'] = phase_eval_card_vs_cpu(
+            model_cpu, model, code, bitfield, data_dir, dev)
+    # the shipped feed_batch_size, 32 scenes a batch: the val_step's and
+    # the render chunk's peaks over what was allocated scale with the batch
+    out['predicted_peak_gib_at_32'] = {
+        k: 4 * max(v['stages']['val_step_peak_gib'],
+                   v['stages']['render_peak_gib'])
+        for k, v in runs.items()}
+    log('phase 9 predicted peak at feed_batch_size 32 (4 x the batch-8 '
+        'peak of val_step or render over what was allocated): ' + ', '.join(
+            f'{k} {v:.1f} GiB' for k, v in out[
+                'predicted_peak_gib_at_32'].items()))
+    return out
+
+
+@contextlib.contextmanager
+def mock_attr(owner, attr, value):
+    saved = getattr(owner, attr)
+    setattr(owner, attr, value)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, saved)
+
+
+class FedImages:
+    """A metric that keeps the images ``evaluate_3d`` feeds it."""
+
+    def __init__(self):
+        self.imgs = []
+
+    def feed(self, imgs, mode):
+        self.imgs.append(np.array(imgs))
+
+
+class FirstViews:
+    """The first ``n`` test views of each scene of ``dataset``."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        item = dict(self.dataset[i])
+        for k in ('test_imgs', 'test_poses', 'test_intrinsics',
+                  'test_img_paths'):
+            item[k] = item[k][:self.n]
+        return item
+
+
+def phase_eval_card_vs_cpu(model_cpu, model_dev, code, bitfield, data_dir,
+                           dev):
+    """The metrics and the Inception features of the same 8 renders (scene
+    0) and targets (scene 1's images) on the card and on the CPU, then ``evaluate_3d`` of 1 scene and
+    4 test views (recons1v cut down as phase 8's card-vs-CPU run: 2 guided
+    steps, 1 ``val_optim`` step, 4096 rays) on both with the same draws.
+    Tolerances (PERF.md, stated before the run): PSNR 1e-4 dB, SSIM 1e-5,
+    LPIPS and features 1e-4 of the largest; ``evaluate_3d``: the images
+    fed to the metric max 2e-2 / mean 1e-3 (phase 8's image tolerance),
+    test_psnr 2e-2 dB, the other log vars 1e-3."""
+    cond_view = Config.fromfile(str(CONFIG_RECONS)).data.val_cond[
+        'specific_observation_idcs']
+    dataset = ShapeNetSRN(data_prefix=str(data_dir),
+                          specific_observation_idcs=cond_view)
+    # renders of scene 0 against the images of scene 1 from the same poses
+    item = dataset[1]
+    target = torch.from_numpy(item['test_imgs'][:8]).permute(0, 3, 1, 2)
+    poses = torch.from_numpy(item['test_poses'][:8])[None].to(dev)
+    intr = torch.from_numpy(item['test_intrinsics'][:8])[None].to(dev)
+    with torch.no_grad():
+        img, _ = model_dev.render(code[:1], bitfield[:1], EVAL_SIZE,
+                                  EVAL_SIZE, intr, poses)
+    pred = (img[0].permute(0, 3, 1, 2).clamp(0, 1) * 255).round() / 255
+    res = {}
+    vals = {}
+    for tag, d in (('card', dev), ('cpu', 'cpu')):
+        p, t = pred.to(d), target.to(d)
+        lp = make_lpips(None, device=d)
+        ext = make_inception_extractor(None, device=d)
+        vals[tag] = dict(
+            psnr=eval_psnr(p, t).cpu().numpy(),
+            ssim=eval_ssim_skimage(p, t).cpu().numpy(),
+            lpips=lp(p, t).cpu().numpy(),
+            features=ext((p * 255).round().to(torch.uint8).permute(
+                0, 2, 3, 1).cpu().numpy()))
+    ok = True
+    for name, tol, rel in (('psnr', 1e-4, False), ('ssim', 1e-5, False),
+                           ('lpips', 1e-4, True), ('features', 1e-4, True)):
+        a, b = vals['card'][name], vals['cpu'][name]
+        err = float(np.abs(a - b).max())
+        if rel:
+            err /= max(float(np.abs(b).max()), 1e-30)
+        res[name] = dict(err=err, tol=tol)
+        ok = ok and err <= tol
+        log(f'phase 9 card vs cpu {name}: {err:.3e} (tol {tol:.0e}'
+            + (' of the largest)' if rel else ')'))
+
+    tcfg = dict(model_cpu.test_cfg, num_timesteps=2, n_inverse_steps=1,
+                n_inverse_rays=4096)
+    draws = None
+    logs, fed = {}, {}
+    for tag, model, d in (('card', model_dev, dev), ('cpu', model_cpu,
+                                                     'cpu')):
+        saved = model.test_cfg
+        model.test_cfg = tcfg
+        model.eval_mode()
+        try:
+            if draws is None:
+                draws = model.val_draws(1, EVAL_SIZE ** 2, torch.Generator(
+                    ).manual_seed(SEED + 12))
+                draws['optim'][0]['t'] = torch.tensor(
+                    [model.diffusion.num_timesteps // 2])
+            metric = FedImages()
+            t0 = time.perf_counter()
+            logs[tag] = evaluate_3d(
+                model, FirstViews(dataset, 4), batch_size=1,
+                metrics=[metric], max_num_scenes=1, log_fn=lambda s: None,
+                draws_fn=lambda i, data, d=d: to_device(draws, d))
+            fed[tag] = np.concatenate(metric.imgs).astype(np.float64)
+            log(f'phase 9 card vs cpu evaluate_3d {tag}: '
+                f'{time.perf_counter() - t0:.2f} s; {logs[tag]}')
+        finally:
+            model.train_mode()
+            model.test_cfg = saved
+    diff = np.abs(fed['card'] - fed['cpu'])
+    for name, err, tol in (('fed image max abs', diff.max(), 2e-2),
+                           ('fed image mean abs', diff.mean(), 1e-3)):
+        res[name] = dict(err=float(err), tol=tol)
+        ok = ok and err <= tol
+        log(f'phase 9 card vs cpu evaluate_3d {name}: {err:.3e} (tol '
+            f'{tol:.0e})')
+    for key in logs['cpu']:
+        tol = 2e-2 if key == 'test_psnr' else 1e-3
+        err = abs(logs['card'][key] - logs['cpu'][key])
+        res[key] = dict(err=err, tol=tol)
+        ok = ok and err <= tol
+        log(f'phase 9 card vs cpu evaluate_3d {key}: {err:.3e} (tol '
+            f'{tol:.0e})')
+    check(set(logs['card']) == set(logs['cpu']) == {
+        'test_psnr', 'test_ssim', 'test_lpips_substitute', 'code_rms'},
+        'evaluate_3d log var keys')
+    check(ok, 'phase 9 card vs cpu')
+    return res
+
+
 def main():
     log(f'torch {torch.__version__} cuda {torch.version.cuda} python '
         f'{sys.version.split()[0]}')
@@ -1964,6 +2452,10 @@ def main():
     recons['card_vs_cpu'] = phase_recons_card_vs_cpu(
         model_recons_cpu, model_recons_dev, data, dev)
 
+    # evaluation: the CLI on both configurations, the same seeded weights
+    evals = phase_eval(model_recons_dev, model_recons_cpu, code, bitfield,
+                       dev)
+
     # launches: the generation kernels' counts from the phase-3 slice, the
     # render variants' from the phase-3 variant renders, the probe's from
     # its tool's path, the backward kernels' from phase 5, the f32 decode
@@ -1989,6 +2481,10 @@ def main():
     report = [dict(name=name, route='cuda', source=KERNEL_META[name][0],
                    replaces=KERNEL_META[name][1], launches=launches[name],
                    recons_launches=recons['launches'][name],
+                   eval_uncond_launches=evals['runs']['uncond']['launches'][
+                       name],
+                   eval_recons_launches=evals['runs']['recons']['launches'][
+                       name],
                    **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
@@ -1998,7 +2494,7 @@ def main():
                     'bf16': dict(generation=bf16_gen, card_vs_cpu=bf16_vs_cpu,
                                  train=bf16_train,
                                  unet_forward_device_ms=precision_ms),
-                    'recons': recons}))
+                    'recons': recons, 'eval': evals}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

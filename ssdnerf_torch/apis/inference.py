@@ -3,16 +3,21 @@
 import torch
 
 from ..config import Config
+from ..core.checkpoint import load_checkpoint
 from ..registry import build_model
 
 
-def init_model(config, device='cuda', seed=0, use_fp16=False):
+def init_model(config, device='cuda', seed=0, use_fp16=False,
+               checkpoint=None):
     """Build the model of ``config`` (a path or a Config) with parameters
     drawn from ``torch.Generator().manual_seed(seed)`` in the JAX package's
     init scheme, in eval mode on ``device``; the EMA modules start as copies
-    of the live ones.  ``use_fp16`` samples in bf16 autocast
-    (``autocast_dtype='bfloat16'``).  Weights from the JAX package are
-    loaded afterwards with ``convert.load_jax_params``."""
+    of the live ones.  ``checkpoint``, a JAX-package checkpoint file, then
+    fills the groups it holds, leniently (``core.checkpoint``: a missing
+    or mismatched group keeps its fresh value, with a printed message).
+    ``use_fp16`` samples in bf16 autocast (``autocast_dtype='bfloat16'``).
+    Parameter trees of the JAX package load with
+    ``convert.load_jax_params``."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     with torch.device('meta'):
@@ -23,6 +28,8 @@ def init_model(config, device='cuda', seed=0, use_fp16=False):
     model.decoder.init_weights(generator)
     model.diffusion.init_weights(generator)
     model.reset_ema()
+    if checkpoint is not None:
+        load_checkpoint(checkpoint, model, lenient=True)
     if use_fp16:
         model.autocast_dtype = 'bfloat16'
     return model.to(device).eval()

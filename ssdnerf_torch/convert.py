@@ -1,4 +1,4 @@
-"""Load the JAX package's parameter trees into the port's modules.
+"""Parameter trees of the JAX package to and from the port's modules.
 
 The trees are nested dicts of numpy arrays, as
 ``jax.tree_util.tree_map(np.asarray, state[...])`` gives them.  The port's
@@ -7,24 +7,33 @@ submodules carry the Flax module names, so the trees are walked by path:
 - Flax ``Dense`` kernels (in, out) become ``nn.Linear.weight`` (out, in);
 - Flax NHWC ``Conv`` kernels HWIO become OIHW (``Conv2d``), and the 1-D
   convs of the attention block (1, I, O) become (O, I, 1) (``Conv1d``);
-- ``GroupNorm`` scale / bias become weight / bias.
+- ``GroupNorm`` scale / bias become weight / bias;
+- the feature networks' frozen batch norms (``bn_scale`` / ``bn_bias`` /
+  ``bn_mean`` / ``bn_var`` beside a ``conv``) become the ``bn`` module's
+  weight / bias / running_mean / running_var, and a bare array (the
+  LPIPS heads ``lin{k}``) the parameter of its name, reshaped.
 
-Every parameter of the target module must be filled, with the right shape;
-anything else raises.
+Every parameter of the target module (and every batch-norm statistic)
+must be filled, with the right shape, or nothing is written and the load
+raises.  :func:`dump_params` is the inverse for the model's layers.
 """
 import numpy as np
 import torch
 from torch import nn
 
 _LEAVES = {'kernel', 'bias', 'scale'}
+_BN = {'bn_scale': 'weight', 'bn_bias': 'bias', 'bn_mean': 'running_mean',
+       'bn_var': 'running_var'}
 
 
 def _layer_tensors(module, node, path):
     if isinstance(module, nn.Linear):
         return {'weight': node['kernel'].T, 'bias': node['bias']}
     if isinstance(module, nn.Conv2d):
-        return {'weight': node['kernel'].transpose(3, 2, 0, 1),
-                'bias': node['bias']}
+        out = {'weight': node['kernel'].transpose(3, 2, 0, 1)}
+        if module.bias is not None:
+            out['bias'] = node['bias']
+        return out
     if isinstance(module, nn.Conv1d):
         return {'weight': node['kernel'].transpose(2, 1, 0),
                 'bias': node['bias']}
@@ -33,32 +42,89 @@ def _layer_tensors(module, node, path):
     raise TypeError(f'{path}: no conversion for {type(module).__name__}')
 
 
-def _fill(module, node, path, filled):
+def _target(path, tensor, value, reshape=False):
+    value = np.array(value, np.float32)
+    if reshape and value.size == tensor.numel():
+        value = value.reshape(tensor.shape)
+    if tuple(tensor.shape) != value.shape:
+        raise ValueError(f'{path}: shape {value.shape} does not fit '
+                         f'{tuple(tensor.shape)}')
+    return tensor, value
+
+
+def _collect(module, node, path, out):
+    """Append (tensor, value) pairs of ``node`` under ``module`` to
+    ``out``."""
     if _LEAVES & node.keys():
         for name, value in _layer_tensors(module, node, path).items():
-            param = getattr(module, name)
-            value = np.asarray(value, np.float32)
-            if tuple(param.shape) != value.shape:
-                raise ValueError(f'{path}.{name}: shape {value.shape} does '
-                                 f'not fit {tuple(param.shape)}')
-            with torch.no_grad():
-                param.copy_(torch.from_numpy(np.ascontiguousarray(value)))
-            filled.add(id(param))
+            out.append(_target(f'{path}.{name}', getattr(module, name),
+                               value))
         return
     for name, child in node.items():
+        if name in _BN:
+            out.append(_target(f'{path}.bn.{_BN[name]}',
+                               getattr(module.bn, _BN[name]), child))
+            continue
         sub = getattr(module, name, None)
+        if isinstance(sub, torch.Tensor) and not isinstance(child, dict):
+            out.append(_target(f'{path}/{name}', sub, child, reshape=True))
+            continue
         if not isinstance(sub, nn.Module):
             raise KeyError(f'{path}/{name}: no such submodule in the port')
-        _fill(sub, child, f'{path}/{name}', filled)
+        _collect(sub, child, f'{path}/{name}', out)
 
 
 def load_params(module, params):
-    """Fill ``module`` from one Flax variables dict (``{'params': ...}``)."""
-    filled = set()
-    _fill(module, params['params'], type(module).__name__, filled)
-    missing = [n for n, p in module.named_parameters() if id(p) not in filled]
+    """Fill ``module`` from one Flax variables dict (``{'params': ...}``);
+    on any mismatch it raises and leaves ``module`` as it was."""
+    pairs = []
+    _collect(module, params['params'], type(module).__name__, pairs)
+    filled = {id(t) for t, _ in pairs}
+    stats = [(n, b) for n, b in module.named_buffers()
+             if n.endswith(('running_mean', 'running_var'))]
+    missing = [n for n, p in list(module.named_parameters()) + stats
+               if id(p) not in filled]
     if missing:
         raise KeyError(f'parameters not in the JAX tree: {missing}')
+    with torch.no_grad():
+        for tensor, value in pairs:
+            tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+
+
+def dump_params(module):
+    """The Flax variables dict (``{'params': ...}``) of a module made of
+    Linear, Conv2d, Conv1d and GroupNorm layers: the inverse of
+    :func:`load_params`, float32 numpy leaves."""
+    tree = {}
+    for name, layer in module.named_modules():
+        if isinstance(layer, nn.Linear):
+            leaves = {'kernel': layer.weight.T, 'bias': layer.bias}
+        elif isinstance(layer, nn.Conv2d):
+            leaves = {'kernel': layer.weight.permute(2, 3, 1, 0),
+                      'bias': layer.bias}
+        elif isinstance(layer, nn.Conv1d):
+            leaves = {'kernel': layer.weight.permute(2, 1, 0),
+                      'bias': layer.bias}
+        elif isinstance(layer, nn.GroupNorm):
+            leaves = {'scale': layer.weight, 'bias': layer.bias}
+        else:
+            continue
+        node = tree
+        for part in name.split('.'):
+            node = node.setdefault(part, {})
+        node.update({k: np.ascontiguousarray(
+            v.detach().float().cpu().numpy()) for k, v in leaves.items()
+            if v is not None})
+    return {'params': tree}
+
+
+def module_groups(model):
+    """The model's modules under their JAX state group names (None where
+    the model keeps no such module)."""
+    return dict(decoder=model.decoder, decoder_ema=model.decoder_ema,
+                diffusion=model.diffusion.denoising,
+                diffusion_ema=None if model.diffusion_ema is None
+                else model.diffusion_ema.denoising)
 
 
 def load_jax_params(model, tree):
@@ -67,17 +133,12 @@ def load_jax_params(model, tree):
     holds: the live modules train, the EMA modules generate and render.
     A tree whose module the model does not keep, or no such tree at all,
     raises."""
-    targets = dict(decoder=model.decoder, decoder_ema=model.decoder_ema,
-                   diffusion=model.diffusion,
-                   diffusion_ema=model.diffusion_ema)
+    targets = module_groups(model)
     found = [name for name in targets if name in tree]
     if not found:
         raise KeyError(f'none of {list(targets)} in the JAX state')
     for name in found:
-        module = targets[name]
-        if module is None:
+        if targets[name] is None:
             raise KeyError(f'{name}: the model keeps no such module')
-        if name.startswith('diffusion'):
-            module = module.denoising
-        load_params(module, tree[name])
+        load_params(targets[name], tree[name])
     return model

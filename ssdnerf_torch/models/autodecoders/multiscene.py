@@ -121,9 +121,6 @@ class MultiSceneNeRF(nn.Module):
         self.cache_size = cfg.get('cache_size', 0)
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
-        if self.test_cfg.get('max_render_rays'):
-            raise NotImplementedError('test_cfg.max_render_rays is not '
-                                      'ported')
         self._override_backup = {}
 
     @property
@@ -245,7 +242,9 @@ class MultiSceneNeRF(nn.Module):
         decoder.
 
         ``cfg`` (default ``test_cfg``) may override the decoder's
-        ``march_slots`` / ``pack_slots`` for the render.
+        ``march_slots`` / ``pack_slots`` for the render, and its
+        ``max_render_rays`` renders each scene's rays in chunks of that
+        many.
         """
         cfg = self.test_cfg if cfg is None else cfg
         decoder = self.ema_decoder
@@ -257,4 +256,5 @@ class MultiSceneNeRF(nn.Module):
         return render_views(decoder, code, density_bitfield, self.grid_size,
                             poses, intrinsics, h, w,
                             dt_gamma_scale=cfg.get('dt_gamma_scale', 0.0),
-                            bg_color=self.bg_color)
+                            bg_color=self.bg_color,
+                            max_render_rays=cfg.get('max_render_rays', -1))

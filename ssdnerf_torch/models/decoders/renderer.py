@@ -279,9 +279,14 @@ def get_density(decoder, code, grid_size, jitter, density_thresh=0.01):
 
 @torch.no_grad()
 def render_views(decoder, code, density_bitfield, grid_size, poses,
-                 intrinsics, h, w, dt_gamma_scale=0.0, bg_color=1.0):
+                 intrinsics, h, w, dt_gamma_scale=0.0, bg_color=1.0,
+                 max_render_rays=-1):
     """Full images for a batch of scenes and cameras (port of
-    ``ssdnerf_tpu/models/autodecoders/base.py:render_views``).
+    ``ssdnerf_tpu/models/autodecoders/base.py:render_views``).  With
+    ``0 < max_render_rays < V * h * w`` each scene's rays are rendered
+    ``max_render_rays`` at a time (the last chunk padded with rays of
+    origin 0 and direction 1, then cropped), as the JAX package's
+    ``lax.map`` over chunks.
 
     Args:
         poses: (S, V, 4, 4) camera-to-world; intrinsics: (S, V, 4).
@@ -292,8 +297,22 @@ def render_views(decoder, code, density_bitfield, grid_size, poses,
     dt_gamma = dt_gamma_scale * 2 / (
         intrinsics[..., 0] + intrinsics[..., 1]).mean(dim=-1)
     rays_o, rays_d = get_cam_rays(poses, intrinsics, h, w)
-    out = volume_render(decoder, code, rays_o.reshape(S, V * h * w, 3),
-                        rays_d.reshape(S, V * h * w, 3), density_bitfield,
-                        grid_size, dt_gamma=dt_gamma)
-    img = out['image'] + bg_color * (1 - out['weights_sum'][..., None])
-    return img.reshape(S, V, h, w, 3), out['depth'].reshape(S, V, h, w)
+    total = V * h * w
+    rays_o = rays_o.reshape(S, total, 3)
+    rays_d = rays_d.reshape(S, total, 3)
+    chunk = max_render_rays if 0 < max_render_rays < total else total
+    pad = -total % chunk
+    if pad:
+        rays_o = torch.cat([rays_o, rays_o.new_zeros(S, pad, 3)], 1)
+        rays_d = torch.cat([rays_d, rays_d.new_ones(S, pad, 3)], 1)
+    imgs, depths = [], []
+    for i in range(0, total + pad, chunk):
+        out = volume_render(decoder, code, rays_o[:, i:i + chunk],
+                            rays_d[:, i:i + chunk], density_bitfield,
+                            grid_size, dt_gamma=dt_gamma)
+        imgs.append(out['image']
+                    + bg_color * (1 - out['weights_sum'][..., None]))
+        depths.append(out['depth'])
+    img = torch.cat(imgs, 1)[:, :total]
+    depth = torch.cat(depths, 1)[:, :total]
+    return img.reshape(S, V, h, w, 3), depth.reshape(S, V, h, w)

@@ -584,7 +584,6 @@ def test_unet_pins_precision(monkeypatch):
 @pytest.mark.parametrize('section,key,value', [
     ('train_cfg', 'density_partial_update', True),
     ('train_cfg', 'log_grad_stats', True),
-    ('test_cfg', 'max_render_rays', 4096),
     ('test_cfg', 'density_partial_update', True)])
 def test_unported_config_keys_raise(section, key, value):
     """A config key the port does not read raises when set, instead of

@@ -890,3 +890,93 @@ def test_val_optim_step_matches_cpu(cuda_device, fp16):
     assert (off > 1e-3).float().mean() <= 1e-3
     assert off.max() <= 2 * 0.005 * 4
     assert _flipped(card[2], cpu[2]) <= 1e-3
+
+
+# -------------------------------------------------------------- evaluation
+@pytest.mark.parametrize('name', ['eval_psnr', 'eval_ssim',
+                                  'eval_ssim_skimage'])
+def test_metrics_match_cpu(cuda_device, name):
+    """PSNR and both SSIMs of 8 pairs of 128^2 images on the card vs the
+    CPU (IEEE f32 filters on both): atol 1e-5."""
+    from ssdnerf_torch.core import metrics
+    g = torch.Generator().manual_seed(30)
+    a = torch.rand((8, 3, 128, 128), generator=g)
+    b = (a + 0.1 * torch.randn(a.shape, generator=g)).clamp(0, 1)
+    fn = getattr(metrics, name)
+    ref = fn(a, b)
+    got = fn(a.to(cuda_device), b.to(cuda_device))
+    assert got.device.type == 'cuda'
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('net', ['inception', 'lpips'])
+def test_feature_nets_match_cpu(cuda_device, net):
+    """The Inception extractor (uint8 128^2 images, resize included) and
+    the VGG16 LPIPS with the seeded substitute weights on the card vs the
+    CPU: rel 1e-4 of the largest."""
+    import numpy as np
+    from ssdnerf_torch.core.evaluation import feature_nets as fn
+    g = torch.Generator().manual_seed(31)
+    if net == 'inception':
+        imgs = torch.randint(0, 256, (4, 128, 128, 3), generator=g,
+                             dtype=torch.uint8).numpy()
+        ref = fn.make_inception_extractor(None, device='cpu')(imgs)
+        got = fn.make_inception_extractor(None, device=cuda_device)(imgs)
+    else:
+        a = torch.rand((4, 3, 128, 128), generator=g)
+        b = (a + 0.1 * torch.randn(a.shape, generator=g)).clamp(0, 1)
+        ref = fn.make_lpips(None, device='cpu')(a, b).numpy()
+        got = fn.make_lpips(None, device=cuda_device)(a, b).cpu().numpy()
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err <= 1e-4, err
+
+
+def test_render_views_chunked_matches_cpu(cuda_device):
+    """``render_views`` with ``max_render_rays`` 3000 (4 views of 64^2 a
+    scene, 6 chunks, the last padded) of a ball occupancy, f32 decode: on
+    the card chunked vs unchunked atol 1e-6; the card vs the CPU within
+    ``chip_smoke.py`` phase 4's image tolerance, max 2e-2 / mean 1e-3, and
+    the depths' mean within 1e-3 (a sample whose position differs by an
+    ulp can fall in the neighbouring voxel and move its ray's depth by a
+    step)."""
+    from ssdnerf_torch.models.decoders.renderer import render_views
+    from ssdnerf_torch.ops import packbits
+    g = torch.Generator().manual_seed(32)
+    dec = _seeded_decoder(g, 'float32')
+    S, H, hw = 2, 64, 64
+    code = torch.randn((S, 3, 6, 128, 128), generator=g) * 0.5
+    c = torch.arange(H) - H / 2 + 0.5
+    occ = (c[:, None, None] ** 2 + c[None, :, None] ** 2
+           + c[None, None, :] ** 2) < (0.35 * H) ** 2
+    bitfield = packbits(occ.reshape(1, -1).float().expand(S, -1), 0.5)
+    poses = []
+    for a in (0.3, 1.9, 3.5, 5.1):
+        cam = torch.tensor([1.8 * math.cos(a), 0.6, 1.8 * math.sin(a)])
+        fwd = -cam / cam.norm()
+        right = torch.nn.functional.normalize(
+            torch.linalg.cross(fwd, torch.tensor([0.0, 1.0, 0.0])), dim=0)
+        pose = torch.eye(4)
+        pose[:3, 0], pose[:3, 1] = right, torch.linalg.cross(fwd, right)
+        pose[:3, 2], pose[:3, 3] = fwd, cam
+        poses.append(pose)
+    poses = torch.stack(poses).expand(S, -1, -1, -1)
+    f = hw * 131.25 / 128
+    intr = torch.tensor([f, f, hw / 2, hw / 2]).expand(S, 4, 4)
+    args = (H, poses, intr, hw, hw)
+    ref = render_views(dec, code, bitfield, *args, dt_gamma_scale=0.5,
+                       max_render_rays=3000)
+    dev_args = (H, poses.to(cuda_device), intr.to(cuda_device), hw, hw)
+    dec_dev = copy.deepcopy(dec).to(cuda_device)
+    got = render_views(dec_dev, code.to(cuda_device),
+                       bitfield.to(cuda_device), *dev_args,
+                       dt_gamma_scale=0.5, max_render_rays=3000)
+    whole = render_views(dec_dev, code.to(cuda_device),
+                         bitfield.to(cuda_device), *dev_args,
+                         dt_gamma_scale=0.5)
+    for a, b in zip(got, whole):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    img_err = (got[0].cpu() - ref[0]).abs()
+    assert img_err.max() <= 2e-2 and img_err.mean() <= 1e-3, (
+        img_err.max(), img_err.mean())
+    assert (got[1].cpu() - ref[1]).abs().mean() <= 1e-3
+    assert (ref[0] < 0.99).float().mean() > 0.3
