@@ -74,9 +74,11 @@ def _collect(module, node, path, out):
         _collect(sub, child, f'{path}/{name}', out)
 
 
-def load_params(module, params):
-    """Fill ``module`` from one Flax variables dict (``{'params': ...}``);
-    on any mismatch it raises and leaves ``module`` as it was."""
+def param_values(module, params):
+    """(tensor, value) for every parameter (and batch-norm statistic) of
+    ``module`` from one Flax variables dict (``{'params': ...}``), values
+    as numpy arrays in the tensors' layouts; a tree that misses one, has
+    one the module lacks, or has a wrong shape raises."""
     pairs = []
     _collect(module, params['params'], type(module).__name__, pairs)
     filled = {id(t) for t, _ in pairs}
@@ -86,35 +88,51 @@ def load_params(module, params):
                if id(p) not in filled]
     if missing:
         raise KeyError(f'parameters not in the JAX tree: {missing}')
+    return pairs
+
+
+def load_params(module, params):
+    """Fill ``module`` from one Flax variables dict (``{'params': ...}``);
+    on any mismatch it raises and leaves ``module`` as it was."""
+    pairs = param_values(module, params)
     with torch.no_grad():
         for tensor, value in pairs:
             tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
 
 
-def dump_params(module):
+def dump_params(module, leaf=None):
     """The Flax variables dict (``{'params': ...}``) of a module made of
     Linear, Conv2d, Conv1d and GroupNorm layers: the inverse of
-    :func:`load_params`, float32 numpy leaves."""
+    :func:`load_params`, float32 numpy copies.  ``leaf(parameter)`` gives
+    the tensor dumped in a parameter's place (an optimizer's moment of
+    it: optax keeps those in the parameters' tree)."""
+    leaf = leaf or (lambda p: p)
     tree = {}
     for name, layer in module.named_modules():
         if isinstance(layer, nn.Linear):
-            leaves = {'kernel': layer.weight.T, 'bias': layer.bias}
-        elif isinstance(layer, nn.Conv2d):
-            leaves = {'kernel': layer.weight.permute(2, 3, 1, 0),
-                      'bias': layer.bias}
-        elif isinstance(layer, nn.Conv1d):
-            leaves = {'kernel': layer.weight.permute(2, 1, 0),
-                      'bias': layer.bias}
+            leaves = {'kernel': (layer.weight, lambda t: t.T),
+                      'bias': (layer.bias, None)}
+        elif isinstance(layer, (nn.Conv2d, nn.Conv1d)):
+            order = (2, 3, 1, 0) if isinstance(layer, nn.Conv2d) \
+                else (2, 1, 0)
+            leaves = {'kernel': (layer.weight,
+                                 lambda t, o=order: t.permute(*o)),
+                      'bias': (layer.bias, None)}
         elif isinstance(layer, nn.GroupNorm):
-            leaves = {'scale': layer.weight, 'bias': layer.bias}
+            leaves = {'scale': (layer.weight, None),
+                      'bias': (layer.bias, None)}
         else:
             continue
         node = tree
         for part in name.split('.'):
             node = node.setdefault(part, {})
-        node.update({k: np.ascontiguousarray(
-            v.detach().float().cpu().numpy()) for k, v in leaves.items()
-            if v is not None})
+        for k, (p, layout) in leaves.items():
+            if p is None:
+                continue
+            t = leaf(p)
+            t = layout(t) if layout else t
+            # a copy: a view would follow later in-place updates
+            node[k] = np.array(t.detach().float().cpu().numpy(), order='C')
     return {'params': tree}
 
 

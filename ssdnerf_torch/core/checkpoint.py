@@ -10,9 +10,14 @@ the subset of msgpack this uses.
 The state groups the port holds are ``decoder``, ``decoder_ema``,
 ``diffusion``, ``diffusion_ema`` (Flax parameter trees, through
 ``convert``) and ``ddpm_loss``, the diffusion loss's scale-norm factor
-(the live and EMA modules' ``norm_factor``).  Optimizer states
-(``opt_*``) and other groups are read and left alone: evaluation does not
-use them.
+(the live and EMA modules' ``norm_factor``); a training run's checkpoint
+adds ``opt_diffusion`` and ``opt_decoder``, its optimizers as
+``flax.serialization.to_state_dict`` lays out ``optax.adam(schedule)``
+(``{'0': {count, mu, nu}, '1': {count}}``) or ``optax.adamw(schedule)``
+(``{'0': ..., '1': {}, '2': {count}}``): the Adam step count and moments,
+``mu`` / ``nu`` in the parameters' tree, then the schedule's count.  They
+map to ``torch.optim`` Adam's ``step`` / ``exp_avg`` / ``exp_avg_sq`` and
+to ``LambdaLR.last_epoch``.  Evaluation reads the model's groups only.
 """
 import os
 import struct
@@ -20,7 +25,7 @@ import struct
 import numpy as np
 import torch
 
-from ..convert import dump_params, load_params, module_groups
+from ..convert import dump_params, load_params, module_groups, param_values
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
@@ -205,13 +210,78 @@ def unpackb(data):
 
 
 # ----------------------------------------------------------- the state
-def model_state(model):
-    """The JAX state groups the model holds, as numpy trees."""
-    state = {name: dump_params(module)
-             for name, module in module_groups(model).items()
+def optimizer_state(module, optimizer, scheduler):
+    """The optax state tree (``to_state_dict`` layout) of ``optimizer``
+    over ``module``'s parameters, with ``scheduler``'s count; a parameter
+    not yet updated has zero moments, as ``tx.init`` gives."""
+    steps = {float(optimizer.state[p]['step']) if 'step' in optimizer.state[
+        p] else 0.0 for p in module.parameters()}
+    if len(steps) != 1:
+        raise ValueError(f'parameters at different Adam steps {steps}')
+
+    def moment(key):
+        return lambda p: optimizer.state[p][key] if key in optimizer.state[
+            p] else torch.zeros_like(p)
+
+    adam = dict(count=np.asarray(int(steps.pop()), np.int32),
+                mu=dump_params(module, moment('exp_avg')),
+                nu=dump_params(module, moment('exp_avg_sq')))
+    sched = dict(count=np.asarray(scheduler.last_epoch, np.int32))
+    if isinstance(optimizer, torch.optim.AdamW):
+        return {'0': adam, '1': {}, '2': sched}
+    return {'0': adam, '1': sched}
+
+
+def set_schedule_count(scheduler, count):
+    """Put a ``LambdaLR`` at update ``count`` (a resumed optax schedule
+    count): ``last_epoch`` and its optimizer's learning rates."""
+    scheduler.last_epoch = int(count)
+    lrs = [base * fn(scheduler.last_epoch) for base, fn in zip(
+        scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, lr in zip(scheduler.optimizer.param_groups, lrs):
+        group['lr'] = lr
+    scheduler._last_lr = lrs
+
+
+def load_optimizer_state(module, optimizer, scheduler, tree):
+    """Fill ``optimizer`` (over ``module``'s parameters) and ``scheduler``
+    from an optax state tree of :func:`optimizer_state`'s layout; a tree
+    of another optimizer, or moments that do not fit the parameters,
+    raise before anything is written."""
+    keys = ('0', '1', '2') if isinstance(optimizer, torch.optim.AdamW) \
+        else ('0', '1')
+    if not isinstance(tree, dict) or tuple(sorted(tree)) != keys or (
+            len(keys) == 3 and tree['1'] != {}):
+        raise ValueError(f'optimizer tree {sorted(tree)} is not that of '
+                         f'{type(optimizer).__name__}')
+    adam, sched = tree['0'], tree[keys[-1]]
+    if set(adam) != {'count', 'mu', 'nu'} or set(sched) != {'count'}:
+        raise ValueError('optimizer tree: expected Adam (count, mu, nu) '
+                         'and a schedule count')
+    moments = {key: {id(p): v for p, v in param_values(module, adam[key])}
+               for key in ('mu', 'nu')}
+    count = float(adam['count'])
+    for p in module.parameters():
+        state = optimizer.state[p]
+        state['step'] = torch.tensor(count, dtype=torch.float32)
+        for key, name in (('mu', 'exp_avg'), ('nu', 'exp_avg_sq')):
+            state[name] = torch.from_numpy(np.ascontiguousarray(
+                moments[key][id(p)])).to(p.device, p.dtype)
+    set_schedule_count(scheduler, int(sched['count']))
+
+
+def model_state(model, optimizers=None, schedulers=None):
+    """The JAX state groups the model holds, as numpy trees; with
+    ``optimizers`` and ``schedulers`` (dicts keyed 'diffusion' /
+    'decoder') also their ``opt_*`` groups."""
+    groups = module_groups(model)
+    state = {name: dump_params(module) for name, module in groups.items()
              if module is not None}
     state['ddpm_loss'] = model.diffusion.norm_factor.detach().float().cpu(
         ).numpy()
+    for name, opt in (optimizers or {}).items():
+        state['opt_' + name] = optimizer_state(groups[name], opt,
+                                               schedulers[name])
     return state
 
 
@@ -228,43 +298,80 @@ def _load_group(model, name, value):
         load_params(targets[name], value)
 
 
-def save_checkpoint(path, model, iteration=0, meta=None):
-    """Write the model's groups (:func:`model_state`) as a JAX-package
-    checkpoint (``{state, iteration, meta}``), through a temporary file."""
+def group_names(model):
+    """The JAX state groups the model holds (its optimizers' aside)."""
+    return [n for n, m in module_groups(model).items()
+            if m is not None] + ['ddpm_loss']
+
+
+def load_model_groups(model, state, names=None, lenient=False):
+    """Fill the model's groups ``names`` (default: all it holds) from a
+    state; ``lenient`` keeps a missing or mismatched group's value and
+    prints why, else either raises."""
+    if names is None:
+        names = group_names(model)
+    for name in names:
+        if name not in state:
+            if not lenient:
+                raise KeyError(f'{name}: missing in checkpoint')
+            print(f'[checkpoint] {name}: missing in checkpoint, keeping '
+                  f'fresh value')
+            continue
+        try:
+            _load_group(model, name, state[name])
+        except (ValueError, KeyError, TypeError) as e:
+            if not lenient:
+                raise
+            print(f'[checkpoint] {name}: structure mismatch, keeping '
+                  f'fresh value ({str(e)[:120]})')
+
+
+def save_checkpoint(path, model, iteration=0, meta=None, optimizers=None,
+                    schedulers=None):
+    """Write the model's groups (:func:`model_state`, with the optimizers'
+    when given) as a JAX-package checkpoint (``{state, iteration,
+    meta}``), through a temporary file."""
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
-    payload = {'state': model_state(model), 'iteration': int(iteration),
-               'meta': meta or {}}
+    payload = {'state': model_state(model, optimizers, schedulers),
+               'iteration': int(iteration), 'meta': meta or {}}
     tmp = path + '.tmp'
     with open(tmp, 'wb') as f:
         f.write(packb(payload))
     os.replace(tmp, path)
 
 
-def load_checkpoint(path, model=None, lenient=False):
-    """Read a JAX-package checkpoint; returns (state, iteration, meta) with
-    the state as numpy trees.  With ``model``, its groups are filled from
-    the state.  ``lenient=True`` (evaluation) restores group by group and
-    keeps the model's own value of a group that is missing from the
-    checkpoint or does not fit, printing why, as the JAX package's loader
-    does; otherwise either raises."""
+def read_checkpoint(path):
+    """(state, iteration, meta) of a JAX-package checkpoint, the state as
+    numpy trees."""
     with open(path, 'rb') as f:
         payload = unpackb(f.read())
-    state = _unchunk(payload['state'])
+    return (_unchunk(payload['state']), payload.get('iteration', 0),
+            payload.get('meta', {}))
+
+
+def load_checkpoint(path, model=None, lenient=False, optimizers=None,
+                    schedulers=None):
+    """Read a JAX-package checkpoint; returns (state, iteration, meta) with
+    the state as numpy trees.  With ``model``, its groups are filled from
+    the state, and with ``optimizers`` / ``schedulers`` (training resume)
+    their ``opt_*`` groups too.  ``lenient=True`` (evaluation) restores
+    group by group and keeps the model's own value of a group that is
+    missing from the checkpoint or does not fit, printing why, as the JAX
+    package's loader does; otherwise either raises."""
+    state, iteration, meta = read_checkpoint(path)
     if model is not None:
-        groups = [n for n, m in module_groups(model).items()
-                  if m is not None] + ['ddpm_loss']
-        for name in groups:
-            if name not in state:
-                if not lenient:
-                    raise KeyError(f'{name}: missing in checkpoint')
-                print(f'[checkpoint] {name}: missing in checkpoint, '
-                      f'keeping fresh value')
-                continue
+        load_model_groups(model, state, lenient=lenient)
+        groups = module_groups(model)
+        for name, opt in (optimizers or {}).items():
+            key = 'opt_' + name
             try:
-                _load_group(model, name, state[name])
+                if key not in state:
+                    raise KeyError(f'{key}: missing in checkpoint')
+                load_optimizer_state(groups[name], opt, schedulers[name],
+                                     state[key])
             except (ValueError, KeyError, TypeError) as e:
                 if not lenient:
                     raise
-                print(f'[checkpoint] {name}: structure mismatch, keeping '
-                      f'fresh value ({str(e)[:120]})')
-    return state, payload.get('iteration', 0), payload.get('meta', {})
+                print(f'[checkpoint] {key}: keeping fresh value '
+                      f'({str(e)[:120]})')
+    return state, iteration, meta

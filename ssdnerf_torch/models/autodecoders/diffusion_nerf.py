@@ -5,7 +5,7 @@ generation and reconstruction (port of ``DiffusionNeRF.train_step``,
 
 The live ``diffusion`` and ``decoder`` are trained; ``diffusion_ema`` and
 ``decoder_ema`` are what generation, reconstruction and rendering read.
-The EMA update itself belongs to the runner, which is not ported.  With
+The runner's ``EMAHook`` updates the EMA modules after each step.  With
 ``autocast_dtype`` ('float16' or 'bfloat16', both bf16 as in the JAX
 package) sampling runs a bf16 copy of the EMA diffusion on a bf16 chain.
 The test-time diffusion losses (``val_optim``, the polish of

@@ -34,12 +34,22 @@ class DeviceSceneCache:
     one device (port of ``DeviceSceneCache``): f32 raw codes, the code
     Adam's moments and step counts, f16 density grids and occupancy
     bitfields.  ``save`` writes the batch's rows in place.  Which scenes
-    have been initialised is kept on the host.
+    have been initialised is kept on the host.  One process holds the
+    whole bank: a scene's id is its row.
+
+    :meth:`state_dict` gives host numpy arrays under the JAX package's
+    keys and dtypes (``code_``, ``m``, ``v``, ``step``, ``density_grid``,
+    ``density_bitfield``, ``seen``), so that a bank ``.npz`` one package
+    writes loads in the other.
     """
+
+    KEYS = ('code_', 'm', 'v', 'step', 'density_grid', 'density_bitfield')
 
     def __init__(self, cache_size, code_size, grid_size, device='cpu'):
         n, cs = cache_size, tuple(code_size)
         self.cache_size = cache_size
+        self.code_size = cs
+        self.grid_size = grid_size
         self.code_ = torch.zeros((n,) + cs, device=device)
         self.m = torch.zeros((n,) + cs, device=device)
         self.v = torch.zeros((n,) + cs, device=device)
@@ -57,16 +67,20 @@ class DeviceSceneCache:
         return ids
 
     def ensure_init(self, scene_ids, init_code_fn=None):
-        """Write ``init_code_fn(num)`` codes (on the bank's device) into
-        the rows of scenes not seen before; returns the rows' index
-        tensor."""
+        """Write ``init_code_fn(num)`` codes (a tensor or a numpy array)
+        into the rows of scenes not seen before, in batch order; returns
+        the rows' index tensor."""
         ids = self._index(scene_ids)
         unseen = ids[~self.seen[ids]]
         if len(unseen) and init_code_fn is not None:
             rows = torch.as_tensor(unseen, device=self.code_.device)
-            self.code_[rows] = init_code_fn(len(unseen))
+            self.code_[rows] = torch.as_tensor(init_code_fn(len(unseen))).to(
+                self.code_.device, self.code_.dtype)
             self.seen[unseen] = True
         return torch.as_tensor(ids, device=self.code_.device)
+
+    def mark_seen(self, scene_ids):
+        self.seen[self._index(scene_ids)] = True
 
     def load(self, scene_ids, init_code_fn=None):
         """Copies of the batch's rows: dict(code_, opt, density_grid,
@@ -91,6 +105,64 @@ class DeviceSceneCache:
             self.density_bitfield[idx] = density_bitfield
         self.seen[ids] = True
 
+    def state_dict(self):
+        """Host numpy copies of the bank and ``seen``."""
+        out = {k: getattr(self, k).to('cpu', copy=True).numpy()
+               for k in self.KEYS}
+        out['seen'] = self.seen.copy()
+        return out
+
+    def load_state_dict(self, d):
+        """Fill the bank from a :meth:`state_dict` (of either package; rows
+        missing at the end are zero, as JAX pads them); keys absent from
+        ``d`` keep their values."""
+        for k in self.KEYS:
+            if k not in d:
+                continue
+            cur = getattr(self, k)
+            val = np.asarray(d[k])
+            if val.shape[0] < cur.shape[0]:
+                val = np.concatenate([val, np.zeros(
+                    (cur.shape[0] - val.shape[0],) + val.shape[1:],
+                    val.dtype)])
+            if val.shape != tuple(cur.shape):
+                raise ValueError(f'{k}: shape {val.shape} does not fit the '
+                                 f'bank {tuple(cur.shape)}')
+            cur.copy_(torch.from_numpy(np.ascontiguousarray(val)).to(
+                cur.dtype))
+        if 'seen' in d:
+            self.seen[...] = np.asarray(d['seen'])
+
+    def reset(self):
+        """Forget every scene: zero the bank, nothing seen."""
+        self.seen[:] = False
+        for k in self.KEYS:
+            getattr(self, k).zero_()
+
+    def set_codes(self, code_, zero_opt=True):
+        """Every row's raw code set to ``code_`` (one code, broadcast), the
+        Adam state zeroed with ``zero_opt``."""
+        self.code_.copy_(torch.as_tensor(code_).to(
+            self.code_.device, self.code_.dtype).expand_as(self.code_))
+        if zero_opt:
+            for k in ('m', 'v', 'step'):
+                getattr(self, k).zero_()
+
+    def write_scenes(self, local_idx, code_, density_grid, density_bitfield,
+                     zero_opt=True):
+        """Rows ``local_idx`` set to the given codes and density state
+        (their Adam state zeroed with ``zero_opt``) and marked seen."""
+        li = np.asarray(local_idx)
+        idx = torch.as_tensor(li, device=self.code_.device)
+        for k, val in (('code_', code_), ('density_grid', density_grid),
+                       ('density_bitfield', density_bitfield)):
+            cur = getattr(self, k)
+            cur[idx] = torch.as_tensor(val).to(cur.device, cur.dtype)
+        if zero_opt:
+            for k in ('m', 'v', 'step'):
+                getattr(self, k)[idx] = 0
+        self.seen[li] = True
+
 
 class MultiSceneNeRF(nn.Module):
     """Holds the decoder, its EMA copy (``decoder_use_ema``), the losses and
@@ -114,7 +186,9 @@ class MultiSceneNeRF(nn.Module):
             cfg.get('pixel_loss', {'type': 'MSELoss'}))
         self.reg_loss = build_reg_loss(cfg.get('reg_loss'))
         self.update_extra_interval = cfg.get('update_extra_interval', 16)
-        for key in ('init_from_mean', 'cache_16bit'):
+        # the mean-code init, the 16-bit host cache and the filesystem
+        # cache's writers (ROADMAP section 1 item 3)
+        for key in ('init_from_mean', 'cache_16bit', 'num_file_writers'):
             if cfg.get(key):
                 raise NotImplementedError(f'{key} is not ported')
         self.init_scale = cfg.get('init_scale', 1e-4)
@@ -217,6 +291,13 @@ class MultiSceneNeRF(nn.Module):
     def make_cache(self, device):
         return DeviceSceneCache(self.cache_size, self.code_size,
                                 self.grid_size, device)
+
+    def get_init_code_np(self, num, rng):
+        """Fresh raw codes drawn on the host from ``rng`` (a
+        ``np.random.RandomState``), uniform in [-init_scale, init_scale),
+        the JAX package's draw: the same state gives the same codes."""
+        return rng.uniform(-self.init_scale, self.init_scale,
+                           (num,) + self.code_size).astype(np.float32)
 
     def get_init_code(self, num, generator=None, device='cpu'):
         """Fresh raw codes, uniform in [-init_scale, init_scale)."""

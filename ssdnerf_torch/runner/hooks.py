@@ -1,0 +1,418 @@
+"""Training hooks (port of ``ssdnerf_tpu/runner/hooks.py``): the EMA update,
+the scene-bank hooks (save, reset), scheduled config surgery, stats and
+text / tensorboard logs, directory backups, checkpoints and profiler
+traces, each called by the runner after every iteration.
+
+``UpdateCacheHook`` (it needs stage 1's ``val_inverse_code``) and
+``MeanCacheHook`` (it needs ``init_from_mean``) belong to ROADMAP section
+1 item 3 and raise when built.
+"""
+import json
+import os
+import shutil
+import time
+
+import numpy as np
+import torch
+
+from ..convert import module_groups
+
+
+class Hook:
+    priority = 50  # lower = earlier
+
+    def before_run(self, runner):
+        pass
+
+    def after_train_iter(self, runner):
+        pass
+
+    def after_run(self, runner):
+        pass
+
+    def every_n_iters(self, runner, n):
+        # runner.iteration counts *completed* iterations (1-based)
+        return n > 0 and runner.iteration % n == 0
+
+
+class EMAHook(Hook):
+    """mmgen's ExponentialMovingAverageHook with StyleGAN's rampup
+    momentum: after every ``interval`` iterations each EMA module of
+    ``module_keys`` ('diffusion_ema' and 'decoder_ema', the JAX state
+    groups) becomes ``beta * ema + (1 - beta) * live``, in place, one
+    ``torch._foreach_lerp_`` pass a module (each EMA and live parameter
+    read once, the EMA written once); before ``start_iter`` it is a copy
+    of the live module.  ``beta`` is taken in f32 as the JAX package's
+    jitted lerp takes it.  The EMA modules (the UNet and the decoder) have
+    no buffers, so parameters are all there is to average."""
+    priority = 10  # VERY_HIGH
+
+    def __init__(self, module_keys=('diffusion_ema', 'decoder_ema'),
+                 interp_mode='lerp', interval=1, start_iter=0,
+                 momentum_policy='rampup', momentum_cfg=None, **kwargs):
+        if interp_mode != 'lerp':
+            raise NotImplementedError(f'EMA interp_mode {interp_mode}')
+        self.module_keys = tuple(module_keys)
+        self.interval = interval
+        self.start_iter = start_iter
+        self.momentum_policy = momentum_policy
+        self.momentum_cfg = dict(momentum_cfg or {})
+
+    def momentum(self, runner):
+        if self.momentum_policy == 'rampup':
+            cfg = self.momentum_cfg
+            batch_size = cfg.get('batch_size', 4)
+            ema_kimg = cfg.get('ema_kimg', 10)
+            ema_rampup = cfg.get('ema_rampup', None)
+            eps = cfg.get('eps', 1e-8)
+            cur_nimg = runner.iteration * batch_size
+            ema_nimg = ema_kimg * 1000
+            if ema_rampup is not None:
+                ema_nimg = min(ema_nimg, cur_nimg * ema_rampup)
+            return 0.5 ** (batch_size / max(ema_nimg, eps))
+        return self.momentum_cfg.get('momentum', 0.999)
+
+    def pairs(self, runner):
+        """(EMA parameters, live parameters) of each module key the model
+        holds."""
+        groups = module_groups(runner.model)
+        out = []
+        for ema_key in self.module_keys:
+            ema, live = groups.get(ema_key), groups.get(ema_key[:-4])
+            if ema is not None and live is not None:
+                out.append((list(ema.parameters()), list(live.parameters())))
+        return out
+
+    @torch.no_grad()
+    def after_train_iter(self, runner):
+        if runner.iteration % self.interval != 0:
+            return
+        copy = runner.iteration - 1 < self.start_iter
+        beta = np.float32(self.momentum(runner))
+        for ema, live in self.pairs(runner):
+            if copy:
+                torch._foreach_copy_(ema, live)
+            else:
+                torch._foreach_lerp_(ema, live,
+                                     float(np.float32(1) - beta))
+
+
+class SaveCacheHook(Hook):
+    """Every ``interval`` iterations and at the end, one ``<scene>.npz`` a
+    seen scene of the bank in ``out_dir`` (the JAX package's keys:
+    scene_id, scene_name, code_, density_grid, density_bitfield,
+    optimizer_m / _v / _step), and with ``viz_dir`` the triplanes of every
+    ``viz_step``-th scene as PNGs."""
+    priority = 50
+
+    def __init__(self, interval=5000, out_dir=None, viz_dir=None,
+                 viz_step=32, **kwargs):
+        self.interval = interval
+        self.out_dir = out_dir
+        self.viz_dir = viz_dir
+        self.viz_step = viz_step
+
+    def after_train_iter(self, runner):
+        if self.every_n_iters(runner, self.interval):
+            self.save_all(runner)
+
+    def after_run(self, runner):
+        self.save_all(runner)
+
+    def save_all(self, runner):
+        cache = runner.cache
+        if cache is None or self.out_dir is None:
+            return
+        os.makedirs(self.out_dir, exist_ok=True)
+        names = runner.scene_names
+        sd = cache.state_dict()
+
+        def name_of(li):
+            return names[li] if names is not None else f'{li:06d}'
+
+        for li in range(cache.cache_size):
+            if not sd['seen'][li]:
+                continue
+            name = name_of(li)
+            np.savez(
+                os.path.join(self.out_dir, name + '.npz'),
+                scene_id=li, scene_name=name,
+                code_=sd['code_'][li],
+                density_grid=sd['density_grid'][li],
+                density_bitfield=sd['density_bitfield'][li],
+                optimizer_m=np.asarray(sd['m'][li], np.float32),
+                optimizer_v=np.asarray(sd['v'][li], np.float32),
+                optimizer_step=sd['step'][li])
+        if self.viz_dir is not None:
+            from ..apis.eval_utils import visualize_triplane
+            sel = [li for li in range(0, cache.cache_size,
+                                      max(self.viz_step, 1))
+                   if sd['seen'][li]]
+            if sel:
+                codes = runner.model.code_activation(torch.from_numpy(
+                    sd['code_'][sel].astype(np.float32)))
+                visualize_triplane(codes, [name_of(li) for li in sel],
+                                   self.viz_dir)
+
+
+class ResetCacheHook(Hook):
+    """Forget every scene of the bank every ``interval`` iterations."""
+
+    def __init__(self, interval=0, **kwargs):
+        self.interval = interval
+
+    def after_train_iter(self, runner):
+        if self.every_n_iters(runner, self.interval):
+            runner.cache.reset()
+
+
+class UpdateCacheHook(Hook):
+    """Mid-training rebuild of the bank by test-time optimisation: needs
+    stage 1's ``val_inverse_code``, not ported (ROADMAP section 1 item
+    3)."""
+
+    def __init__(self, **kwargs):
+        raise NotImplementedError(
+            'UpdateCacheHook needs val_inverse_code (stage 1), which is not '
+            'ported: ROADMAP section 1 item 3')
+
+
+class MeanCacheHook(Hook):
+    """Every code of the bank set to the mean code: needs
+    ``init_from_mean``, not ported (ROADMAP section 1 item 3)."""
+
+    def __init__(self, **kwargs):
+        raise NotImplementedError(
+            'MeanCacheHook needs init_from_mean, which is not ported: '
+            'ROADMAP section 1 item 3')
+
+
+class ModelUpdaterHook(Hook):
+    """At each iteration of ``step``, the dotted config paths of the
+    matching ``cfgs`` entry set on the model (``set_dotted``); they take
+    effect at the next iteration.  A run resumed at iteration ``n`` first
+    applies the entries of the steps up to ``n``, in order, so that it
+    trains with the config an uninterrupted run would have (the JAX
+    package's hook does not, so its resumed runs lose them)."""
+    priority = 40
+
+    def __init__(self, step=(), cfgs=(), **kwargs):
+        self.steps = list(step)
+        self.cfgs = list(cfgs)
+
+    def _apply(self, runner, cfg, what):
+        for key, value in cfg.items():
+            runner.model.set_dotted(key, value)
+        runner.invalidate_step()
+        runner.log_text(f'ModelUpdaterHook {what}: {cfg}')
+
+    def before_run(self, runner):
+        for s, cfg in sorted(zip(self.steps, self.cfgs),
+                             key=lambda sc: sc[0]):
+            if 0 < s <= runner.iteration:
+                self._apply(runner, cfg, f'of iter {s} applied at resume '
+                            f'(iter {runner.iteration})')
+
+    def after_train_iter(self, runner):
+        it = runner.iteration
+        for s, cfg in zip(self.steps, self.cfgs):
+            if it == s:
+                self._apply(runner, cfg, f'applied at iter {it}')
+
+
+class SaveStatsHook(Hook):
+    """Every ``interval`` iterations a line of ``stats_rank{r}.jsonl`` in
+    the work dir: the last iteration's scalar log vars and ``iter`` (the
+    JAX package's record), and ``scene_id``, the ids of the batch it
+    trained."""
+
+    def __init__(self, interval=50, **kwargs):
+        self.interval = interval
+
+    def after_train_iter(self, runner):
+        if not self.every_n_iters(runner, self.interval):
+            return
+        path = os.path.join(runner.work_dir,
+                            f'stats_rank{runner.rank}.jsonl')
+        stats = {k: float(v) for k, v in runner.last_log_vars.items()
+                 if np.ndim(v) == 0}
+        stats['iter'] = runner.iteration
+        stats['scene_id'] = [int(i) for i in runner.last_scene_ids]
+        with open(path, 'a') as f:
+            f.write(json.dumps(stats) + '\n')
+
+
+class DirCopyHook(Hook):
+    """Every ``interval`` iterations a copy of ``in_dir`` into
+    ``out_dir``."""
+
+    def __init__(self, interval=0, in_dir=None, out_dir=None, **kwargs):
+        self.interval = interval
+        self.in_dir = in_dir
+        self.out_dir = out_dir
+
+    def after_train_iter(self, runner):
+        if self.every_n_iters(runner, self.interval) and self.in_dir and \
+                os.path.isdir(self.in_dir):
+            shutil.copytree(self.in_dir, self.out_dir, dirs_exist_ok=True)
+
+
+class TextLoggerHook(Hook):
+    """Every ``interval`` iterations a log line: iterations a second since
+    the last line and the scalar log vars."""
+    priority = 90
+
+    def __init__(self, interval=50, **kwargs):
+        self.interval = interval
+        self._t0 = None
+        self._it0 = 0
+
+    def before_run(self, runner):
+        self._t0 = time.time()
+        self._it0 = runner.iteration
+
+    def after_train_iter(self, runner):
+        if not self.every_n_iters(runner, self.interval):
+            return
+        now = time.time()
+        it = runner.iteration
+        ips = (it - self._it0) / max(now - self._t0, 1e-9)
+        self._t0, self._it0 = now, it
+        vals = ', '.join(f'{k}: {float(v):.4g}'
+                         for k, v in runner.last_log_vars.items()
+                         if np.ndim(v) == 0)
+        runner.log_text(
+            f'Iter [{it}/{runner.max_iters}] {ips:.2f} it/s  {vals}')
+
+
+class TensorboardLoggerHook(Hook):
+    """Scalar log vars every ``interval`` iterations into
+    ``work_dir/tf_logs`` through ``tensorboardX``; without that package
+    the writer is None and the hook does nothing."""
+    priority = 90
+
+    def __init__(self, interval=50, **kwargs):
+        self.interval = interval
+        self.writer = None
+
+    def before_run(self, runner):
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            self.writer = None
+            return
+        self.writer = SummaryWriter(os.path.join(runner.work_dir, 'tf_logs'))
+
+    def after_train_iter(self, runner):
+        if self.writer is None or not self.every_n_iters(runner,
+                                                         self.interval):
+            return
+        for k, v in runner.last_log_vars.items():
+            if np.ndim(v) == 0:
+                self.writer.add_scalar(k, float(v), runner.iteration)
+
+    def after_run(self, runner):
+        if self.writer is not None:
+            self.writer.close()
+
+
+class CheckpointHook(Hook):
+    """A checkpoint every ``interval`` iterations (keeping the newest
+    ``max_keep_ckpts`` when > 0) and at the end of the run, unless this
+    hook saved at that iteration already."""
+    priority = 70
+
+    def __init__(self, interval=5000, max_keep_ckpts=-1, **kwargs):
+        self.interval = interval
+        self.max_keep = max_keep_ckpts
+        self._saved_at = None
+
+    def after_train_iter(self, runner):
+        if self.every_n_iters(runner, self.interval):
+            runner.save_checkpoint()
+            self._saved_at = runner.iteration
+            if self.max_keep > 0:
+                runner.prune_checkpoints(self.max_keep)
+
+    def after_run(self, runner):
+        if self._saved_at != runner.iteration:
+            runner.save_checkpoint()
+
+
+class ProfilerHook(Hook):
+    """A ``torch.profiler`` trace (host and, on a card, device activity)
+    of iterations ``start_iter + 1`` to ``start_iter + num_iters``,
+    exported as a Chrome trace into ``out_dir`` (default
+    ``work_dir/profile``)."""
+
+    def __init__(self, start_iter=10, num_iters=5, out_dir=None, **kwargs):
+        self.start_iter = start_iter
+        self.num_iters = num_iters
+        self.out_dir = out_dir
+        self._prof = None
+
+    def after_train_iter(self, runner):
+        if runner.iteration == self.start_iter and self._prof is None:
+            out = self.out_dir or os.path.join(runner.work_dir, 'profile')
+            os.makedirs(out, exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._out = out
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+            runner.log_text(f'ProfilerHook: tracing to {out}')
+        elif self._prof is not None and runner.iteration >= \
+                self.start_iter + self.num_iters:
+            self._stop(runner)
+
+    def after_run(self, runner):
+        if self._prof is not None:
+            self._stop(runner)
+
+    def _stop(self, runner):
+        self._prof.__exit__(None, None, None)
+        path = os.path.join(self._out,
+                            f'trace_rank{runner.rank}_iter{runner.iteration}'
+                            '.json')
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        runner.log_text(f'ProfilerHook: trace written to {path}')
+
+
+_HOOKS = {
+    'ExponentialMovingAverageHook': EMAHook,
+    'ProfilerHook': ProfilerHook,
+    'SaveCacheHook': SaveCacheHook,
+    'ResetCacheHook': ResetCacheHook,
+    'UpdateCacheHook': UpdateCacheHook,
+    'MeanCacheHook': MeanCacheHook,
+    'ModelUpdaterHook': ModelUpdaterHook,
+    'SaveStatsHook': SaveStatsHook,
+    'DirCopyHook': DirCopyHook,
+    'TextLoggerHook': TextLoggerHook,
+    'TensorboardLoggerHook': TensorboardLoggerHook,
+    'CheckpointHook': CheckpointHook,
+}
+
+_PRIORITY = {'VERY_HIGH': 10, 'HIGH': 30, 'NORMAL': 50, 'LOW': 70,
+             'VERY_LOW': 90}
+
+
+def build_hooks(hook_cfgs):
+    """Hooks of the config's ``custom_hooks`` list, sorted by priority (a
+    name or a number); kinds not listed in ``_HOOKS`` are skipped, as the
+    JAX package skips them."""
+    hooks = []
+    for cfg in hook_cfgs or []:
+        cfg = dict(cfg)
+        kind = cfg.pop('type')
+        prio = cfg.pop('priority', None)
+        cfg.pop('by_epoch', None)
+        if kind not in _HOOKS:
+            continue
+        hook = _HOOKS[kind](**cfg)
+        if prio is not None:
+            hook.priority = _PRIORITY.get(prio, prio)
+        hooks.append(hook)
+    return sorted(hooks, key=lambda h: h.priority)

@@ -1,0 +1,296 @@
+"""Iteration-based training loop (port of ``ssdnerf_tpu/runner/loop.py``):
+the infinite batch stream, one ``DiffusionNeRF.train_step`` an iteration
+on the rows of a device scene bank, hook dispatch, checkpoints (with the
+optimizers and a versioned bank ``.npz``), pruning and resume with the
+loader fast-forwarded.
+
+Each iteration draws from a ``torch.Generator`` on the model's device
+seeded from (seed, rank, iteration), so a resumed run draws what an
+uninterrupted one would (the JAX runner folds the iteration into its
+key).  ``draws_fn(iteration, data)`` may give the draws to replay instead
+(``DiffusionNeRF.train_draws``'s dict; the tests replay the JAX
+package's).
+
+Ported is the single-stage scene-bank branch.  The stage-2 branch (no
+``optimizer`` in ``train_cfg``) and the filesystem cache (``cache_size``
+0) belong to ROADMAP section 1 item 3, more than one process to item 6:
+each raises.
+"""
+import collections
+import glob
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..core.checkpoint import load_checkpoint, save_checkpoint
+
+
+class SpanClock:
+    """Spans on the device's timeline.  On a card each end is a CUDA
+    event recorded on the device's current stream: the host does not wait
+    for it, and a span's seconds are added to its total once its end event
+    has passed (:meth:`collect`; ``wait=True`` at the end of a run).  A
+    span's seconds are those between its ends on the device: the work
+    queued between them, and any time the device waited for the host.  On
+    the CPU the ends are host clock readings."""
+
+    def __init__(self, device):
+        self.device = device
+        self.cuda = device.type == 'cuda'
+        self._pending = collections.deque()
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def span(self, start, add):
+        """Close the span opened by ``start`` (a :meth:`mark`); ``add``
+        receives its seconds."""
+        end = self.mark()
+        if self.cuda:
+            self._pending.append((start, end, add))
+        else:
+            add(end - start)
+
+    def collect(self, wait=False):
+        while self._pending and (wait or self._pending[0][1].query()):
+            start, end, add = self._pending.popleft()
+            end.synchronize()
+            add(start.elapsed_time(end) / 1e3)
+
+
+def iteration_seed(seed, rank, iteration):
+    """The seed of iteration ``iteration``'s generator on rank ``rank``."""
+    return int(np.random.SeedSequence([seed, rank, iteration])
+               .generate_state(1, np.uint64)[0])
+
+
+class Runner:
+    """Trains ``model`` from ``data_loader`` until ``max_iters`` completed
+    iterations, its per-scene state in ``cache`` (a ``DeviceSceneCache``),
+    its networks by ``optimizers`` / ``schedulers`` (dicts keyed
+    'diffusion' / 'decoder').  ``iteration`` counts completed iterations.
+
+    ``timing`` holds what the run measured: each iteration's seconds
+    (``iter_s``, its hooks included), the seconds each hook took after
+    iterations (``hook_s``, by class name; ``<name>.before_run`` /
+    ``.after_run`` for the start and the end) and the resume's seconds.
+    The spans are read without making the host wait for the device
+    (:class:`SpanClock`); the end of :meth:`run` logs their summary
+    (:meth:`timing_summary`) as a ``Timing:`` JSON line."""
+
+    def __init__(self, model, cache, data_loader, optimizers, schedulers,
+                 work_dir, max_iters, hooks=(), scene_names=None, rank=0,
+                 world_size=1, seed=0, draws_fn=None):
+        if world_size != 1:
+            raise NotImplementedError(
+                'training on more than one process is not ported: ROADMAP '
+                'section 1 item 6')
+        if 'optimizer' not in model.train_cfg:
+            raise NotImplementedError(
+                'stage-2 training (no train_cfg.optimizer) is not ported: '
+                'ROADMAP section 1 item 3')
+        if cache is None:
+            raise NotImplementedError(
+                'the filesystem scene cache (cache_size 0) is not ported: '
+                'ROADMAP section 1 item 3')
+        self.model = model
+        self.cache = cache
+        self.data_loader = data_loader
+        self.optimizers = optimizers
+        self.schedulers = schedulers
+        self.work_dir = work_dir
+        self.max_iters = max_iters
+        self.hooks = list(hooks)
+        self.scene_names = scene_names
+        self.rank = rank
+        self.world_size = world_size
+        self.seed = seed
+        self.draws_fn = draws_fn
+        self.iteration = 0
+        self.last_log_vars = {}
+        self.last_scene_ids = []
+        self.device = next(model.parameters()).device
+        self._init_rng = np.random.RandomState(seed + rank)
+        self.timing = dict(iter_s=[], hook_s={}, resume_s=None)
+        self.clock = SpanClock(self.device)
+        os.makedirs(work_dir, exist_ok=True)
+        self._log_file = os.path.join(work_dir, f'log_rank{rank}.txt')
+
+    # ---------------------------------------------------------------- #
+    def log_text(self, msg):
+        line = f'[{time.strftime("%Y-%m-%d %H:%M:%S")}] {msg}'
+        if self.rank == 0:
+            print(line, flush=True)
+        with open(self._log_file, 'a') as f:
+            f.write(line + '\n')
+
+    def invalidate_step(self):
+        """The JAX runner recompiles its step after a config change; the
+        port reads the config at every step, so there is nothing to do."""
+
+    def _prepare_data(self, batch):
+        data = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+            self.device) for k in ('cond_imgs', 'cond_poses',
+                                   'cond_intrinsics') if k in batch}
+        data['scene_id'] = torch.as_tensor(np.asarray(batch['scene_id']))
+        return data
+
+    def _init_codes(self, num):
+        return torch.from_numpy(self.model.get_init_code_np(
+            num, self._init_rng)).to(self.device)
+
+    def _add_hook_s(self, name, seconds):
+        hook_s = self.timing['hook_s']
+        hook_s[name] = hook_s.get(name, 0.0) + seconds
+
+    def _call_hooks(self, stage):
+        for hook in self.hooks:
+            start = self.clock.mark()
+            getattr(hook, stage)(self)
+            name = type(hook).__name__
+            if stage != 'after_train_iter':
+                name = f'{name}.{stage}'
+            self.clock.span(start, lambda s, n=name: self._add_hook_s(n, s))
+
+    # ---------------------------------------------------------------- #
+    def train_iter(self, batch):
+        """One iteration on ``batch``: init codes for unseen scenes, their
+        bank rows through ``train_step``, the rows written back."""
+        model = self.model
+        ids = batch['scene_id']
+        data = self._prepare_data(batch)
+        self.cache.ensure_init(ids, self._init_codes)
+        scene_batch = self.cache.load(ids)
+        draws = None if self.draws_fn is None else \
+            self.draws_fn(self.iteration, data)
+        generator = torch.Generator(device=self.device).manual_seed(
+            iteration_seed(self.seed, self.rank, self.iteration))
+        scene_batch, log_vars = model.train_step(
+            scene_batch, data, self.optimizers, self.schedulers,
+            generator=generator, draws=draws)
+        self.cache.save(ids, scene_batch['code_'], scene_batch['opt'],
+                        scene_batch['density_grid'],
+                        scene_batch['density_bitfield'])
+        self.cache.mark_seen(ids)
+        self.last_log_vars = log_vars
+        self.last_scene_ids = list(np.asarray(ids))
+
+    def run(self):
+        if self.device.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats(self.device)
+        self._call_hooks('before_run')
+        loader = iter(self.data_loader)
+        self.log_text(
+            f'Starting training at iter {self.iteration}/{self.max_iters} '
+            f'(rank {self.rank}/{self.world_size}, stage2=False)')
+        while self.iteration < self.max_iters:
+            start = self.clock.mark()
+            self.train_iter(next(loader))
+            self.iteration += 1  # = number of completed iterations
+            self._call_hooks('after_train_iter')
+            self.clock.span(start, self.timing['iter_s'].append)
+            self.clock.collect()
+        self._call_hooks('after_run')
+        self.clock.collect(wait=True)
+        self.log_text('Timing: ' + json.dumps(self.timing_summary()))
+
+    def timing_summary(self):
+        """The run's iterations, the first one's wall seconds and the
+        median, quartiles, min and max of the others', the seconds of each
+        hook and of the resume, and the peak device memory in GiB on a
+        card."""
+        walls = self.timing['iter_s']
+        out = dict(iterations=len(walls), total_iter_s=sum(walls),
+                   hook_s=self.timing['hook_s'],
+                   resume_s=self.timing['resume_s'])
+        if walls:
+            out['first_iter_s'] = walls[0]
+        rest = walls[1:]
+        if rest:
+            q = np.quantile(rest, [0.25, 0.5, 0.75])
+            out.update(median_iter_s=float(q[1]), p25_iter_s=float(q[0]),
+                       p75_iter_s=float(q[2]), min_iter_s=min(rest),
+                       max_iter_s=max(rest))
+        if self.device.type == 'cuda':
+            out['peak_gib'] = torch.cuda.max_memory_allocated(
+                self.device) / 2 ** 30
+        return out
+
+    # ---------------------------------------------------------------- #
+    def ckpt_path(self, iteration=None):
+        it = self.iteration if iteration is None else iteration
+        return os.path.join(self.work_dir, 'ckpt', f'iter_{it}.ckpt')
+
+    def save_checkpoint(self):
+        """``ckpt/iter_{it}.ckpt`` (the model's and optimizers' groups),
+        ``ckpt/latest.ckpt`` linking to it, and the bank as
+        ``ckpt/iter_{it}_cache_rank{r}.npz``: versioned, so that a later
+        save cannot pair an older checkpoint with a newer bank."""
+        path = self.ckpt_path()
+        save_checkpoint(path, self.model, self.iteration,
+                        meta=dict(rank=self.rank),
+                        optimizers=self.optimizers,
+                        schedulers=self.schedulers)
+        latest = os.path.join(self.work_dir, 'ckpt', 'latest.ckpt')
+        try:
+            if os.path.islink(latest) or os.path.exists(latest):
+                os.remove(latest)
+            os.symlink(os.path.basename(path), latest)
+        except OSError:
+            pass
+        np.savez(os.path.join(
+            self.work_dir, 'ckpt',
+            f'iter_{self.iteration}_cache_rank{self.rank}.npz'),
+            **self.cache.state_dict())
+        self.log_text(f'Saved checkpoint to {path}')
+
+    def prune_checkpoints(self, keep):
+        ckpts = sorted(
+            glob.glob(os.path.join(self.work_dir, 'ckpt', 'iter_*.ckpt')),
+            key=lambda p: int(os.path.basename(p)[5:-5]))
+        for p in ckpts[:-keep]:
+            os.remove(p)
+            base = os.path.basename(p)[:-5]
+            for c in glob.glob(os.path.join(
+                    os.path.dirname(p), f'{base}_cache_rank*.npz')):
+                os.remove(c)
+
+    def resume(self, path):
+        """Load a checkpoint strictly (every model and optimizer group must
+        be there and fit), its bank ``.npz`` and iteration, and fast-forward
+        the loader to it."""
+        t0 = time.perf_counter()
+        _, iteration, _ = load_checkpoint(
+            path, self.model, optimizers=self.optimizers,
+            schedulers=self.schedulers)
+        self.iteration = iteration
+        base = os.path.basename(path)
+        cache_path = os.path.join(
+            os.path.dirname(path),
+            f'{base[:-5]}_cache_rank{self.rank}.npz' if base != 'latest.ckpt'
+            else f'iter_{iteration}_cache_rank{self.rank}.npz')
+        if not os.path.exists(cache_path):  # the JAX package's older layout
+            cache_path = os.path.join(os.path.dirname(path),
+                                      f'cache_rank{self.rank}.npz')
+        if os.path.exists(cache_path):
+            with np.load(cache_path) as blob:
+                self.cache.load_state_dict(dict(blob))
+        # the init codes of the scenes seen so far came from the same
+        # stream: skip them, so that the next unseen scenes get the codes
+        # an uninterrupted run would draw (rows preloaded from
+        # cache_load_from drew none, and are counted all the same)
+        self._init_rng.uniform(size=int(self.cache.seen.sum()) * int(
+            np.prod(self.model.code_size)))
+        if hasattr(self.data_loader, 'skip_iters'):
+            self.data_loader.skip_iters(iteration)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        self.timing['resume_s'] = time.perf_counter() - t0
+        self.log_text(f'Resumed from {path} at iter {iteration}')

@@ -980,3 +980,60 @@ def test_render_views_chunked_matches_cpu(cuda_device):
         img_err.max(), img_err.mean())
     assert (got[1].cpu() - ref[1]).abs().mean() <= 1e-3
     assert (ref[0] < 0.99).float().mean() > 0.3
+
+
+# ------------------------------------------------------------- the runner
+class _Scenes:
+    """``make_batch``'s scenes as a dataset."""
+
+    def __init__(self, n=4):
+        from synthetic import make_batch
+        self.d = make_batch(num_scenes=n, num_views=2, h=16, w=16, seed=24)
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return dict(scene_id=i, **{k: self.d[k][i] for k in (
+            'cond_imgs', 'cond_poses', 'cond_intrinsics')})
+
+
+def test_runner_launches_kernels(cuda_device, tmp_path):
+    """Two iterations of the port's ``Runner`` on the card (the tiny 32^2
+    model with the decode in bf16, as shipped, a bank of 4 scenes, batch
+    2, the EMA hook): every kernel of the train step launched (the march,
+    the bf16 decode and its backward, the f32 attention and its
+    backward), the losses finite, the EMA moved."""
+    import math
+    from synthetic import TINY_TRAIN_CFG
+    from ssdnerf_torch.data import DataLoader
+    from ssdnerf_torch.ops.kernels import launch_counts, reset_launches
+    from ssdnerf_torch.runner.hooks import EMAHook
+    from ssdnerf_torch.runner.loop import Runner
+    from ssdnerf_torch.runner.optim import build_optimizers
+    model = _recons_model()
+    model.train_cfg = copy.deepcopy(TINY_TRAIN_CFG)
+    for dec in (model.decoder, model.decoder_ema):
+        dec.compute_dtype = 'bfloat16'
+    model = model.to(cuda_device)
+    ema0 = [p.clone() for p in model.diffusion_ema.parameters()]
+    opts, scheds = build_optimizers(model, dict(
+        diffusion=dict(lr=1e-4), decoder=dict(lr=1e-3)))
+    loader = DataLoader(_Scenes(), 2)
+    runner = Runner(model, model.make_cache(cuda_device), loader, opts,
+                    scheds, str(tmp_path), 2, hooks=[EMAHook()])
+    reset_launches()
+    try:
+        runner.run()
+    finally:
+        loader.close()
+    counts = launch_counts()
+    for name in ('march', 'decode_bf16', 'decode_bwd_bf16', 'attention',
+                 'attention_bwd'):
+        assert counts[name] > 0, (name, counts)
+    assert runner.iteration == 2
+    for k in ('loss_diffusion', 'loss_decoder', 'pixel_loss'):
+        assert math.isfinite(float(runner.last_log_vars[k]))
+    assert any(not torch.equal(a, b) for a, b in zip(
+        ema0, model.diffusion_ema.parameters()))

@@ -401,9 +401,12 @@ def test_forward_train_matches_jax(models):
                     'unet', 1e-4)
 
 
-def _jax_step_draws(jm, key, P):
+def _jax_step_draws(jm, key, P, S=S, ess=ESS, interval=INTERVAL,
+                    n_rays=N_RAYS):
     """Every draw of JAX's ``train_step`` and its ``inverse_code``, key
-    split for key split, as the port's ``train_draws`` dict."""
+    split for key split, as the port's ``train_draws`` dict: ``S`` scenes
+    of ``P`` pixels, ``ess`` inner steps with a density refresh every
+    ``interval``, ``n_rays`` rays for the inner and the decoder steps."""
     (_, _, k_diff, _, k_inv, k_upd, k_ray, k_pert) = jax.random.split(key, 8)
     t_key, n_key = jax.random.split(k_diff)
     Hg = jm.grid_size
@@ -414,24 +417,24 @@ def _jax_step_draws(jm, key, P):
                                      maxval=half))
 
     k, bkey = jax.random.split(k_inv)
-    ray_inds = make_raybatch_indices(bkey, S, P, N_RAYS, ESS)
+    ray_inds = make_raybatch_indices(bkey, S, P, n_rays, ess)
     inner_jitter, inner_perturb = [], []
-    for i in range(ESS):
+    for i in range(ess):
         k, ukey, _, pkey, _ = jax.random.split(k, 5)
-        if i % INTERVAL == 0:
+        if i % interval == 0:
             inner_jitter.append(jitter(ukey))
-        inner_perturb.append(_t(jax.random.uniform(pkey, (S, N_RAYS))))
+        inner_perturb.append(_t(jax.random.uniform(pkey, (S, n_rays))))
     keys = jax.random.split(k_ray, S)
-    dec_inds = jax.vmap(lambda kk: jax.random.permutation(kk, P)[:N_RAYS])(
+    dec_inds = jax.vmap(lambda kk: jax.random.permutation(kk, P)[:n_rays])(
         keys)
     return dict(
         t=_t(jm.diffusion.timestep_sampler.sample(t_key, S)).long(),
-        noise=_t(jax.random.normal(n_key, (S, 12, 16, 16))),
+        noise=_t(jax.random.normal(n_key, (S,) + tuple(jm.code_reshape))),
         inverse=dict(ray_inds=_t(ray_inds).long(),
                      jitter=torch.stack(inner_jitter),
                      perturb=torch.stack(inner_perturb)),
         jitter=jitter(k_upd), ray_inds=_t(dec_inds).long(),
-        perturb=_t(jax.random.uniform(k_pert, (S, N_RAYS))))
+        perturb=_t(jax.random.uniform(k_pert, (S, n_rays))))
 
 
 def _jax_adam_moments(opt_state):
@@ -663,9 +666,10 @@ def test_device_scene_cache_round_trip(models):
 
 
 def test_weight_decay_raises(models):
-    """A weight decay is not ported: on the codes ``train_step`` raises
-    before it updates anything, and ``build_optimizers`` raises for the
-    networks."""
+    """A code weight decay is not ported: ``train_step`` raises before it
+    updates anything.  For the networks a weight decay builds
+    ``torch.optim.AdamW`` (``optax.adamw``, as JAX's ``make_optimizer``
+    does; its update is held in ``test_torch_runner.py``)."""
     tm = models[3]
     saved = tm.train_cfg
     tm.train_cfg = dict(saved, optimizer=dict(type='Adam', lr=1e-2,
@@ -675,9 +679,10 @@ def test_weight_decay_raises(models):
             tm.train_step({}, {}, {})
     finally:
         tm.train_cfg = saved
-    with pytest.raises(NotImplementedError, match='weight decay'):
-        build_optimizers(tm, dict(decoder=dict(type='Adam', lr=1e-3,
-                                               weight_decay=1e-4)))
+    opts, _ = build_optimizers(tm, dict(decoder=dict(type='Adam', lr=1e-3,
+                                                     weight_decay=1e-4)))
+    assert isinstance(opts['decoder'], torch.optim.AdamW)
+    assert opts['decoder'].defaults['weight_decay'] == 1e-4
 
 
 def test_train_step_bf16_decode_matches_jax_pallas(models):
