@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ssdnerf_torch/csrc into build/kernels/, then
-runs ten phases, any failure of which exits non-zero:
+runs eleven phases, any failure of which exits non-zero:
 
 1. device: a CUDA card is present; TF32 is switched off for matmuls and
    convolutions, so every plain f32 reference is full f32;
@@ -109,7 +109,23 @@ runs ten phases, any failure of which exits non-zero:
    same checkpoint whose reloaded state must equal the files bit for
    bit, trained to 30 with the launch counts set to 0 just before; and 3
    runner iterations of one scene on the card and on the CPU with the
-   same weights and replayed draws, in bf16 and in f32.
+   same weights and replayed draws, in bf16 and in f32;
+11. stage-1 and two-stage training through the CLI on phase 10's
+   ``cars_train`` at the stage-1 configs' full widths (cuts printed: bank
+   16, short runs, no evaluation): (a) stage1_cars_recons16v.py, 12
+   iterations (the updater's step at 6), losses finite, ``train_psnr``
+   rising, ``init_code`` moved, the bank's Adam counts, and in-process a
+   resume from 6 whose losses must agree; (b) its 16-bit variant (as
+   shipped it fails at the first init code in both packages, which is
+   checked; run with ``init_from_mean`` off): the running statistics
+   moved, the bank file's dtypes, and one allocation of the whole
+   2458-row bank in 16 bits and in f32; (c) the filesystem variant: the
+   writers' files reload bit for bit to the step's state, DirCopyHook's
+   copies; (d) stage2_cars_uncond.py on (a)'s codes and checkpoint (the
+   f32 attention forward and backward launched, stage 1's decoders
+   untouched); (e) one stage-1 step of 1 scene on the card and on the
+   CPU with TanhCode and NormalizedTanhCode, bf16 and f32, with the
+   CPU's bitfields replayed as a control.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; the last line is the result JSON.  Imports nothing of JAX.
@@ -166,6 +182,10 @@ from ssdnerf_torch.ops.packing import (  # noqa: E402
 from ssdnerf_torch.models.autodecoders import base as ad_base  # noqa: E402
 from ssdnerf_torch.models.autodecoders import (  # noqa: E402
     diffusion_nerf as ad_dn)
+from ssdnerf_torch.models.autodecoders import (  # noqa: E402
+    multiscene as ad_ms)
+from ssdnerf_torch.models.autodecoders.multiscene import (  # noqa: E402
+    DeviceSceneCache)
 from ssdnerf_torch.models.autodecoders.base import adam_init  # noqa: E402
 from ssdnerf_torch.models.decoders import renderer as dec_renderer  # noqa
 from ssdnerf_torch.models.decoders.renderer import (  # noqa: E402
@@ -2469,20 +2489,20 @@ def read_stats(work):
         return {s['iter']: s for s in map(json.loads, f)}
 
 
-def same_run(ref, got, iters, what):
-    """Each iteration of ``iters``: the same batch, every loss of ``got``
-    finite and within RESUME_LOSS_TOL of ``ref``'s (a NaN fails).  Returns
-    the largest relative error."""
+def same_run(ref, got, iters, what, keys=LOSS_KEYS):
+    """Each iteration of ``iters``: the same batch, every loss of ``keys``
+    of ``got`` finite and within RESUME_LOSS_TOL of ``ref``'s (a NaN
+    fails).  Returns the largest relative error."""
     errs = []
     for it in iters:
         check(got[it]['scene_id'] == ref[it]['scene_id'],
               f'{what}: iteration {it} trained another batch')
-        for k in LOSS_KEYS:
+        for k in keys:
             check(math.isfinite(got[it][k]),
                   f'{what}: {k} at iteration {it} is {got[it][k]}')
             errs.append(abs(got[it][k] - ref[it][k]) / abs(ref[it][k]))
     worst = max(errs)
-    log(f'phase 10 {what}: same batches at iterations {iters[0]}-'
+    log(f'{what}: same batches at iterations {iters[0]}-'
         f'{iters[-1]}; largest relative loss difference {worst:.3e} (tol '
         f'{RESUME_LOSS_TOL:.0e})')
     check(all(e <= RESUME_LOSS_TOL for e in errs), f'{what}: losses differ')
@@ -2593,10 +2613,10 @@ def phase_train_cli(dev, root, max_rays):
     check(all(math.isfinite(s[k]) for s in sa.values() for k in LOSS_KEYS),
           'run a: a loss is not finite')
     out['b_vs_a'] = same_run(sa, sb, list(range(1, RESUME_AT + 1)),
-                             'run b vs run a')
+                             'phase 10 run b vs run a')
     out['resumed_vs_a'] = same_run(
         sa, sb, list(range(RESUME_AT + 1, TRAIN_ITERS + 1)),
-        'resumed run b vs run a')
+        'phase 10 resumed run b vs run a')
     check(runs['b_resumed']['timing']['resume_s'] is not None,
           'run b did not resume')
 
@@ -2798,11 +2818,14 @@ def occupancy(record=None, replay=None):
             bits = replay.pop(0).to(bits.device)
         return grid, bits, extra
 
-    ad_dn.update_density_grid = ad_base.update_density_grid = swap
+    mods = (ad_dn, ad_base, ad_ms)
+    for mod in mods:
+        mod.update_density_grid = swap
     try:
         yield
     finally:
-        ad_dn.update_density_grid = ad_base.update_density_grid = made
+        for mod in mods:
+            mod.update_density_grid = made
 
 
 @contextlib.contextmanager
@@ -3051,6 +3074,420 @@ def phase_runner_card_vs_cpu(model_cpu, cfg, root, dev, iters=3):
     return res
 
 
+# ------------------------------------------------------------------ phase 11
+STAGE1 = ROOT / 'configs' / 'paper_cfgs' / 'stage1_cars_recons16v.py'
+STAGE1_16BIT = ROOT / 'configs' / 'new_cfgs' / 'stage1_cars_recons16v_16bit.py'
+STAGE1_FILES = (ROOT / 'configs' / 'new_cfgs'
+                / 'stage1_cars_recons16v_16bit_filesystem.py')
+STAGE2 = ROOT / 'configs' / 'paper_cfgs' / 'stage2_cars_uncond.py'
+S1_ITERS, S1_SAVE = 12, 6   # run (a); checkpoints and the updater at 6
+S1_SHORT = 4                # runs (b), (c): one epoch of 16 scenes
+S2_ITERS = 6                # run (d)
+BANK_ROWS = 2458            # the SRN cars bank of the stage-1 configs
+STAGE1_KERNELS = ('march', 'decode_bf16', 'decode_bwd_bf16')
+STAGE2_KERNELS = ('attention', 'attention_bwd')
+S1_LOSSES = ('loss', 'pixel_loss', 'reg_loss')
+
+
+def phase11_config(src, root, run, iters, cuts, **over):
+    """``src`` with phase 11's cuts (each listed in ``cuts``): the bank at
+    phase 10's 16 scenes, ``iters`` iterations, checkpoints (and the
+    updater's step, SaveCache and DirCopy) every ``S1_SAVE`` or at the
+    end, a log line each iteration, no evaluation (the JAX package cannot
+    evaluate a stage-1 model); its data ``root/cars_train`` and its
+    outputs under ``root/run``; ``over`` (dotted keys) merged last, each a
+    cut too.  Written as ``root/<run>.py``; returns (path, cfg)."""
+    cfg = Config.fromfile(str(src))
+    work = root / run
+    every = min(S1_SAVE, iters)
+    if cfg.model.get('cache_size', 0) > 0:
+        cfg.model.cache_size = cut(cuts, 'model.cache_size',
+                                   cfg.model.cache_size, TRAIN_SCENES)
+    cfg.total_iters = cut(cuts, 'total_iters', cfg.total_iters, iters)
+    cfg.checkpoint_config.interval = cut(
+        cuts, 'checkpoint_config.interval', cfg.checkpoint_config.interval,
+        every)
+    cfg.log_config.interval = cut(cuts, 'log_config.interval',
+                                  cfg.log_config.interval, 1)
+    for hook in cfg.get('custom_hooks', []):
+        if hook.type == 'ModelUpdaterHook':
+            hook.step = cut(cuts, 'ModelUpdaterHook.step', hook.step,
+                            [S1_SAVE])
+        if hook.type == 'SaveCacheHook':
+            hook.interval = cut(cuts, 'SaveCacheHook.interval',
+                                hook.interval, every)
+            hook.update(out_dir=str(work / 'code'),
+                        viz_dir=str(work / 'viz'))
+        if hook.type == 'DirCopyHook':
+            hook.interval = cut(cuts, 'DirCopyHook.interval', hook.interval,
+                                every)
+            hook.update(in_dir=str(work / 'code'),
+                        out_dir=str(work / 'code_bak'))
+    if 'cache_load_from' in cfg.train_cfg:
+        cfg.train_cfg.cache_load_from = str(work / 'code')
+    if 'save_dir' in cfg.train_cfg:
+        cfg.train_cfg.save_dir = str(work / 'code')
+    if cfg.data.train.get('code_dir'):
+        cfg.data.train.code_dir = str(work / 'code')
+    cfg.data.train.update(data_prefix=str(root / 'cars_train'),
+                          cache_path=str(root / 'cars_train_cache.pkl'))
+    if cfg.get('evaluation'):
+        cfg.evaluation = cut(cuts, 'evaluation', '[...]', [])
+    for key, value in over.items():
+        d = cfg
+        for k in key.split('.')[:-1]:
+            d = d[k]
+        cut(cuts, key, d.get(key.split('.')[-1]), value)
+    cfg.merge_from_dict(over)
+    path = root / f'{run}.py'
+    path.write_text(''.join(f'{k} = {v!r}\n' for k, v in cfg.items()))
+    return path, cfg
+
+
+def log_cli_run(tag, cfg_path, args, wall, timing, launches, smi):
+    hook_s = {k: round(v, 4) for k, v in timing['hook_s'].items()
+              if '.' not in k}
+    log(f'phase 11 {tag}: python -m ssdnerf_torch.train {cfg_path.name} '
+        f'{" ".join(args)}: {wall:.1f} s wall; {timing["iterations"]} '
+        f'iterations {timing["total_iter_s"]:.3f} s (first '
+        f'{timing.get("first_iter_s", 0):.4f} s; median '
+        f'{timing.get("median_iter_s", 0):.4f}, quartiles '
+        f'{timing.get("p25_iter_s", 0):.4f}-{timing.get("p75_iter_s", 0):.4f}'
+        f', min {timing.get("min_iter_s", 0):.4f}, max '
+        f'{timing.get("max_iter_s", 0):.4f}; CUDA events); hooks (s): '
+        f'{hook_s}; peak {timing.get("peak_gib", 0):.2f} GiB; launches '
+        f'{launches}; {smi}')
+
+
+def stage1_stats(work, iters, what):
+    stats = read_stats(work)
+    check(sorted(stats) == list(range(1, iters + 1)), f'{what} iterations')
+    check(all(math.isfinite(s[k]) for s in stats.values()
+              for k in S1_LOSSES + ('train_psnr', 'code_rms')),
+          f'{what}: a loss is not finite')
+    return stats
+
+
+def fails_at_first_init_code(src, root, run, dev, cuts):
+    """``src`` as shipped (``init_from_mean`` with ``NormalizedTanhCode``)
+    raises at its first iteration's init codes, as the JAX package does
+    (ROADMAP section 3 item 13)."""
+    cfg_path, _ = phase11_config(src, root, run, 1, cuts)
+    runner = build_runner(Config.fromfile(str(cfg_path)), str(root / run),
+                          seed=SEED, device=str(dev))
+    try:
+        runner.train_iter(next(iter(runner.data_loader)))
+    except TypeError as e:
+        check('item 13' in str(e), f'{run}: {e}')
+        log(f'phase 11 {run}: as shipped, the first iteration raises as '
+            f'the JAX package does: {str(e)[:90]}...')
+        return
+    finally:
+        runner.data_loader.close()
+    check(False, f'{run}: the shipped config trained')
+
+
+def bank_gib(dev, cache_16bit, code_size, grid):
+    """Bytes a row and GiB of one allocation of the full 2458-row bank
+    (its tensors' sizes; the allocator's growth beside)."""
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    bank = DeviceSceneCache(BANK_ROWS, code_size, grid, dev, cache_16bit)
+    nbytes = sum(getattr(bank, k).nbytes for k in bank.KEYS)
+    grown = torch.cuda.memory_allocated(dev) - base
+    del bank
+    torch.cuda.empty_cache()
+    return nbytes / BANK_ROWS, nbytes / 2 ** 30, grown / 2 ** 30
+
+
+def phase_stage1_cli(dev, root, smi):
+    """Phase 11 (a)-(d): stage-1 and two-stage training through the CLI on
+    phase 10's ``root/cars_train`` (16 scenes x 50 views of 128^2), at the
+    stage-1 configs' full widths (3 x 6 x 128^2 codes, a 64^3 grid, the
+    64-wide decoder in bf16, batch 4, 4096 inverse and decoder rays) and
+    stage 2's (the flagship UNet in f32, batch 8)."""
+    out, cuts = dict(runs={}), {}
+    t_phase = time.perf_counter()
+
+    # (a) stage 1, 12 iterations; its resume from 6 in-process
+    cuts['a'] = []
+    cfg_a, _ = phase11_config(STAGE1, root, 's1_a', S1_ITERS, cuts['a'])
+    log('phase 11 (a) config: configs/paper_cfgs/stage1_cars_recons16v.py '
+        'unchanged in every width; cuts: ' + '; '.join(cuts['a']))
+    wall, timing, launches, stdout = train_cli(cfg_a, root / 's1_a', dev)
+    log_cli_run('(a) stage 1', cfg_a, (), wall, timing, launches, smi)
+    out['runs']['a'] = dict(wall_s=wall, timing=timing, launches=launches)
+    sa = stage1_stats(root / 's1_a', S1_ITERS, 'run (a)')
+    psnr = [sa[i]['train_psnr'] for i in range(1, S1_ITERS + 1)]
+    first, last = np.mean(psnr[:4]), np.mean(psnr[-4:])
+    log(f'phase 11 (a) train_psnr by iteration: '
+        + ', '.join(f'{p:.3f}' for p in psnr)
+        + f'; mean of 1-4 {first:.3f} dB, of 9-12 {last:.3f} dB')
+    check(last > first, 'run (a): train_psnr did not rise')
+    for name in STAGE1_KERNELS:
+        check(launches[name] > 0, f'run (a): kernel {name} not launched')
+    check(launches['attention'] == 0, 'run (a) ran a UNet')
+    ckpt_a = root / 's1_a' / 'ckpt'
+    state_a = read_checkpoint(str(ckpt_a / f'iter_{S1_ITERS}.ckpt'))[0]
+    check(set(state_a) == {'decoder', 'decoder_ema', 'opt_decoder',
+                           'init_code'}, f'run (a) groups {sorted(state_a)}')
+    mean_code = np.abs(state_a['init_code'])
+    log(f'phase 11 (a) init_code: max |.| {mean_code.max():.3e}, mean '
+        f'{mean_code.mean():.3e} (0 at the start)')
+    check(mean_code.max() > 0, 'run (a): init_code did not move')
+    with np.load(ckpt_a / f'iter_{S1_ITERS}_cache_rank0.npz') as blob:
+        steps = blob['step']
+    expect = np.zeros(TRAIN_SCENES, np.int64)
+    for it, s in sa.items():
+        expect[s['scene_id']] += (15 if it <= S1_SAVE else 3) + 1
+    check(np.array_equal(steps, expect), f'run (a) bank Adam counts {steps} '
+          f'vs {expect} (extra_scene_step 15 -> 3)')
+    codes = sorted(p.name for p in (root / 's1_a' / 'code').iterdir())
+    check(codes == [f'car_{s:04d}.npz' for s in range(TRAIN_SCENES)],
+          f'run (a) SaveCache files {codes}')
+
+    cfg_b, _ = phase11_config(STAGE1, root, 's1_b', S1_ITERS, [])
+    runner = build_runner(Config.fromfile(str(cfg_b)), str(root / 's1_b'),
+                          seed=SEED, device=str(dev))
+    try:
+        runner.resume(str(ckpt_a / f'iter_{S1_SAVE}.ckpt'))
+        reset_launches()
+        runner.run()
+        resumed_launches = launch_counts()
+    finally:
+        runner.data_loader.close()
+    out['resumed_vs_a'] = same_run(
+        sa, read_stats(root / 's1_b'), list(range(S1_SAVE + 1, S1_ITERS + 1)),
+        'phase 11 (a) resumed from 6 vs uninterrupted', S1_LOSSES)
+    out['runs']['a_resumed'] = dict(timing=runner.timing_summary(),
+                                    launches=resumed_launches)
+    log(f'phase 11 (a) resume in-process: {runner.timing["resume_s"]:.2f} s;'
+        f' launches 7-12 {resumed_launches}')
+
+    # (b) the 16-bit bank and NormalizedTanhCode
+    cuts['b'] = []
+    fails_at_first_init_code(STAGE1_16BIT, root, 's1_16bit_shipped', dev, [])
+    cfg_16, _ = phase11_config(STAGE1_16BIT, root, 's1_16bit', S1_SHORT,
+                               cuts['b'], **{'model.init_from_mean': False})
+    log('phase 11 (b) config: configs/new_cfgs/stage1_cars_recons16v_16bit.'
+        'py; cuts: ' + '; '.join(cuts['b']))
+    wall, timing, launches, _ = train_cli(cfg_16, root / 's1_16bit', dev)
+    log_cli_run('(b) stage 1, 16-bit', cfg_16, (), wall, timing, launches,
+                smi)
+    out['runs']['b'] = dict(wall_s=wall, timing=timing, launches=launches)
+    stage1_stats(root / 's1_16bit', S1_SHORT, 'run (b)')
+    state_b = read_checkpoint(str(root / 's1_16bit' / 'ckpt'
+                                  / f'iter_{S1_SHORT}.ckpt'))[0]
+    act = state_b['code_act']
+    log(f'phase 11 (b) NormalizedTanhCode running mean '
+        f'{float(act["0"][0]):.6e}, var {float(act["1"][0]):.6e} (start 0, '
+        f'0.25)')
+    check(float(act['0'][0]) != 0 and float(act['1'][0]) != 0.25,
+          'run (b): the running statistics did not move')
+    with np.load(root / 's1_16bit' / 'ckpt'
+                 / f'iter_{S1_SHORT}_cache_rank0.npz') as blob:
+        dtypes = {k: str(blob[k].dtype) for k in ('code_', 'm', 'v')}
+    check(dtypes == dict(code_='float16', m='float32', v='float32'),
+          f'run (b) bank file dtypes {dtypes}')
+    model_cfg = Config.fromfile(str(STAGE1_16BIT)).model
+    cs, grid = tuple(model_cfg.code_size), model_cfg.grid_size
+    row16, gib16, grown16 = bank_gib(dev, True, cs, grid)
+    row32, gib32, grown32 = bank_gib(dev, False, cs, grid)
+    layout16 = math.prod(cs) * 2 * 3 + 4 + grid ** 3 * 2 + grid ** 3 // 8
+    log(f'phase 11 (b) {BANK_ROWS}-row bank on the card: 16-bit {row16:.0f} '
+        f'B a row (layout {layout16}), {gib16:.3f} GiB ({grown16:.3f} '
+        f'allocated); f32 {row32:.0f} B a row, {gib32:.3f} GiB '
+        f'({grown32:.3f} allocated)')
+    check(row16 == layout16, 'the 16-bit bank row')
+    out['bank'] = dict(row_16bit=row16, gib_16bit=gib16, row_f32=row32,
+                       gib_f32=gib32)
+
+    # (c) the filesystem cache
+    cuts['c'] = []
+    fails_at_first_init_code(STAGE1_FILES, root, 's1_files_shipped', dev, [])
+    cfg_fs, _ = phase11_config(STAGE1_FILES, root, 's1_files', S1_SHORT,
+                               cuts['c'], **{'model.init_from_mean': False})
+    log('phase 11 (c) config: configs/new_cfgs/'
+        'stage1_cars_recons16v_16bit_filesystem.py; cuts: '
+        + '; '.join(cuts['c']))
+    wall, timing, launches, _ = train_cli(cfg_fs, root / 's1_files', dev)
+    log_cli_run('(c) stage 1, filesystem cache', cfg_fs, (), wall, timing,
+                launches, smi)
+    out['runs']['c'] = dict(wall_s=wall, timing=timing, launches=launches)
+    stage1_stats(root / 's1_files', S1_SHORT, 'run (c)')
+    code_dir, bak = root / 's1_files' / 'code', root / 's1_files' / 'code_bak'
+    names = sorted(p.name for p in code_dir.iterdir())
+    check(names == [f'car_{s:04d}.npz' for s in range(TRAIN_SCENES)],
+          f'run (c) scene files {names}')
+    check(sorted(p.name for p in bak.iterdir()) == names and all(
+        (code_dir / n).read_bytes() == (bak / n).read_bytes()
+        for n in names), 'run (c): DirCopyHook copies differ')
+    cfg_fs2, _ = phase11_config(STAGE1_FILES, root, 's1_files_reload',
+                                S1_SHORT, [],
+                                **{'model.init_from_mean': False})
+    runner = build_runner(Config.fromfile(str(cfg_fs2)),
+                          str(root / 's1_files_reload'), seed=SEED,
+                          device=str(dev))
+    step = runner.model.train_step
+    made = {}
+
+    def keep(*args, **kwargs):
+        made['batch'], logs = step(*args, **kwargs)
+        return made['batch'], logs
+
+    runner.model.train_step = keep
+    try:
+        batch = next(iter(runner.data_loader))
+        runner.train_iter(batch)
+        runner.flush_scene_files()
+        back = runner.load_scene_files(batch)
+    finally:
+        runner.data_loader.close()
+    pairs = [(made['batch'][k], back[k]) for k in
+             ('code_', 'density_grid', 'density_bitfield')] + [
+        (getattr(made['batch']['opt'], k), getattr(back['opt'], k))
+        for k in ('m', 'v', 'step')]
+    check(all(torch.equal(a, b) for a, b in pairs),
+          'run (c): the scene files do not reload to the step\'s state')
+    log('phase 11 (c) the writers\' files of one iteration reload bit for '
+        'bit to the step\'s state (codes, moments, counts, grids, bits); '
+        f'{len(names)} files, DirCopyHook\'s copies equal')
+
+    # (d) stage 2 on (a)'s codes and checkpoint
+    cuts['d'] = []
+    cfg_2, _ = phase11_config(
+        STAGE2, root, 's2', S2_ITERS, cuts['d'],
+        **{'model.pretrained': str(ckpt_a / 'latest.ckpt'),
+           'data.train.code_dir': str(root / 's1_a' / 'code')})
+    log('phase 11 (d) config: configs/paper_cfgs/stage2_cars_uncond.py '
+        '(batch 8, the flagship UNet in f32); cuts: ' + '; '.join(cuts['d']))
+    wall, timing, launches, _ = train_cli(cfg_2, root / 's2', dev)
+    log_cli_run('(d) stage 2', cfg_2, (), wall, timing, launches, smi)
+    out['runs']['d'] = dict(wall_s=wall, timing=timing, launches=launches)
+    s2 = read_stats(root / 's2')
+    check(sorted(s2) == list(range(1, S2_ITERS + 1)) and all(
+        math.isfinite(s['loss_diffusion']) for s in s2.values()),
+        'run (d) losses')
+    for name in STAGE2_KERNELS:
+        check(launches[name] > 0, f'run (d): kernel {name} not launched')
+    state_2 = read_checkpoint(str(root / 's2' / 'ckpt'
+                                  / f'iter_{S2_ITERS}.ckpt'))[0]
+    same = {k: trees_equal(state_2[k], state_a[k]) for k in
+            ('decoder', 'decoder_ema', 'init_code')}
+    log(f'phase 11 (d) decoder, decoder_ema and init_code bitwise equal to '
+        f'stage 1\'s: {same}; losses '
+        + ', '.join(f'{s2[i]["loss_diffusion"]:.4f}'
+                    for i in range(1, S2_ITERS + 1)))
+    check(all(same.values()), 'run (d) changed stage 1\'s groups')
+    check(not (root / 's2' / 'ckpt' / f'iter_{S2_ITERS}_cache_rank0.npz'
+               ).exists(), 'run (d) wrote a bank')
+    out['cuts'] = cuts
+    out['wall_s'] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_stage1_card_vs_cpu(root, dev):
+    """Phase 11 (e): one stage-1 ``train_step`` of 1 scene (phase 6's
+    size: 1 inner step, 1024 rays; the scene's 50 views of
+    ``root/cars_train``) on the card and on the CPU with the same seeded
+    weights, codes and draws, with ``TanhCode`` (stage1_cars_recons16v)
+    and ``NormalizedTanhCode`` (its 16-bit variant), in bf16 (as shipped)
+    and with ``compute_dtype`` 'float32'; the CPU run records its
+    bitfields, the card runs once with its own and once with the CPU's
+    (:func:`occupancy`).  Phase 6's limits: losses rel 1e-4, the code Adam
+    moment and the decoder's gradient 1e-3 of their largest entry, and
+    the activation's running statistics rel 1e-5; a run in bf16 or with
+    its own bitfields to the larger of that and half the CPU's
+    bf16-vs-f32 gap of the same quantity (phase 10's rule; a flipped bit
+    moves them too).  Returns the launches of the f32 card steps."""
+    dataset = ShapeNetSRN(str(root / 'cars_train'))
+    sample = dataset[0]
+    data = {k: torch.from_numpy(sample[k])[None] for k in
+            ('cond_imgs', 'cond_poses', 'cond_intrinsics')}
+    num_pixels = math.prod(data['cond_imgs'].shape[1:4])
+    launches = {n: 0 for n in WRAPPERS}
+    out = {}
+    for src in (STAGE1, STAGE1_16BIT):
+        model_cpu = init_model(str(src), 'cpu', SEED).train()
+        model_cpu.train_cfg.update(extra_scene_step=1, n_inverse_rays=1024,
+                                   n_decoder_rays=1024)
+        act = type(model_cpu.code_activation).__name__
+        gen = torch.Generator().manual_seed(SEED + 11)
+        code_ = torch.randn((1,) + model_cpu.code_size, generator=gen) * 0.3
+        draws = model_cpu.train_draws(1, num_pixels, gen)
+        H = model_cpu.grid_size
+        batch = dict(code_=code_,
+                     density_grid=torch.zeros((1, H ** 3),
+                                              dtype=torch.float16),
+                     density_bitfield=torch.zeros((1, H ** 3 // 8),
+                                                  dtype=torch.uint8))
+        runs = {}
+        for dtype in ('bfloat16', 'float32'):
+            bits = []
+            for tag, d, rec, rep in (('cpu', 'cpu', bits, None),
+                                     ('card', dev, None, None),
+                                     (MASKED, dev, None, bits)):
+                model = copy.deepcopy(model_cpu).to(d)
+                opts, scheds = build_optimizers(
+                    model, dict(decoder=dict(type='Adam', lr=1e-3)))
+                if d != 'cpu' and dtype == 'float32':
+                    reset_launches()
+                t0 = time.perf_counter()
+                batch_d = to_device(batch, d)
+                batch_d['opt'] = adam_init(batch_d['code_'])
+                with decode_dtype(model, dtype), occupancy(
+                        rec, None if rep is None else list(rep)):
+                    res, logs = model.train_step(
+                        batch_d, to_device(data, d), opts, scheds,
+                        draws=to_device(draws, d))
+                if d != 'cpu' and dtype == 'float32':
+                    for n, c in launch_counts().items():
+                        launches[n] += c
+                runs[dtype, tag] = dict(
+                    logs={k: v.item() for k, v in logs.items()},
+                    code_m=res['opt'].m.cpu(),
+                    decoder=module_grads(model.decoder).cpu(),
+                    bits=res['density_bitfield'].cpu(),
+                    act=None if model.code_act is None else torch.cat(
+                        model.code_act).cpu())
+                log(f'phase 11 (e) {act} {tag} ({dtype}): '
+                    f'{time.perf_counter() - t0:.2f} s')
+                del model
+        errs = {}
+        for dtype in ('bfloat16', 'float32'):
+            cpu = runs[dtype, 'cpu']
+            for tag in ('card', MASKED):
+                card = runs[dtype, tag]
+                flips = (np.unpackbits(card['bits'].numpy())
+                         != np.unpackbits(cpu['bits'].numpy())).mean()
+                loose = dtype == 'bfloat16' or tag == 'card'
+                for k, lim in (('loss', 1e-4), ('pixel_loss', 1e-4),
+                               ('reg_loss', 1e-4), ('code_m', 1e-3),
+                               ('decoder', 1e-3), ('act', 1e-5)):
+                    if k == 'act' and cpu['act'] is None:
+                        continue
+
+                    def rel(a, b):
+                        if k in a['logs']:
+                            return abs(a['logs'][k] - b['logs'][k]) / abs(
+                                b['logs'][k])
+                        return ((a[k] - b[k]).abs().max()
+                                / b[k].abs().max()).item()
+
+                    err = rel(card, cpu)
+                    gap = rel(cpu, runs['float32', 'cpu'])
+                    tol = max(lim, 0.5 * gap) if loose else lim
+                    errs[f'{dtype} {tag} {k}'] = err
+                    log(f'phase 11 (e) {act} {k} ({dtype}, {tag}): rel_err '
+                        f'{err:.2e} (tol {tol:.2e}; bf16-vs-f32 gap on the '
+                        f'cpu {gap:.2e}); bits flipped {flips:.2e}')
+                    check(err <= tol, f'(e) {act} {dtype} {tag}: {k}')
+                if tag == MASKED:
+                    check(flips == 0, f'(e) {act}: replayed bitfield')
+        out[act] = errs
+    return launches, out
+
+
 def main():
     log(f'torch {torch.__version__} cuda {torch.version.cuda} python '
         f'{sys.version.split()[0]}')
@@ -3139,6 +3576,16 @@ def main():
         torch.cuda.empty_cache()
         train_cli_out['card_vs_cpu'] = phase_runner_card_vs_cpu(
             model_cpu, cfg, root, dev)
+        # stage-1 and two-stage training through the CLI on phase 10's
+        # cars_train, then the stage-1 step on the card and the CPU
+        torch.cuda.empty_cache()
+        stage1_out = phase_stage1_cli(dev, root, smi)
+        torch.cuda.empty_cache()
+        stage1_launches, stage1_out['card_vs_cpu'] = \
+            phase_stage1_card_vs_cpu(root, dev)
+        for name in STAGE1_KERNELS:
+            check(stage1_launches[name.replace('_bf16', '')] > 0,
+                  f'phase 11 (e): kernel {name} (f32) was not launched')
 
     # launches: the generation kernels' counts from the phase-3 slice, the
     # render variants' from the phase-3 variant renders, the probe's from
@@ -3171,6 +3618,10 @@ def main():
                        name],
                    train_cli_launches=train_cli_out['runs']['a']['launches'][
                        name],
+                   stage1_cli_launches=stage1_out['runs']['a']['launches'][
+                       name],
+                   stage2_cli_launches=stage1_out['runs']['d']['launches'][
+                       name],
                    **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
@@ -3181,7 +3632,7 @@ def main():
                                  train=bf16_train,
                                  unet_forward_device_ms=precision_ms),
                     'recons': recons, 'eval': evals,
-                    'train_cli': train_cli_out}))
+                    'train_cli': train_cli_out, 'stage1': stage1_out}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -42,9 +42,9 @@ def eval_and_viz(model, code, density_bitfield, data, viz_dir=None, cfg=None,
     PSNR, SSIM (skimage convention) and LPIPS (``lpips``, a
     :func:`feature_nets.make_lpips` function, made when None) against
     ``test_imgs``.  With a ``viz_dir`` (or ``cfg.viz_dir``) the renders
-    (beside the targets) and each scene's triplanes are written as PNGs
-    (the JAX package's ``init_code`` image has no counterpart: the port
-    keeps no mean code).
+    (beside the targets), each scene's triplanes and, with
+    ``init_from_mean``, the mean code's (``scene_000_mean.png``) are
+    written as PNGs.
 
     Returns (log_vars, pred_imgs (S, V, 3, h, w)) on the model's device.
     """
@@ -118,5 +118,8 @@ def eval_and_viz(model, code, density_bitfield, data, viz_dir=None, cfg=None,
         write_pngs(paths, imgs)
         visualize_triplane(code, scene_names, viz_dir,
                            code_range=cfg.get('clip_range', (-1, 1)))
+        if getattr(model, 'init_code', None) is not None:
+            visualize_triplane(model.init_code[None], ['000_mean'], viz_dir,
+                               code_range=cfg.get('clip_range', (-1, 1)))
 
     return log_vars, pred.reshape(S, V, 3, h, w)

@@ -11,8 +11,9 @@ def init_model(config, device='cuda', seed=0, use_fp16=False,
                checkpoint=None):
     """Build the model of ``config`` (a path or a Config) with parameters
     drawn from ``torch.Generator().manual_seed(seed)`` in the JAX package's
-    init scheme, in eval mode on ``device``; the EMA modules start as copies
-    of the live ones.  ``checkpoint``, a JAX-package checkpoint file, then
+    init scheme (the decoder's, then the UNet's), the code activation's
+    initial state and a zero mean code, in eval mode on ``device``; the
+    EMA modules start as copies of the live ones.  ``checkpoint``, a JAX-package checkpoint file, then
     fills the groups it holds, leniently (``core.checkpoint``: a missing
     or mismatched group keeps its fresh value, with a printed message).
     ``use_fp16`` samples in bf16 autocast (``autocast_dtype='bfloat16'``).
@@ -24,9 +25,7 @@ def init_model(config, device='cuda', seed=0, use_fp16=False,
         model = build_model(config.model, train_cfg=config.get('train_cfg'),
                             test_cfg=config.get('test_cfg'))
     model = model.to_empty(device='cpu')
-    generator = torch.Generator().manual_seed(seed)
-    model.decoder.init_weights(generator)
-    model.diffusion.init_weights(generator)
+    model.init_weights(torch.Generator().manual_seed(seed))
     model.reset_ema()
     if checkpoint is not None:
         load_checkpoint(checkpoint, model, lenient=True)

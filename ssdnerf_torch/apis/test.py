@@ -82,10 +82,16 @@ def evaluate_3d(model, dataset, batch_size=8, metrics=None, viz_dir=None,
                 code = torch.from_numpy(blob['code']).float().to(dev)
             else:
                 code = model.code_activation(
-                    torch.from_numpy(blob['code_']).float().to(dev))
+                    torch.from_numpy(blob['code_']).float().to(dev),
+                    model.code_act)
             grid = torch.from_numpy(blob['density_grid']).to(dev)
             bitfield = torch.from_numpy(blob['density_bitfield']).to(dev)
         else:
+            if not hasattr(model, 'val_step'):
+                raise AttributeError(
+                    f'{type(model).__name__} has no val_step: a stage-1 '
+                    'model cannot be evaluated, in the JAX package either '
+                    '(ROADMAP section 3 item 12)')
             draws = None if draws_fn is None else draws_fn(index, data)
             code, grid, bitfield = model.val_step(
                 {k: v for k, v in data.items() if torch.is_tensor(v)},

@@ -73,9 +73,13 @@ def build_runner(cfg, work_dir=None, seed=0, rank=0, world_size=1,
                  max_iters=None, device='cuda', draws_fn=None):
     """The runner of a config: the model's weights drawn as ``init_model``
     draws them from ``seed``, then the model groups of
-    ``cfg.model.pretrained`` / ``cfg.load_from`` (JAX-format checkpoints);
-    its data loader and optimizers; the scene bank from
-    ``train_cfg.cache_load_from``; the hooks of ``custom_hooks``, a
+    ``cfg.model.pretrained`` / ``cfg.load_from`` (JAX-format checkpoints:
+    every group but the optimizers' that both hold); its data loader
+    (scene-disjoint batches strictly with ``num_file_writers``) and
+    optimizers; the scene bank from ``train_cfg.cache_load_from``, unless
+    ``cache_size`` is 0 (the filesystem cache) or the run is stage 2
+    (no ``train_cfg.optimizer``), which reads no bank (the JAX package
+    builds one all the same); the hooks of ``custom_hooks``, a
     ``CheckpointHook`` (``checkpoint_config``), a ``TextLoggerHook`` and a
     ``SaveStatsHook`` (``log_config.interval``) and a
     ``GenerativeEvalHook3D`` an ``evaluation`` entry.  ``draws_fn`` goes
@@ -91,7 +95,8 @@ def build_runner(cfg, work_dir=None, seed=0, rank=0, world_size=1,
         world_size=world_size,
         num_workers=loader_cfg.get('num_workers',
                                    cfg.data.get('workers_per_gpu', 0)),
-        split_data=loader_cfg.get('split_data', True), seed=seed)
+        split_data=loader_cfg.get('split_data', True), seed=seed,
+        strict_disjoint=model.num_file_writers > 0)
     optimizers, schedulers = build_optimizers(
         model, cfg.get('optimizer', {}), cfg.get('lr_config'),
         max_iters=cfg.get('total_iters'))
@@ -103,7 +108,9 @@ def build_runner(cfg, work_dir=None, seed=0, rank=0, world_size=1,
             load_model_groups(model, state, names)
             print(f'Loaded {len(names)} state groups from {path}')
 
-    cache = model.make_cache(device) if model.cache_size > 0 else None
+    stage2 = 'optimizer' not in model.train_cfg
+    cache = model.make_cache(device) \
+        if model.cache_size > 0 and not stage2 else None
     if cache is not None:
         cache_load_from = model.train_cfg.get('cache_load_from')
         if load_cache_from_dir(cache, cache_load_from, scene_names):

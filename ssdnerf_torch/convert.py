@@ -138,15 +138,18 @@ def dump_params(module, leaf=None):
 
 def module_groups(model):
     """The model's modules under their JAX state group names (None where
-    the model keeps no such module)."""
-    return dict(decoder=model.decoder, decoder_ema=model.decoder_ema,
-                diffusion=model.diffusion.denoising,
-                diffusion_ema=None if model.diffusion_ema is None
-                else model.diffusion_ema.denoising)
+    the model keeps no such module; a stage-1 model has no diffusion
+    groups)."""
+    groups = dict(decoder=model.decoder, decoder_ema=model.decoder_ema)
+    if hasattr(model, 'diffusion'):
+        groups.update(diffusion=model.diffusion.denoising,
+                      diffusion_ema=None if model.diffusion_ema is None
+                      else model.diffusion_ema.denoising)
+    return groups
 
 
 def load_jax_params(model, tree):
-    """Fill a DiffusionNeRF from whichever of the JAX state's ``decoder``,
+    """Fill a model from whichever of the JAX state's ``decoder``,
     ``decoder_ema``, ``diffusion`` and ``diffusion_ema`` trees ``tree``
     holds: the live modules train, the EMA modules generate and render.
     A tree whose module the model does not keep, or no such tree at all,

@@ -9,8 +9,13 @@ the subset of msgpack this uses.
 
 The state groups the port holds are ``decoder``, ``decoder_ema``,
 ``diffusion``, ``diffusion_ema`` (Flax parameter trees, through
-``convert``) and ``ddpm_loss``, the diffusion loss's scale-norm factor
-(the live and EMA modules' ``norm_factor``); a training run's checkpoint
+``convert``; a stage-1 model has no diffusion groups) and, where the JAX
+package's state is not None: ``ddpm_loss``, the diffusion loss's
+scale-norm factor (the live and EMA modules' ``norm_factor``, with
+``scale_norm``); ``code_act``, the code activation's state
+(``NormalizedTanhCode``'s ``(running_mean, running_var)`` as Flax lays
+out a tuple, ``{'0': (1,), '1': (1,)}``); ``init_code``, the mean code of
+``init_from_mean``.  A training run's checkpoint
 adds ``opt_diffusion`` and ``opt_decoder``, its optimizers as
 ``flax.serialization.to_state_dict`` lays out ``optax.adam(schedule)``
 (``{'0': {count, mu, nu}, '1': {count}}``) or ``optax.adamw(schedule)``
@@ -277,31 +282,61 @@ def model_state(model, optimizers=None, schedulers=None):
     groups = module_groups(model)
     state = {name: dump_params(module) for name, module in groups.items()
              if module is not None}
-    state['ddpm_loss'] = model.diffusion.norm_factor.detach().float().cpu(
-        ).numpy()
+    if 'ddpm_loss' in group_names(model):
+        state['ddpm_loss'] = model.diffusion.norm_factor.detach().float(
+            ).cpu().numpy()
+    if model.code_act is not None:
+        state['code_act'] = {str(i): t.detach().cpu().numpy().copy()
+                             for i, t in enumerate(model.code_act)}
+    if model.init_code is not None:
+        state['init_code'] = model.init_code.detach().cpu().numpy().copy()
     for name, opt in (optimizers or {}).items():
         state['opt_' + name] = optimizer_state(groups[name], opt,
                                                schedulers[name])
     return state
 
 
+def _array(value, shape, what):
+    value = np.array(value, np.float32)
+    if value.shape != tuple(shape):
+        raise ValueError(f'{what}: shape {value.shape}, expected '
+                         f'{tuple(shape)}')
+    return torch.from_numpy(value)
+
+
 def _load_group(model, name, value):
-    targets = module_groups(model)
     if name == 'ddpm_loss':
-        value = np.array(value, np.float32)
-        if value.shape != tuple(model.diffusion.norm_factor.shape):
-            raise ValueError(f'ddpm_loss: shape {value.shape}')
+        value = _array(value, model.diffusion.norm_factor.shape, name)
         with torch.no_grad():
             for diff in model._diffusions():
-                diff.norm_factor.copy_(torch.from_numpy(value))
+                diff.norm_factor.copy_(value)
+    elif name == 'code_act':
+        state = model.code_act
+        if not isinstance(value, dict) or sorted(value) != [
+                str(i) for i in range(len(state))]:
+            raise ValueError(f'code_act: keys {sorted(value)}')
+        model.code_act = tuple(
+            _array(value[str(i)], t.shape, f'code_act/{i}').to(t.device)
+            for i, t in enumerate(state))
+    elif name == 'init_code':
+        model.init_code = _array(value, model.init_code.shape, name).to(
+            model.init_code.device)
     else:
-        load_params(targets[name], value)
+        load_params(module_groups(model)[name], value)
 
 
 def group_names(model):
-    """The JAX state groups the model holds (its optimizers' aside)."""
-    return [n for n, m in module_groups(model).items()
-            if m is not None] + ['ddpm_loss']
+    """The JAX state groups the model holds (its optimizers' aside): its
+    modules', ``ddpm_loss`` with a scale-norm factor, ``code_act`` and
+    ``init_code`` where not None."""
+    names = [n for n, m in module_groups(model).items() if m is not None]
+    if hasattr(model, 'diffusion') and model.diffusion.ddpm_loss.scale_norm:
+        names.append('ddpm_loss')
+    if model.code_act is not None:
+        names.append('code_act')
+    if model.init_code is not None:
+        names.append('init_code')
+    return names
 
 
 def load_model_groups(model, state, names=None, lenient=False):

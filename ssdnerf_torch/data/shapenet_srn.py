@@ -201,26 +201,34 @@ class ShapeNetSRN:
                 if imgs is not None:
                     results['test_imgs'] = imgs
 
-        if self.code_dir is not None:
-            name = self.scene_name(scene_id)
-            for ext in ('.npz', '.pth'):
-                code_file = os.path.join(self.code_dir, name + ext)
-                if os.path.exists(code_file):
-                    results['code'] = _load_code_file(code_file)
-                    break
+        code = self.load_code(scene_id)
+        if code is not None:
+            results['code'] = code
 
         if self.test_pose_override is not None:
             results['test_poses'] = self.test_poses
             results['test_intrinsics'] = self.test_intrinsics
         return results
 
+    def load_code(self, scene_id):
+        """The scene's cached state from ``code_dir`` (``<name>.npz``, else
+        the reference's ``<name>.pth``), or None."""
+        if self.code_dir is None:
+            return None
+        name = self.scene_name(scene_id)
+        for ext in ('.npz', '.pth'):
+            code_file = os.path.join(self.code_dir, name + ext)
+            if os.path.exists(code_file):
+                return _load_code_file(code_file)
+        return None
+
 
 def _load_code_file(path):
     """A cached scene state: .npz (this package's and the JAX package's) or
     .pth (the reference's)."""
     if path.endswith('.npz'):
-        d = np.load(path)
-        return {k: d[k] for k in d.files}
+        with np.load(path) as d:
+            return {k: d[k] for k in d.files}
     import torch
     obj = torch.load(path, map_location='cpu', weights_only=False)
     out = dict(scene_name=obj.get('scene_name'))

@@ -220,9 +220,13 @@ class DenoisingUnet(nn.Module):
                 f'DenoisingUnet: dtype {dtype!r} / attn_kernel '
                 f'{attn_kernel!r}: only float32 and bfloat16 with the '
                 'default attention backend are ported')
-        if groups != 1 or not downsample_conv or not upsample_conv:
-            raise ValueError('DenoisingUnet: only groups=1 with conv '
-                             'down/up-sampling is ported')
+        if groups != 1:
+            raise NotImplementedError(
+                'DenoisingUnet: the grouped UNet (groups > 1) is not ported: '
+                'ROADMAP section 1 item 3')
+        if not downsample_conv or not upsample_conv:
+            raise ValueError('DenoisingUnet: only conv down/up-sampling is '
+                             'ported')
         if isinstance(image_size, int):
             image_size = (image_size, image_size)
         self.dtype = getattr(torch, dtype)

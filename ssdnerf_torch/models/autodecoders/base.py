@@ -178,7 +178,7 @@ def inverse_draws(num_scenes, num_pixels, n_rays, n_steps, update_interval,
                            device=device))
 
 
-def inverse_code(decoder, code_activation, cond_rays_o, cond_rays_d,
+def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
                  cond_imgs, code_, opt_state, density_grid, density_bitfield,
                  draws, *, grid_size, pixel_loss, reg_loss=None,
                  bg_color=1.0, dt_gamma=0.0, n_inverse_steps, n_inverse_rays,
@@ -190,7 +190,9 @@ def inverse_code(decoder, code_activation, cond_rays_o, cond_rays_d,
     (step 0 included) the density grid is refreshed from the current codes;
     each step renders a ray batch, and ``prior_grad`` (S, *code_size), the
     diffusion prior's gradient, is added to every step's gradient.
-    ``draws`` are :func:`inverse_draws`'.  ``lr_scheduler_cfg`` (an
+    ``activate`` maps the raw codes to the decoder's (the code activation
+    with the state the caller's step reads).  ``draws`` are
+    :func:`inverse_draws`'.  ``lr_scheduler_cfg`` (an
     ``ExponentialLR``) decays each scene's rate by its Adam step count
     (:func:`scene_lr`).  The decoder gets no update.
 
@@ -204,7 +206,7 @@ def inverse_code(decoder, code_activation, cond_rays_o, cond_rays_d,
     for i in range(n_inverse_steps):
         if i % update_extra_interval == 0:
             with torch.no_grad():
-                planes = decoder.planes(code_activation(code_))
+                planes = decoder.planes(activate(code_))
                 density_grid, density_bitfield, _ = update_density_grid(
                     decoder, planes, density_grid,
                     draws['jitter'][i // update_extra_interval], grid_size,
@@ -215,7 +217,7 @@ def inverse_code(decoder, code_activation, cond_rays_o, cond_rays_d,
             sample_inds=None if inds is None else inds[i])
         leaf = code_.detach().requires_grad_()
         loss, _, loss_dict = rendering_loss(
-            decoder, code_activation(leaf), density_bitfield, target, rays_o,
+            decoder, activate(leaf), density_bitfield, target, rays_o,
             rays_d, grid_size, pixel_loss, reg_loss, bg_color, dt_gamma,
             perturb=draws['perturb'][i], scale_num_ray=num_pixels,
             loss_coef=loss_coef)

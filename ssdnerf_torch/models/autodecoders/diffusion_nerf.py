@@ -3,8 +3,11 @@ generation and reconstruction (port of ``DiffusionNeRF.train_step``,
 ``val_uncond``, ``val_guide``, ``val_optim`` and ``val_step`` of
 ``ssdnerf_tpu/models/autodecoders/diffusion_nerf.py``).
 
-The live ``diffusion`` and ``decoder`` are trained; ``diffusion_ema`` and
-``decoder_ema`` are what generation, reconstruction and rendering read.
+The live ``diffusion`` and ``decoder`` are trained (with
+``freeze_decoder`` the decoder is not, and training renders with
+``decoder_ema``); ``diffusion_ema`` and ``decoder_ema`` are what
+generation, reconstruction and rendering read.  Without a scene batch the
+step is stage 2's: the diffusion loss on the activated codes of the data.
 The runner's ``EMAHook`` updates the EMA modules after each step.  With
 ``autocast_dtype`` ('float16' or 'bfloat16', both bf16 as in the JAX
 package) sampling runs a bf16 copy of the EMA diffusion on a bf16 chain.
@@ -39,11 +42,13 @@ class DiffusionNeRF(MultiSceneNeRF):
         if cfg.get('diffusion_use_ema', True):
             self.diffusion_ema = copy.deepcopy(self.diffusion).requires_grad_(
                 False)
-        # JAX defaults freeze_decoder to True; every config sets it False
-        for key, default in (('code_permute', None), ('image_cond', False),
-                             ('freeze_decoder', True)):
-            if cfg.get(key, default):
-                raise NotImplementedError(f'{key} is not ported')
+        if cfg.get('code_permute') is not None:
+            raise NotImplementedError(
+                'code_permute (the tiled layout of the grouped UNet) is not '
+                'ported: ROADMAP section 1 item 3')
+        if cfg.get('image_cond', False):
+            raise NotImplementedError('image_cond is not ported')
+        self.freeze_decoder = cfg.get('freeze_decoder', True)
         self.code_reshape = tuple(cfg['code_reshape']) \
             if cfg.get('code_reshape') else None
         self.autocast_dtype = cfg.get('autocast_dtype')
@@ -79,6 +84,21 @@ class DiffusionNeRF(MultiSceneNeRF):
             diffusion.denoising.dtype = torch.bfloat16
         return diffusion
 
+    def init_weights(self, generator):
+        """The decoder's init and state (``MultiSceneNeRF.init_weights``),
+        then the UNet's and a scale-norm factor of 1."""
+        super().init_weights(generator)
+        self.diffusion.init_weights(generator)
+
+    @property
+    def train_decoder(self):
+        """The decoder the training step renders with: ``decoder_ema``
+        under ``freeze_decoder`` (JAX ``_train_decoder_params``), else the
+        live one."""
+        if self.freeze_decoder and self.decoder_ema is not None:
+            return self.decoder_ema
+        return self.decoder
+
     def reset_ema(self):
         super().reset_ema()
         if self.diffusion_ema is not None:
@@ -99,64 +119,54 @@ class DiffusionNeRF(MultiSceneNeRF):
     def train_draws(self, num_scenes, num_pixels, generator=None,
                     device='cpu'):
         """Every random draw of one :meth:`train_step`: diffusion timesteps
-        ``t`` and ``noise``; the inner loop's ``inverse`` draws
-        (:func:`inverse_draws`); the final density sweep's ``jitter``; the
-        decoder step's ``ray_inds`` (None when a scene has no more pixels
-        than the batch) and start-t ``perturb``; the UNet's ``dropout``
-        keep masks (None without dropout)."""
-        tc = self.train_cfg
+        ``t`` and ``noise``; with ``num_pixels`` (the pixels of a scene's
+        conditioning views; None for a step without renders, as stage
+        2's) the renders' draws (``MultiSceneNeRF.train_draws``:
+        ``inverse``, ``jitter``, ``ray_inds``, ``perturb``); the UNet's
+        ``dropout`` keep masks (None without dropout)."""
         S = num_scenes
-        n_dec = tc.get('n_decoder_rays', 4096)
         shape = (S,) + (self.code_reshape or self.code_size)
-        ess = tc.get('extra_scene_step', 0)
-        return dict(
+        draws = dict(
             t=self.diffusion.timestep_sampler.sample(S, generator, device),
-            noise=torch.randn(shape, generator=generator, device=device),
-            inverse=inverse_draws(
-                S, num_pixels, tc.get('n_inverse_rays', 4096), ess,
-                self.update_extra_interval, self.grid_size,
-                self.decoder.bound, generator, device) if ess > 0 else None,
-            jitter=density_jitter(self.grid_size, self.decoder.bound, 1,
-                                  generator, device)[0],
-            ray_inds=random_subsets(S, num_pixels, n_dec, generator, device)
-            if num_pixels > n_dec else None,
-            perturb=torch.rand((S, min(n_dec, num_pixels)),
-                               generator=generator, device=device),
-            dropout=self.diffusion.denoising.dropout_masks(
-                S, *shape[-2:], generator=generator, device=device))
-
-    @staticmethod
-    def _apply_grads(params, grads, optimizer, scheduler):
-        for p, g in zip(params, grads):
-            p.grad = g
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+            noise=torch.randn(shape, generator=generator, device=device))
+        if num_pixels is not None:
+            draws.update(super().train_draws(S, num_pixels, generator,
+                                             device))
+        draws['dropout'] = self.diffusion.denoising.dropout_masks(
+            S, *shape[-2:], generator=generator, device=device)
+        return draws
 
     def train_step(self, scene_batch, data, optimizers, lr_schedulers=None,
                    generator=None, draws=None):
-        """One single-stage training step (``diffusion_nerf.py:125-269``).
+        """One single-stage training step (JAX ``diffusion_nerf.py:
+        125-269``).
 
-        1. the diffusion loss on the activated codes: a ``diffusion``
-           optimizer step, and its gradient w.r.t. the raw codes, the
-           prior gradient;
+        1. the code activation's statistics updated from the raw codes;
+           the diffusion loss on the codes activated with the statistics
+           as they were: a ``diffusion`` optimizer step, and its gradient
+           w.r.t. the raw codes, the prior gradient;
         2. ``extra_scene_step`` inverse-rendering Adam steps on the codes,
            the prior gradient added to each;
         3. a density sweep (decay 0.9), then one render loss on a fresh ray
-           batch: a ``decoder`` optimizer step and a last code Adam step on
-           its gradient plus the prior's.
+           batch: a ``decoder`` optimizer step (none with
+           ``freeze_decoder``) and a last code Adam step on its gradient
+           plus the prior's; then the ``init_code`` EMA.
 
-        The three parts run inside ``torch.profiler.record_function`` ranges
-        named ``train_step.diffusion``, ``train_step.inverse`` and
+        Steps 2-3 read the new statistics, and run only with conditioning
+        views.  Stage 2 (``scene_batch`` None) is step 1 alone, on
+        ``data['code']``, the activated codes of the dataset.  The three
+        parts run inside ``torch.profiler.record_function`` ranges named
+        ``train_step.diffusion``, ``train_step.inverse`` and
         ``train_step.decoder``.  The scale-norm factor is updated unless
         ``freeze_norm``; the UNet's backward runs under its precision pin.
         The UNet drops (``dropout`` > 0) with the draws' keep masks.
 
         Args:
             scene_batch: dict(code_, opt, density_grid, density_bitfield),
-                as :meth:`DeviceSceneCache.load` gives it.
+                as :meth:`DeviceSceneCache.load` gives it, or None.
             data: dict(cond_imgs (S, V, h, w, 3), cond_poses (S, V, 4, 4),
-                cond_intrinsics (S, V, 4)) on the model's device.
+                cond_intrinsics (S, V, 4)), or for stage 2 dict(code (S,
+                *code_size)), on the model's device.
             optimizers / lr_schedulers: dicts keyed 'diffusion' and
                 'decoder' (``runner.optim.build_optimizers``).
             draws: :meth:`train_draws` to replay; drawn from ``generator``
@@ -168,31 +178,50 @@ class DiffusionNeRF(MultiSceneNeRF):
         lr_schedulers = lr_schedulers or {}
         if tc.get('x_t_detach', False):
             raise NotImplementedError('x_t_detach is not ported')
-        lr, betas = code_adam_cfg(tc.get('optimizer'))
-        code_ = scene_batch['code_']
+        stage2 = scene_batch is None
+        if not stage2:
+            lr, betas = code_adam_cfg(tc.get('optimizer'))
+        act = self.code_activation
+        old_state = self.code_act
+        if stage2:
+            code_ = data['code']
+            new_state = old_state
+        else:
+            code_ = scene_batch['code_']
+            with torch.no_grad():
+                _, new_state = act(code_, old_state, update_stats=True)
         S = code_.shape[0]
-        cond_imgs = data['cond_imgs']
-        num_pixels = math.prod(cond_imgs.shape[1:4])
+        renders = 'cond_imgs' in data and not stage2
+        num_pixels = math.prod(data['cond_imgs'].shape[1:4]) if renders \
+            else None
         if draws is None:
             draws = self.train_draws(S, num_pixels, generator, code_.device)
 
         # ---- diffusion loss, prior gradient on the codes ----
         with record_function('train_step.diffusion'):
-            leaf = code_.detach().requires_grad_()
+            leaf = code_.detach().requires_grad_(not stage2)
             loss_diff, log_vars = self.diffusion.forward_train(
-                self.code_diff_pr(self.code_activation(leaf)), t=draws['t'],
-                noise=draws['noise'], update_norm=not self.freeze_norm,
+                self.code_diff_pr(leaf if stage2 else act(leaf, old_state)),
+                t=draws['t'], noise=draws['noise'],
+                update_norm=not self.freeze_norm,
                 dropout=draws.get('dropout'))
             unet_params = list(self.diffusion.parameters())
             with precision():
-                *g_diff, prior_grad = torch.autograd.grad(
-                    loss_diff, unet_params + [leaf])
-            self._apply_grads(unet_params, g_diff, optimizers['diffusion'],
-                              lr_schedulers.get('diffusion'))
+                grads = torch.autograd.grad(
+                    loss_diff, unet_params + ([] if stage2 else [leaf]))
+            g_diff = grads[:len(unet_params)]
+            self.apply_grads(unet_params, g_diff, optimizers['diffusion'],
+                             lr_schedulers.get('diffusion'))
             log_vars['loss_diffusion'] = loss_diff.detach()
+        self.code_act = new_state
+        if not renders:
+            return scene_batch, log_vars
+        prior_grad = grads[-1]
 
+        cond_imgs = data['cond_imgs']
         rays_o, rays_d, dt_gamma = self.cond_rays(data, tc)
-        decoder = self.decoder
+        decoder = self.train_decoder
+        activate = self.activate(new_state)
         opt = scene_batch['opt']
         grid = scene_batch['density_grid']
         bitfield = scene_batch['density_bitfield']
@@ -203,7 +232,7 @@ class DiffusionNeRF(MultiSceneNeRF):
         with record_function('train_step.inverse'):
             if draws['inverse'] is not None:
                 code_, opt, grid, bitfield, aux = inverse_code(
-                    decoder, self.code_activation, rays_o, rays_d, cond_imgs,
+                    decoder, activate, rays_o, rays_d, cond_imgs,
                     code_, opt, grid, bitfield, draws['inverse'],
                     grid_size=self.grid_size, pixel_loss=self.pixel_loss,
                     reg_loss=self.reg_loss, bg_color=self.bg_color,
@@ -221,29 +250,33 @@ class DiffusionNeRF(MultiSceneNeRF):
         with record_function('train_step.decoder'):
             with torch.no_grad():
                 grid, bitfield, _ = update_density_grid(
-                    decoder, decoder.planes(self.code_activation(code_)),
-                    grid, draws['jitter'], self.grid_size,
+                    decoder, decoder.planes(activate(code_)), grid,
+                    draws['jitter'], self.grid_size,
                     density_thresh=density_thresh)
             b_rays_o, b_rays_d, target = ray_sample(
                 rays_o, rays_d, cond_imgs, tc.get('n_decoder_rays', 4096),
                 sample_inds=draws['ray_inds'])
             leaf = code_.detach().requires_grad_()
             loss_dec, out_rgbs, loss_dict = rendering_loss(
-                decoder, self.code_activation(leaf), bitfield, target,
+                decoder, activate(leaf), bitfield, target,
                 b_rays_o, b_rays_d, self.grid_size, self.pixel_loss,
                 self.reg_loss, self.bg_color, dt_gamma,
                 perturb=draws['perturb'], scale_num_ray=num_pixels,
                 loss_coef=loss_coef)
-            dec_params = list(decoder.parameters())
-            g_code, *g_dec = torch.autograd.grad(loss_dec,
-                                                 [leaf] + dec_params)
-            self._apply_grads(dec_params, g_dec, optimizers['decoder'],
-                              lr_schedulers.get('decoder'))
+            if self.freeze_decoder:
+                g_code, = torch.autograd.grad(loss_dec, leaf)
+            else:
+                dec_params = list(decoder.parameters())
+                g_code, *g_dec = torch.autograd.grad(loss_dec,
+                                                     [leaf] + dec_params)
+                self.apply_grads(dec_params, g_dec, optimizers['decoder'],
+                                 lr_schedulers.get('decoder'))
             code_, opt = adam_step(code_.detach(), g_code + prior_grad, opt,
                                    lr, betas)
 
         with torch.no_grad():
-            code = self.code_activation(code_)
+            code = activate(code_)
+            self.update_init_code(code)
             log_vars.update(loss_dict)
             log_vars.update(loss_decoder=loss_dec.detach(),
                             train_psnr=psnr(out_rgbs.detach(), target),
@@ -404,7 +437,8 @@ class DiffusionNeRF(MultiSceneNeRF):
         leaf = code_.detach().requires_grad_()
         with torch.enable_grad():
             loss, _ = self.ema_diffusion.forward_train(
-                self.code_diff_pr(self.code_activation(leaf)), t=draws['t'],
+                self.code_diff_pr(self.code_activation(leaf, self.code_act)),
+                t=draws['t'],
                 noise=draws['noise'], update_norm=False,
                 norm_factor=self.diffusion.norm_factor)
             with precision():
@@ -423,12 +457,12 @@ class DiffusionNeRF(MultiSceneNeRF):
         the ``val_step.polish`` range.  Returns the activated codes."""
         with record_function('val_step.polish'):
             lr0, betas, gamma = self._code_adam()
-            code_ = self.code_activation.inverse(code)
+            code_ = self.code_activation.inverse(code, self.code_act)
             opt = adam_init(code_)
             for d in polish:
                 code_, opt = adam_step(code_, self.prior_grad(code_, d), opt,
                                        scene_lr(lr0, gamma, opt), betas)
-            return self.code_activation(code_)
+            return self.code_activation(code_, self.code_act)
 
     def val_guide(self, data, noise, draws=None, generator=None):
         """Reconstruction-guided sampling (JAX ``diffusion_nerf.py:
@@ -508,8 +542,9 @@ class DiffusionNeRF(MultiSceneNeRF):
         all of them.  ``draws`` are :meth:`val_draws`' (``optim``, and
         ``init`` when ``code_`` is None), drawn from ``generator`` when
         None.  ``code_`` / ``density_grid`` / ``density_bitfield`` start
-        the codes (raw) and the f16 grids; else the codes start from
-        ``init`` and the grids empty.
+        the codes (raw) and the f16 grids; else the codes start from the
+        inverse activation of ``init_code * mean_scale`` (with
+        ``init_from_mean``) or ``init``, and the grids empty.
 
         Returns (code, density_grid, density_bitfield).
         """
@@ -530,8 +565,13 @@ class DiffusionNeRF(MultiSceneNeRF):
         density_thresh = tcfg.get('density_thresh', 0.01)
         loss_coef = tcfg.get('loss_coef')
         decoder = self.ema_decoder
+        activate = self.activate(self.code_act)
         H3 = self.grid_size ** 3
-        if code_ is None:
+        if code_ is None and self.init_code is not None:
+            code_ = self.code_activation.inverse(
+                self.init_code * self.mean_scale, self.code_act).expand(
+                    (S,) + self.code_size)
+        elif code_ is None:
             code_ = draws['init']
         grid = torch.zeros((S, H3), dtype=torch.float16, device=dev) \
             if density_grid is None else density_grid
@@ -543,7 +583,7 @@ class DiffusionNeRF(MultiSceneNeRF):
                 prior_grad = self.prior_grad(code_, d)
                 if ess > 0:
                     code_, opt, grid, bitfield, _ = inverse_code(
-                        decoder, self.code_activation, rays_o, rays_d,
+                        decoder, activate, rays_o, rays_d,
                         cond_imgs, code_, opt, grid, bitfield, d['inverse'],
                         grid_size=self.grid_size, pixel_loss=self.pixel_loss,
                         reg_loss=self.reg_loss, bg_color=self.bg_color,
@@ -556,7 +596,7 @@ class DiffusionNeRF(MultiSceneNeRF):
                         update_extra_interval=self.update_extra_interval)
                     continue
                 grid, bitfield, _ = update_density_grid(
-                    decoder, decoder.planes(self.code_activation(code_)),
+                    decoder, decoder.planes(activate(code_)),
                     grid, d['jitter'], self.grid_size,
                     density_thresh=density_thresh)
                 b_o, b_d, target = ray_sample(
@@ -565,14 +605,14 @@ class DiffusionNeRF(MultiSceneNeRF):
                     sample_inds=d['ray_inds'])
                 leaf = code_.detach().requires_grad_()
                 loss, _, _ = rendering_loss(
-                    decoder, self.code_activation(leaf), bitfield, target,
+                    decoder, activate(leaf), bitfield, target,
                     b_o, b_d, self.grid_size, self.pixel_loss, self.reg_loss,
                     self.bg_color, dt_gamma, perturb=d['perturb'],
                     scale_num_ray=num_pixels, loss_coef=loss_coef)
                 grad, = torch.autograd.grad(loss, leaf)
                 code_, opt = adam_step(code_.detach(), grad + prior_grad,
                                        opt, scene_lr(lr0, gamma, opt), betas)
-        return self.code_activation(code_), grid, bitfield
+        return activate(code_), grid, bitfield
 
     def val_step(self, data, draws=None, generator=None):
         """Dispatch on ``test_cfg['cond_mode']`` (JAX
@@ -609,6 +649,7 @@ class DiffusionNeRF(MultiSceneNeRF):
         if mode == 'guide_optim':
             code, grid, bitfield = self.val_guide(data, noise, draws)
             return self.val_optim(
-                data, draws, code_=self.code_activation.inverse(code),
+                data, draws,
+                code_=self.code_activation.inverse(code, self.code_act),
                 density_grid=grid.half(), density_bitfield=bitfield)
         raise ValueError(f'unknown cond_mode {mode}')

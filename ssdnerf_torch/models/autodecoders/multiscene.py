@@ -1,19 +1,26 @@
-"""Multi-scene NeRF: decoder (live and EMA), losses, code layout, the device
-scene bank and image rendering (port of
-``ssdnerf_tpu/models/autodecoders/multiscene.py``)."""
+"""Multi-scene NeRF: the stage-1 auto-decoder (port of
+``ssdnerf_tpu/models/autodecoders/multiscene.py``): decoder (live and
+EMA), losses, code layout and activation with its state, the device scene
+bank, the stage-1 training step, test-time code optimisation and image
+rendering."""
 import copy
 import dataclasses
+import math
 
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ...ops import get_cam_rays
 from ..code_activations import build_code_activation
-from ..decoders.renderer import render_views
+from ..decoders.renderer import (density_jitter, render_views,
+                                 update_density_grid)
 from ..decoders.triplane import TriPlaneDecoder
 from ..losses import build_pixel_loss, build_reg_loss
-from .base import SceneOptState
+from .base import (SceneOptState, adam_init, adam_step, code_adam_cfg,
+                   inverse_code, inverse_draws, random_subsets, ray_sample,
+                   rendering_loss)
 
 
 def build_decoder(cfg):
@@ -31,28 +38,34 @@ def psnr(pred, target):
 
 class DeviceSceneCache:
     """The per-scene training state of ``cache_size`` scenes, resident on
-    one device (port of ``DeviceSceneCache``): f32 raw codes, the code
-    Adam's moments and step counts, f16 density grids and occupancy
-    bitfields.  ``save`` writes the batch's rows in place.  Which scenes
+    one device (port of ``DeviceSceneCache``): raw codes, the code Adam's
+    moments and step counts, f16 density grids and occupancy bitfields.
+    The codes and moments are f32, or with ``cache_16bit`` f16 codes and
+    bf16 moments (JAX ``multiscene.py:159-326``): rows are gathered as f32
+    and written back rounded, the codes clipped to the storage type's
+    range first.  ``save`` writes the batch's rows in place.  Which scenes
     have been initialised is kept on the host.  One process holds the
     whole bank: a scene's id is its row.
 
     :meth:`state_dict` gives host numpy arrays under the JAX package's
-    keys and dtypes (``code_``, ``m``, ``v``, ``step``, ``density_grid``,
-    ``density_bitfield``, ``seen``), so that a bank ``.npz`` one package
-    writes loads in the other.
+    keys (``code_``, ``m``, ``v``, ``step``, ``density_grid``,
+    ``density_bitfield``, ``seen``), the bf16 moments as f32, so that a
+    bank ``.npz`` one package writes loads in the other.
     """
 
     KEYS = ('code_', 'm', 'v', 'step', 'density_grid', 'density_bitfield')
 
-    def __init__(self, cache_size, code_size, grid_size, device='cpu'):
+    def __init__(self, cache_size, code_size, grid_size, device='cpu',
+                 cache_16bit=False):
         n, cs = cache_size, tuple(code_size)
         self.cache_size = cache_size
         self.code_size = cs
         self.grid_size = grid_size
-        self.code_ = torch.zeros((n,) + cs, device=device)
-        self.m = torch.zeros((n,) + cs, device=device)
-        self.v = torch.zeros((n,) + cs, device=device)
+        code_dtype = torch.float16 if cache_16bit else torch.float32
+        opt_dtype = torch.bfloat16 if cache_16bit else torch.float32
+        self.code_ = torch.zeros((n,) + cs, dtype=code_dtype, device=device)
+        self.m = torch.zeros((n,) + cs, dtype=opt_dtype, device=device)
+        self.v = torch.zeros((n,) + cs, dtype=opt_dtype, device=device)
         self.step = torch.zeros(n, dtype=torch.int32, device=device)
         self.density_grid = torch.zeros((n, grid_size ** 3),
                                         dtype=torch.float16, device=device)
@@ -83,12 +96,12 @@ class DeviceSceneCache:
         self.seen[self._index(scene_ids)] = True
 
     def load(self, scene_ids, init_code_fn=None):
-        """Copies of the batch's rows: dict(code_, opt, density_grid,
+        """f32 copies of the batch's rows: dict(code_, opt, density_grid,
         density_bitfield)."""
         idx = self.ensure_init(scene_ids, init_code_fn)
         return dict(
-            code_=self.code_[idx],
-            opt=SceneOptState(m=self.m[idx], v=self.v[idx],
+            code_=self.code_[idx].float(),
+            opt=SceneOptState(m=self.m[idx].float(), v=self.v[idx].float(),
                               step=self.step[idx]),
             density_grid=self.density_grid[idx],
             density_bitfield=self.density_bitfield[idx])
@@ -96,21 +109,36 @@ class DeviceSceneCache:
     def save(self, scene_ids, code_, opt, density_grid, density_bitfield):
         ids = self._index(scene_ids)
         idx = torch.as_tensor(ids, device=self.code_.device)
+        fin = torch.finfo(self.code_.dtype).max
         with torch.no_grad():
-            self.code_[idx] = code_
-            self.m[idx] = opt.m
-            self.v[idx] = opt.v
+            self.code_[idx] = code_.clamp(-fin, fin).to(self.code_.dtype)
+            self.m[idx] = opt.m.to(self.m.dtype)
+            self.v[idx] = opt.v.to(self.v.dtype)
             self.step[idx] = opt.step
             self.density_grid[idx] = density_grid
             self.density_bitfield[idx] = density_bitfield
         self.seen[ids] = True
 
     def state_dict(self):
-        """Host numpy copies of the bank and ``seen``."""
-        out = {k: getattr(self, k).to('cpu', copy=True).numpy()
-               for k in self.KEYS}
+        """Host numpy copies of the bank (bf16 moments as f32) and
+        ``seen``."""
+        out = {}
+        for k in self.KEYS:
+            t = getattr(self, k)
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            out[k] = t.to('cpu', copy=True).numpy()
         out['seen'] = self.seen.copy()
         return out
+
+    @staticmethod
+    def _tensor(val):
+        """A numpy array as a tensor; the JAX package's ``np.savez`` of a
+        bf16 array holds its raw bits (dtype ``V2``): read them as bf16."""
+        if val.dtype.kind == 'V' and val.dtype.itemsize == 2:
+            return torch.from_numpy(np.ascontiguousarray(val).view(
+                np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(np.ascontiguousarray(val))
 
     def load_state_dict(self, d):
         """Fill the bank from a :meth:`state_dict` (of either package; rows
@@ -128,8 +156,7 @@ class DeviceSceneCache:
             if val.shape != tuple(cur.shape):
                 raise ValueError(f'{k}: shape {val.shape} does not fit the '
                                  f'bank {tuple(cur.shape)}')
-            cur.copy_(torch.from_numpy(np.ascontiguousarray(val)).to(
-                cur.dtype))
+            cur.copy_(self._tensor(val).to(cur.dtype))
         if 'seen' in d:
             self.seen[...] = np.asarray(d['seen'])
 
@@ -165,9 +192,14 @@ class DeviceSceneCache:
 
 
 class MultiSceneNeRF(nn.Module):
-    """Holds the decoder, its EMA copy (``decoder_use_ema``), the losses and
-    the config; scene codes and density grids are passed in explicitly.
-    Evaluation renders with the EMA decoder."""
+    """Holds the decoder, its EMA copy (``decoder_use_ema``), the losses,
+    the config and the JAX state groups ``code_act`` (the code
+    activation's running statistics, None for a stateless activation) and
+    ``init_code`` (the mean code of ``init_from_mean``, else None) as
+    buffers; scene codes and density grids are passed in explicitly.
+    Evaluation renders with the EMA decoder.  The scene bank stays on the
+    model's device (``cache_device`` 'auto' or 'device'); the JAX
+    package's host bank ('host') is not ported."""
 
     def __init__(self, cfg, train_cfg=None, test_cfg=None):
         super().__init__()
@@ -186,16 +218,61 @@ class MultiSceneNeRF(nn.Module):
             cfg.get('pixel_loss', {'type': 'MSELoss'}))
         self.reg_loss = build_reg_loss(cfg.get('reg_loss'))
         self.update_extra_interval = cfg.get('update_extra_interval', 16)
-        # the mean-code init, the 16-bit host cache and the filesystem
-        # cache's writers (ROADMAP section 1 item 3)
-        for key in ('init_from_mean', 'cache_16bit', 'num_file_writers'):
-            if cfg.get(key):
-                raise NotImplementedError(f'{key} is not ported')
+        self.init_from_mean = cfg.get('init_from_mean', False)
         self.init_scale = cfg.get('init_scale', 1e-4)
+        self.mean_ema_momentum = cfg.get('mean_ema_momentum', 0.001)
+        self.mean_scale = cfg.get('mean_scale', 1.0)
         self.cache_size = cfg.get('cache_size', 0)
+        self.cache_16bit = cfg.get('cache_16bit', False)
+        self.num_file_writers = cfg.get('num_file_writers', 0)
+        self.cache_device = cfg.get('cache_device', 'auto')
+        if self.cache_device not in ('auto', 'device', 'host'):
+            raise ValueError(f'cache_device {self.cache_device!r}')
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         self._override_backup = {}
+        act_state = self.code_activation.init_state()
+        self._code_act_names = [] if act_state is None else [
+            f'code_act_{i}' for i in range(len(act_state))]
+        for name, value in zip(self._code_act_names, act_state or ()):
+            self.register_buffer(name, value)
+        self.register_buffer('init_code', torch.zeros(self.code_size)
+                             if self.init_from_mean else None)
+
+    def init_weights(self, generator):
+        """The decoder's JAX-package init, the code activation's initial
+        state and a zero mean code."""
+        self.decoder.init_weights(generator)
+        self.code_act = self.code_activation.init_state(
+            next(self.decoder.parameters()).device)
+        if self.init_code is not None:
+            self.init_code = torch.zeros_like(self.init_code)
+
+    @property
+    def code_act(self):
+        """The code activation's state (JAX ``state['code_act']``): a tuple
+        of the buffers, or None."""
+        if not self._code_act_names:
+            return None
+        return tuple(getattr(self, n) for n in self._code_act_names)
+
+    @code_act.setter
+    def code_act(self, state):
+        """Set the state; the buffers are replaced, not written, so a state
+        read earlier keeps its values."""
+        if state is None:
+            if self._code_act_names:
+                raise ValueError('the code activation keeps a state')
+            return
+        if len(state) != len(self._code_act_names):
+            raise ValueError(f'code_act: {len(state)} arrays for '
+                             f'{len(self._code_act_names)}')
+        for name, value in zip(self._code_act_names, state):
+            setattr(self, name, value.detach())
+
+    def activate(self, state):
+        """The code activation with ``state``: raw codes -> codes."""
+        return lambda code_: self.code_activation(code_, state)
 
     @property
     def ema_decoder(self):
@@ -289,15 +366,37 @@ class MultiSceneNeRF(nn.Module):
             self.decoder_ema.load_state_dict(self.decoder.state_dict())
 
     def make_cache(self, device):
+        """The scene bank on ``device`` (f32, or 16-bit with
+        ``cache_16bit``).  JAX's 'auto' puts a bank over 6e9 bytes on the
+        host; the port keeps every bank on the card, where the 2458-scene
+        banks fit (10.1 GB f32, 5.7 GB 16-bit)."""
+        if self.cache_device == 'host':
+            raise NotImplementedError(
+                "cache_device='host' (the host SceneCache) is not ported: "
+                'ROADMAP section 1 item 4')
         return DeviceSceneCache(self.cache_size, self.code_size,
-                                self.grid_size, device)
+                                self.grid_size, device, self.cache_16bit)
 
-    def get_init_code_np(self, num, rng):
-        """Fresh raw codes drawn on the host from ``rng`` (a
-        ``np.random.RandomState``), uniform in [-init_scale, init_scale),
-        the JAX package's draw: the same state gives the same codes."""
-        return rng.uniform(-self.init_scale, self.init_scale,
-                           (num,) + self.code_size).astype(np.float32)
+    def get_init_code_np(self, num, rng, init_code=None):
+        """Fresh raw codes on the host: without ``init_code``, uniform in
+        [-init_scale, init_scale) from ``rng`` (a
+        ``np.random.RandomState``; the JAX package's draw, the same state
+        gives the same codes); with it, ``num`` copies of the inverse
+        activation of ``init_code * mean_scale``.  That inverse gets no
+        state, as in the JAX package, so ``NormalizedTanhCode`` raises
+        there."""
+        if init_code is None:
+            return rng.uniform(-self.init_scale, self.init_scale,
+                               (num,) + self.code_size).astype(np.float32)
+        inv = self.code_activation.inverse(
+            torch.as_tensor(np.asarray(init_code, np.float32))
+            * self.mean_scale, None)
+        return np.broadcast_to(inv.numpy(), (num,) + self.code_size).copy()
+
+    def init_code_np(self):
+        """``init_code`` as a host array, or None."""
+        return None if self.init_code is None else \
+            self.init_code.detach().cpu().numpy()
 
     def get_init_code(self, num, generator=None, device='cpu'):
         """Fresh raw codes, uniform in [-init_scale, init_scale)."""
@@ -339,3 +438,175 @@ class MultiSceneNeRF(nn.Module):
                             dt_gamma_scale=cfg.get('dt_gamma_scale', 0.0),
                             bg_color=self.bg_color,
                             max_render_rays=cfg.get('max_render_rays', -1))
+
+    # ------------------------------------------------------------ training
+    def train_draws(self, num_scenes, num_pixels, generator=None,
+                    device='cpu'):
+        """Every random draw of one stage-1 :meth:`train_step`, the draws of
+        its renders: the inner loop's ``inverse`` (:func:`inverse_draws`,
+        None without ``extra_scene_step``), the density sweep's ``jitter``,
+        the decoder step's ``ray_inds`` (None when a scene has no more
+        pixels than the batch) and start-t ``perturb``."""
+        tc = self.train_cfg
+        S = num_scenes
+        n_dec = tc.get('n_decoder_rays', 4096)
+        ess = tc.get('extra_scene_step', 0)
+        return dict(
+            inverse=inverse_draws(
+                S, num_pixels, tc.get('n_inverse_rays', 4096), ess,
+                self.update_extra_interval, self.grid_size,
+                self.decoder.bound, generator, device) if ess > 0 else None,
+            jitter=density_jitter(self.grid_size, self.decoder.bound, 1,
+                                  generator, device)[0],
+            ray_inds=random_subsets(S, num_pixels, n_dec, generator, device)
+            if num_pixels > n_dec else None,
+            perturb=torch.rand((S, min(n_dec, num_pixels)),
+                               generator=generator, device=device))
+
+    @staticmethod
+    def apply_grads(params, grads, optimizer, scheduler):
+        for p, g in zip(params, grads):
+            p.grad = g
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+
+    def update_init_code(self, code):
+        """The mean code's EMA (``mean_ema_momentum``) toward the batch's
+        mean activated code, with ``init_from_mean``."""
+        if self.init_code is not None:
+            self.init_code = (1 - self.mean_ema_momentum) * self.init_code \
+                + self.mean_ema_momentum * code.detach().mean(dim=0)
+
+    def train_step(self, scene_batch, data, optimizers, lr_schedulers=None,
+                   generator=None, draws=None):
+        """One stage-1 step (JAX ``multiscene.py:505-600``):
+        ``extra_scene_step`` inverse-rendering Adam steps on the codes with
+        the live decoder and the code activation's state as it was; then
+        the activation's statistics updated from the raw codes, a density
+        sweep (decay 0.9) and one render loss on a fresh ray batch, giving
+        a ``decoder`` optimizer step and a last code Adam step, both with
+        the new statistics; then the ``init_code`` EMA.
+
+        Args and return as ``DiffusionNeRF.train_step``: ``optimizers`` /
+        ``lr_schedulers`` are keyed 'decoder'; ``draws`` are
+        :meth:`train_draws`', drawn from ``generator`` when None.  The log
+        vars are the render loss's parts, ``loss``, ``train_psnr`` and
+        ``code_rms``.
+        """
+        tc = self.train_cfg
+        lr_schedulers = lr_schedulers or {}
+        lr, betas = code_adam_cfg(tc.get('optimizer'))
+        code_ = scene_batch['code_']
+        S = code_.shape[0]
+        cond_imgs = data['cond_imgs']
+        num_pixels = math.prod(cond_imgs.shape[1:4])
+        if draws is None:
+            draws = self.train_draws(S, num_pixels, generator, code_.device)
+        rays_o, rays_d, dt_gamma = self.cond_rays(data, tc)
+        decoder = self.decoder
+        opt = scene_batch['opt']
+        grid = scene_batch['density_grid']
+        bitfield = scene_batch['density_bitfield']
+        density_thresh = tc.get('density_thresh', 0.01)
+        loss_coef = tc.get('loss_coef')
+        old_state = self.code_act
+
+        with record_function('train_step.inverse'):
+            if draws['inverse'] is not None:
+                code_, opt, grid, bitfield, _ = inverse_code(
+                    decoder, self.activate(old_state), rays_o, rays_d,
+                    cond_imgs, code_, opt, grid, bitfield, draws['inverse'],
+                    grid_size=self.grid_size, pixel_loss=self.pixel_loss,
+                    reg_loss=self.reg_loss, bg_color=self.bg_color,
+                    dt_gamma=dt_gamma,
+                    n_inverse_steps=tc.get('extra_scene_step', 0),
+                    n_inverse_rays=tc.get('n_inverse_rays', 4096),
+                    loss_coef=loss_coef, optimizer_cfg=tc.get('optimizer'),
+                    density_thresh=density_thresh,
+                    update_extra_interval=self.update_extra_interval)
+
+        with record_function('train_step.decoder'):
+            with torch.no_grad():
+                code, new_state = self.code_activation(
+                    code_, old_state, update_stats=True)
+                grid, bitfield, _ = update_density_grid(
+                    decoder, decoder.planes(code), grid, draws['jitter'],
+                    self.grid_size, density_thresh=density_thresh)
+            b_rays_o, b_rays_d, target = ray_sample(
+                rays_o, rays_d, cond_imgs, tc.get('n_decoder_rays', 4096),
+                sample_inds=draws['ray_inds'])
+            leaf = code_.detach().requires_grad_()
+            loss, out_rgbs, loss_dict = rendering_loss(
+                decoder, self.code_activation(leaf, new_state), bitfield,
+                target, b_rays_o, b_rays_d, self.grid_size, self.pixel_loss,
+                self.reg_loss, self.bg_color, dt_gamma,
+                perturb=draws['perturb'], scale_num_ray=num_pixels,
+                loss_coef=loss_coef)
+            dec_params = list(decoder.parameters())
+            g_code, *g_dec = torch.autograd.grad(loss, [leaf] + dec_params)
+            self.apply_grads(dec_params, g_dec, optimizers['decoder'],
+                             lr_schedulers.get('decoder'))
+            code_, opt = adam_step(code_.detach(), g_code, opt, lr, betas)
+
+        self.code_act = new_state
+        with torch.no_grad():
+            code = self.code_activation(code_, new_state)
+            self.update_init_code(code)
+            log_vars = dict(loss_dict)
+            log_vars.update(loss=loss.detach(),
+                            train_psnr=psnr(out_rgbs.detach(), target),
+                            code_rms=torch.sqrt(torch.mean(code ** 2)))
+        scene_batch = dict(code_=code_, opt=opt, density_grid=grid,
+                           density_bitfield=bitfield)
+        return scene_batch, log_vars
+
+    # ------------------------------------------------------ reconstruction
+    def val_inverse_draws(self, num_scenes, num_pixels, generator=None,
+                          device='cpu'):
+        """The draws of :meth:`val_inverse_code` (:func:`inverse_draws` of
+        ``test_cfg``'s ``n_inverse_steps``)."""
+        tcfg = self.test_cfg
+        return inverse_draws(
+            num_scenes, num_pixels, tcfg.get('n_inverse_rays', 4096),
+            tcfg.get('n_inverse_steps', 1000), self.update_extra_interval,
+            self.grid_size, self.decoder.bound, generator, device)
+
+    def val_inverse_code(self, data, draws=None, generator=None):
+        """Test-time optimisation of the codes of the conditioning views
+        (JAX ``multiscene.py:605-638``), with the EMA decoder: from init
+        codes of ``np.random.RandomState(0)`` (or the mean code), empty
+        f16 density grids and ``test_cfg``'s optimizer and ExponentialLR,
+        ``n_inverse_steps`` steps of :func:`inverse_code`.  ``draws`` are
+        :meth:`val_inverse_draws`', drawn from ``generator`` when None.
+        Returns (code, density_grid, density_bitfield, aux)."""
+        tcfg = self.test_cfg
+        cond_imgs = data['cond_imgs']
+        S = cond_imgs.shape[0]
+        dev = cond_imgs.device
+        num_pixels = math.prod(cond_imgs.shape[1:4])
+        if draws is None:
+            draws = self.val_inverse_draws(S, num_pixels, generator, dev)
+        rays_o, rays_d, dt_gamma = self.cond_rays(data, tcfg)
+        code_ = torch.from_numpy(self.get_init_code_np(
+            S, np.random.RandomState(0), self.init_code_np())).to(dev)
+        H3 = self.grid_size ** 3
+        grid = torch.zeros((S, H3), dtype=torch.float16, device=dev)
+        bitfield = torch.zeros((S, H3 // 8), dtype=torch.uint8, device=dev)
+        state = self.code_act
+        with record_function('val_inverse_code'), torch.enable_grad():
+            code_, _, grid, bitfield, aux = inverse_code(
+                self.ema_decoder, self.activate(state), rays_o, rays_d,
+                cond_imgs, code_, adam_init(code_), grid, bitfield, draws,
+                grid_size=self.grid_size, pixel_loss=self.pixel_loss,
+                reg_loss=self.reg_loss, bg_color=self.bg_color,
+                dt_gamma=dt_gamma,
+                n_inverse_steps=tcfg.get('n_inverse_steps', 1000),
+                n_inverse_rays=tcfg.get('n_inverse_rays', 4096),
+                loss_coef=tcfg.get('loss_coef'),
+                optimizer_cfg=tcfg.get('optimizer'),
+                lr_scheduler_cfg=tcfg.get('lr_scheduler'),
+                density_thresh=tcfg.get('density_thresh', 0.01),
+                update_extra_interval=self.update_extra_interval)
+        with torch.no_grad():
+            return self.code_activation(code_, state), grid, bitfield, aux

@@ -1,6 +1,6 @@
 """Loss functions of the training step (port of
 ``ssdnerf_tpu/models/losses.py``): the pixel loss ``MSELoss``, the code
-regulariser ``RegLoss`` and the diffusion loss ``DDPMMSELoss``
+regularisers ``RegLoss`` and ``TVLoss``, and the diffusion loss ``DDPMMSELoss``
 (``DDPMMSELossMod``) with timestep-weight rescaling, quartile logs and the
 running scale-norm factor."""
 from dataclasses import dataclass
@@ -28,6 +28,27 @@ class RegLoss:
         if self.power != 1:
             a = a ** self.power
         return torch.mean(a) * self.loss_weight
+
+
+@dataclass(frozen=True)
+class TVLoss:
+    """Total variation of the codes: the mean over every element of the
+    norm of its forward differences along ``dims`` (zero past the last
+    element), to the ``power``.  The norm is JAX's "safe" one,
+    ``sqrt(max(sq, 1e-24))``, so its gradient at exactly equal neighbours
+    (codes initialised from the mean start so) is 0, not NaN."""
+    dims: tuple = (-2, -1)
+    power: float = 1
+    loss_weight: float = 1.0
+
+    def __call__(self, tensor):
+        sq = 0
+        for dim in self.dims:
+            d = torch.diff(tensor, dim=dim)
+            pad = [0, 0] * (tensor.dim() - dim % tensor.dim() - 1) + [0, 1]
+            sq = sq + torch.nn.functional.pad(d, pad) ** 2
+        norm = torch.sqrt(torch.clamp(sq, min=1e-24))
+        return torch.mean(norm ** self.power) * self.loss_weight
 
 
 @dataclass(frozen=True)
@@ -82,7 +103,7 @@ class DDPMMSELoss:
 
 
 _PIXEL_LOSSES = {'MSELoss': MSELoss}
-_REG_LOSSES = {'RegLoss': RegLoss}
+_REG_LOSSES = {'RegLoss': RegLoss, 'TVLoss': TVLoss}
 
 
 def build_pixel_loss(cfg):
@@ -100,6 +121,8 @@ def build_reg_loss(cfg):
     kind = cfg.pop('type')
     if kind not in _REG_LOSSES:
         raise NotImplementedError(f'regulariser {kind} is not ported')
+    if kind == 'TVLoss' and 'dims' in cfg:
+        cfg['dims'] = tuple(cfg['dims'])
     return _REG_LOSSES[kind](**cfg)
 
 

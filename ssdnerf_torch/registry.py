@@ -1,7 +1,7 @@
 """Model registry and ``build_model`` (port of ``ssdnerf_tpu/registry.py``)."""
-from .models.autodecoders import DiffusionNeRF
+from .models.autodecoders import DiffusionNeRF, MultiSceneNeRF
 
-_MODELS = {'DiffusionNeRF': DiffusionNeRF}
+_MODELS = {'DiffusionNeRF': DiffusionNeRF, 'MultiSceneNeRF': MultiSceneNeRF}
 
 
 def build_model(model_cfg, train_cfg=None, test_cfg=None):

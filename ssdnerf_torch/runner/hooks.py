@@ -1,11 +1,8 @@
 """Training hooks (port of ``ssdnerf_tpu/runner/hooks.py``): the EMA update,
-the scene-bank hooks (save, reset), scheduled config surgery, stats and
-text / tensorboard logs, directory backups, checkpoints and profiler
-traces, each called by the runner after every iteration.
-
-``UpdateCacheHook`` (it needs stage 1's ``val_inverse_code``) and
-``MeanCacheHook`` (it needs ``init_from_mean``) belong to ROADMAP section
-1 item 3 and raise when built.
+the scene-bank hooks (save, reset, rebuild by test-time optimisation,
+reset to the mean code), scheduled config surgery, stats and text /
+tensorboard logs, directory backups, checkpoints and profiler traces, each
+called by the runner after every iteration.
 """
 import json
 import os
@@ -149,8 +146,11 @@ class SaveCacheHook(Hook):
                                       max(self.viz_step, 1))
                    if sd['seen'][li]]
             if sel:
-                codes = runner.model.code_activation(torch.from_numpy(
-                    sd['code_'][sel].astype(np.float32)))
+                with torch.no_grad():
+                    codes = runner.model.code_activation(
+                        torch.from_numpy(sd['code_'][sel].astype(
+                            np.float32)).to(runner.device),
+                        runner.model.code_act)
                 visualize_triplane(codes, [name_of(li) for li in sel],
                                    self.viz_dir)
 
@@ -167,24 +167,86 @@ class ResetCacheHook(Hook):
 
 
 class UpdateCacheHook(Hook):
-    """Mid-training rebuild of the bank by test-time optimisation: needs
-    stage 1's ``val_inverse_code``, not ported (ROADMAP section 1 item
-    3)."""
+    """Every ``interval`` iterations and at the iterations of ``step``, the
+    whole bank rebuilt by test-time optimisation: ``val_inverse_code`` of
+    the dataset's scenes in chunks of ``batch_size`` rows under the
+    model's ``eval_mode``, their raw codes and density state written with
+    the Adam state zeroed.  A chunk starting at row ``start`` draws as
+    index ``10_000_000 + start`` (the JAX hook's ``fold_in``): from the
+    runner's ``draws_fn`` when it has one, else from that index's
+    generator."""
 
-    def __init__(self, **kwargs):
-        raise NotImplementedError(
-            'UpdateCacheHook needs val_inverse_code (stage 1), which is not '
-            'ported: ROADMAP section 1 item 3')
+    def __init__(self, interval=0, step=(), batch_size=8, **kwargs):
+        self.interval = interval
+        self.steps = set(step)
+        self.batch_size = batch_size
+
+    def after_train_iter(self, runner):
+        if not (self.every_n_iters(runner, self.interval)
+                or runner.iteration in self.steps):
+            return
+        from ..data.builder import collate
+        cache, model = runner.cache, runner.model
+        dataset = runner.data_loader.dataset
+        runner.log_text('UpdateCacheHook: rebuilding cache with test-time '
+                        'optimization...')
+        model.eval_mode()
+        try:
+            for start in range(0, cache.cache_size, self.batch_size):
+                rows = list(range(start, min(start + self.batch_size,
+                                             cache.cache_size)))
+                batch = collate([dataset[i] for i in rows])
+                data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    runner.device) for k, v in batch.items()
+                    if isinstance(v, np.ndarray)}
+                index = 10_000_000 + start
+                code, grid, bitfield, _ = model.val_inverse_code(
+                    data, draws=runner.draws_at(index, data),
+                    generator=runner.generator_at(index))
+                code_ = model.code_activation.inverse(code, model.code_act)
+                cache.write_scenes(rows, code_, grid, bitfield,
+                                   zero_opt=True)
+        finally:
+            model.train_mode()
+        runner.invalidate_step()
+        runner.log_text('UpdateCacheHook: done.')
 
 
 class MeanCacheHook(Hook):
-    """Every code of the bank set to the mean code: needs
-    ``init_from_mean``, not ported (ROADMAP section 1 item 3)."""
+    """At the iterations of ``step`` (0: before the run), every code of
+    the bank set to one code, the Adam state zeroed: the inverse
+    activation of ``init_code * mean_scale`` with ``init_from_mean``, else
+    of the mean raw code of the seen scenes (zero when none is), after
+    ``load_from``'s files have filled the bank."""
 
-    def __init__(self, **kwargs):
-        raise NotImplementedError(
-            'MeanCacheHook needs init_from_mean, which is not ported: '
-            'ROADMAP section 1 item 3')
+    def __init__(self, step=(), load_from=None, **kwargs):
+        self.steps = set(step)
+        self.load_from = load_from
+
+    def before_run(self, runner):
+        if 0 in self.steps:
+            self._apply(runner)
+
+    def after_train_iter(self, runner):
+        if runner.iteration in self.steps:
+            self._apply(runner)
+
+    def _apply(self, runner):
+        cache, model = runner.cache, runner.model
+        if self.load_from is not None:
+            from ..apis.train import load_cache_from_dir
+            load_cache_from_dir(cache, self.load_from, runner.scene_names)
+        if model.init_code is None:
+            sd = cache.state_dict()
+            seen = sd['seen']
+            mean = sd['code_'][seen].astype(np.float32).mean(0) \
+                if seen.any() else np.zeros(cache.code_size, np.float32)
+            code = torch.from_numpy(mean).to(runner.device)
+        else:
+            code = model.init_code * model.mean_scale
+        with torch.no_grad():
+            code_ = model.code_activation.inverse(code[None], model.code_act)
+        cache.set_codes(code_, zero_opt=True)
 
 
 class ModelUpdaterHook(Hook):
@@ -244,7 +306,8 @@ class SaveStatsHook(Hook):
 
 class DirCopyHook(Hook):
     """Every ``interval`` iterations a copy of ``in_dir`` into
-    ``out_dir``."""
+    ``out_dir``, once the runner's pending scene-file writes have
+    finished."""
 
     def __init__(self, interval=0, in_dir=None, out_dir=None, **kwargs):
         self.interval = interval
@@ -252,8 +315,10 @@ class DirCopyHook(Hook):
         self.out_dir = out_dir
 
     def after_train_iter(self, runner):
-        if self.every_n_iters(runner, self.interval) and self.in_dir and \
-                os.path.isdir(self.in_dir):
+        if self.every_n_iters(runner, self.interval) and self.in_dir:
+            runner.flush_scene_files()
+            if not os.path.isdir(self.in_dir):
+                return
             shutil.copytree(self.in_dir, self.out_dir, dirs_exist_ok=True)
 
 

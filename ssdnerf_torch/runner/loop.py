@@ -1,22 +1,32 @@
 """Iteration-based training loop (port of ``ssdnerf_tpu/runner/loop.py``):
-the infinite batch stream, one ``DiffusionNeRF.train_step`` an iteration
-on the rows of a device scene bank, hook dispatch, checkpoints (with the
-optimizers and a versioned bank ``.npz``), pruning and resume with the
-loader fast-forwarded.
+the infinite batch stream, one ``train_step`` an iteration, hook dispatch,
+checkpoints (with the optimizers and a versioned bank ``.npz``), pruning
+and resume with the loader fast-forwarded.
+
+The per-scene state of an iteration comes from one of three places, as in
+the JAX runner:
+
+- the rows of a device scene bank (``cache``);
+- stage 2 (no ``optimizer`` in ``train_cfg``): none, the step reads the
+  codes of the dataset's ``code_dir`` files, activated with the model's
+  ``code_act``;
+- the filesystem cache (no bank): each scene's ``<name>.npz`` in the
+  dataset's ``code_dir`` (init codes for a scene without one), its new
+  state written to ``train_cfg.save_dir`` by ``num_file_writers``
+  threads.  The port reads a scene's file when its iteration starts,
+  after that scene's pending write has finished (the JAX runner takes it
+  from the loader, which may have read it before the write), and writes
+  through a temporary file.
 
 Each iteration draws from a ``torch.Generator`` on the model's device
 seeded from (seed, rank, iteration), so a resumed run draws what an
 uninterrupted one would (the JAX runner folds the iteration into its
 key).  ``draws_fn(iteration, data)`` may give the draws to replay instead
 (``DiffusionNeRF.train_draws``'s dict; the tests replay the JAX
-package's).
-
-Ported is the single-stage scene-bank branch.  The stage-2 branch (no
-``optimizer`` in ``train_cfg``) and the filesystem cache (``cache_size``
-0) belong to ROADMAP section 1 item 3, more than one process to item 6:
-each raises.
+package's).  More than one process (ROADMAP section 1 item 6) raises.
 """
 import collections
+from concurrent.futures import ThreadPoolExecutor
 import glob
 import json
 import os
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.checkpoint import load_checkpoint, save_checkpoint
+from ..models.autodecoders.base import SceneOptState
 
 
 class SpanClock:
@@ -71,11 +82,21 @@ def iteration_seed(seed, rank, iteration):
                .generate_state(1, np.uint64)[0])
 
 
+def write_npz(path, arrays):
+    """``np.savez`` of ``arrays`` to ``path`` through a temporary file, so
+    that a reader finds the whole old file or the whole new one."""
+    tmp = path + '.tmp'
+    with open(tmp, 'wb') as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
 class Runner:
     """Trains ``model`` from ``data_loader`` until ``max_iters`` completed
-    iterations, its per-scene state in ``cache`` (a ``DeviceSceneCache``),
-    its networks by ``optimizers`` / ``schedulers`` (dicts keyed
-    'diffusion' / 'decoder').  ``iteration`` counts completed iterations.
+    iterations, its per-scene state in ``cache`` (a ``DeviceSceneCache``;
+    None for stage 2 and the filesystem cache), its networks by
+    ``optimizers`` / ``schedulers`` (dicts keyed 'diffusion' / 'decoder').
+    ``iteration`` counts completed iterations.
 
     ``timing`` holds what the run measured: each iteration's seconds
     (``iter_s``, its hooks included), the seconds each hook took after
@@ -92,15 +113,8 @@ class Runner:
             raise NotImplementedError(
                 'training on more than one process is not ported: ROADMAP '
                 'section 1 item 6')
-        if 'optimizer' not in model.train_cfg:
-            raise NotImplementedError(
-                'stage-2 training (no train_cfg.optimizer) is not ported: '
-                'ROADMAP section 1 item 3')
-        if cache is None:
-            raise NotImplementedError(
-                'the filesystem scene cache (cache_size 0) is not ported: '
-                'ROADMAP section 1 item 3')
         self.model = model
+        self.stage2 = 'optimizer' not in model.train_cfg
         self.cache = cache
         self.data_loader = data_loader
         self.optimizers = optimizers
@@ -120,6 +134,8 @@ class Runner:
         self._init_rng = np.random.RandomState(seed + rank)
         self.timing = dict(iter_s=[], hook_s={}, resume_s=None)
         self.clock = SpanClock(self.device)
+        self._writers = None
+        self._pending_writes = {}
         os.makedirs(work_dir, exist_ok=True)
         self._log_file = os.path.join(work_dir, f'log_rank{rank}.txt')
 
@@ -136,15 +152,40 @@ class Runner:
         port reads the config at every step, so there is nothing to do."""
 
     def _prepare_data(self, batch):
+        """The batch's views on the device; for stage 2 ``code``, the codes
+        of its ``code_dir`` files (activated with the model's ``code_act``
+        where they hold raw codes)."""
         data = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
             self.device) for k in ('cond_imgs', 'cond_poses',
                                    'cond_intrinsics') if k in batch}
+        blob = batch.get('code')
+        if self.stage2 and isinstance(blob, dict):
+            if 'code' in blob:
+                data['code'] = self._tensor(blob['code'])
+            elif 'code_' in blob:
+                with torch.no_grad():
+                    data['code'] = self.model.code_activation(
+                        self._tensor(blob['code_']), self.model.code_act)
         data['scene_id'] = torch.as_tensor(np.asarray(batch['scene_id']))
         return data
 
+    def _tensor(self, array, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(array)).to(
+            self.device, dtype)
+
     def _init_codes(self, num):
         return torch.from_numpy(self.model.get_init_code_np(
-            num, self._init_rng)).to(self.device)
+            num, self._init_rng, self.model.init_code_np())).to(self.device)
+
+    def generator_at(self, index):
+        """The ``torch.Generator`` of draw index ``index`` (an iteration, or
+        ``UpdateCacheHook``'s 10_000_000 + its first row)."""
+        return torch.Generator(device=self.device).manual_seed(
+            iteration_seed(self.seed, self.rank, index))
+
+    def draws_at(self, index, data):
+        """``draws_fn(index, data)``, or None without one."""
+        return None if self.draws_fn is None else self.draws_fn(index, data)
 
     def _add_hook_s(self, name, seconds):
         hook_s = self.timing['hook_s']
@@ -161,26 +202,105 @@ class Runner:
 
     # ---------------------------------------------------------------- #
     def train_iter(self, batch):
-        """One iteration on ``batch``: init codes for unseen scenes, their
-        bank rows through ``train_step``, the rows written back."""
-        model = self.model
+        """One iteration on ``batch``: its scenes' state (bank rows, with
+        init codes for unseen scenes; none for stage 2; else their files)
+        through ``train_step``, then written back."""
         ids = batch['scene_id']
         data = self._prepare_data(batch)
-        self.cache.ensure_init(ids, self._init_codes)
-        scene_batch = self.cache.load(ids)
-        draws = None if self.draws_fn is None else \
-            self.draws_fn(self.iteration, data)
-        generator = torch.Generator(device=self.device).manual_seed(
-            iteration_seed(self.seed, self.rank, self.iteration))
-        scene_batch, log_vars = model.train_step(
+        if self.stage2:
+            scene_batch = None
+        elif self.cache is not None:
+            self.cache.ensure_init(ids, self._init_codes)
+            scene_batch = self.cache.load(ids)
+        else:
+            scene_batch = self.load_scene_files(batch)
+        scene_batch, log_vars = self.model.train_step(
             scene_batch, data, self.optimizers, self.schedulers,
-            generator=generator, draws=draws)
-        self.cache.save(ids, scene_batch['code_'], scene_batch['opt'],
-                        scene_batch['density_grid'],
-                        scene_batch['density_bitfield'])
-        self.cache.mark_seen(ids)
+            generator=self.generator_at(self.iteration),
+            draws=self.draws_at(self.iteration, data))
+        if not self.stage2 and self.cache is not None:
+            self.cache.save(ids, scene_batch['code_'], scene_batch['opt'],
+                            scene_batch['density_grid'],
+                            scene_batch['density_bitfield'])
+            self.cache.mark_seen(ids)
+        elif not self.stage2:
+            self._save_scene_files(batch, scene_batch)
         self.last_log_vars = log_vars
         self.last_scene_ids = list(np.asarray(ids))
+
+    # ---------------------------------------------------------------- #
+    # the filesystem cache
+    # ---------------------------------------------------------------- #
+    def load_scene_files(self, batch):
+        """The batch's per-scene state in f32 from each scene's file in the
+        dataset's ``code_dir``, read once that scene's pending write has
+        finished (JAX ``_scene_batch_from_data``): the raw code, density
+        grid and bitfield, the code Adam's moments and count (zero where
+        the file has none); a scene without a file gets an init code and
+        an empty grid."""
+        model = self.model
+        dataset = self.data_loader.dataset
+        blobs = []
+        for sid, name in zip(batch['scene_id'], batch['scene_name']):
+            pending = self._pending_writes.pop(name, None)
+            if pending is not None:
+                pending.result()
+            blob = dataset.load_code(int(sid))
+            blobs.append(blob if blob and 'code_' in blob else None)
+        S, cs, H3 = len(blobs), model.code_size, model.grid_size ** 3
+        code_ = np.zeros((S,) + cs, np.float32)
+        m, v = np.zeros_like(code_), np.zeros_like(code_)
+        step = np.zeros(S, np.int32)
+        grid = np.zeros((S, H3), np.float16)
+        bitfield = np.zeros((S, H3 // 8), np.uint8)
+        for i, blob in enumerate(blobs):
+            if blob is None:
+                continue
+            code_[i] = blob['code_']
+            grid[i] = blob['density_grid']
+            bitfield[i] = blob['density_bitfield']
+            m[i] = blob.get('optimizer_m', 0)
+            v[i] = blob.get('optimizer_v', 0)
+            step[i] = blob.get('optimizer_step', 0)
+        fresh = [i for i, blob in enumerate(blobs) if blob is None]
+        if fresh:
+            code_[fresh] = model.get_init_code_np(
+                len(fresh), self._init_rng, model.init_code_np())
+        return dict(code_=self._tensor(code_),
+                    opt=SceneOptState(m=self._tensor(m), v=self._tensor(v),
+                                      step=self._tensor(step, torch.int32)),
+                    density_grid=self._tensor(grid, torch.float16),
+                    density_bitfield=self._tensor(bitfield, torch.uint8))
+
+    def _save_scene_files(self, batch, scene_batch):
+        """Each scene's new state as ``save_dir/<name>.npz`` under the JAX
+        package's keys, written by ``num_file_writers`` threads."""
+        save_dir = self.model.train_cfg.get('save_dir')
+        if save_dir is None:
+            return
+        os.makedirs(save_dir, exist_ok=True)
+        if self._writers is None:
+            self._writers = ThreadPoolExecutor(
+                max_workers=max(1, self.model.num_file_writers or 1))
+        opt = scene_batch['opt']
+        host = {k: t.detach().cpu().numpy() for k, t in (
+            ('code_', scene_batch['code_']),
+            ('density_grid', scene_batch['density_grid']),
+            ('density_bitfield', scene_batch['density_bitfield']),
+            ('optimizer_m', opt.m), ('optimizer_v', opt.v),
+            ('optimizer_step', opt.step))}
+        for i, name in enumerate(batch['scene_name']):
+            arrays = dict(scene_id=int(batch['scene_id'][i]),
+                          scene_name=name,
+                          **{k: a[i] for k, a in host.items()})
+            self._pending_writes[name] = self._writers.submit(
+                write_npz, os.path.join(save_dir, name + '.npz'), arrays)
+
+    def flush_scene_files(self):
+        """Wait for every pending scene-file write (raising its error)."""
+        pending, self._pending_writes = self._pending_writes, {}
+        for future in pending.values():
+            future.result()
 
     def run(self):
         if self.device.type == 'cuda':
@@ -189,7 +309,7 @@ class Runner:
         loader = iter(self.data_loader)
         self.log_text(
             f'Starting training at iter {self.iteration}/{self.max_iters} '
-            f'(rank {self.rank}/{self.world_size}, stage2=False)')
+            f'(rank {self.rank}/{self.world_size}, stage2={self.stage2})')
         while self.iteration < self.max_iters:
             start = self.clock.mark()
             self.train_iter(next(loader))
@@ -197,6 +317,7 @@ class Runner:
             self._call_hooks('after_train_iter')
             self.clock.span(start, self.timing['iter_s'].append)
             self.clock.collect()
+        self.flush_scene_files()
         self._call_hooks('after_run')
         self.clock.collect(wait=True)
         self.log_text('Timing: ' + json.dumps(self.timing_summary()))
@@ -245,10 +366,11 @@ class Runner:
             os.symlink(os.path.basename(path), latest)
         except OSError:
             pass
-        np.savez(os.path.join(
-            self.work_dir, 'ckpt',
-            f'iter_{self.iteration}_cache_rank{self.rank}.npz'),
-            **self.cache.state_dict())
+        if self.cache is not None:
+            np.savez(os.path.join(
+                self.work_dir, 'ckpt',
+                f'iter_{self.iteration}_cache_rank{self.rank}.npz'),
+                **self.cache.state_dict())
         self.log_text(f'Saved checkpoint to {path}')
 
     def prune_checkpoints(self, keep):
@@ -279,15 +401,16 @@ class Runner:
         if not os.path.exists(cache_path):  # the JAX package's older layout
             cache_path = os.path.join(os.path.dirname(path),
                                       f'cache_rank{self.rank}.npz')
-        if os.path.exists(cache_path):
+        if self.cache is not None and os.path.exists(cache_path):
             with np.load(cache_path) as blob:
                 self.cache.load_state_dict(dict(blob))
         # the init codes of the scenes seen so far came from the same
         # stream: skip them, so that the next unseen scenes get the codes
         # an uninterrupted run would draw (rows preloaded from
         # cache_load_from drew none, and are counted all the same)
-        self._init_rng.uniform(size=int(self.cache.seen.sum()) * int(
-            np.prod(self.model.code_size)))
+        if self.cache is not None:
+            self._init_rng.uniform(size=int(self.cache.seen.sum()) * int(
+                np.prod(self.model.code_size)))
         if hasattr(self.data_loader, 'skip_iters'):
             self.data_loader.skip_iters(iteration)
         if self.device.type == 'cuda':

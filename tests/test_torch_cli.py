@@ -99,3 +99,52 @@ evaluation = [
     assert sorted(os.listdir(tmp_path / 'save')) == sorted(
         [f'{i:04d}.npz' for i in range(3)]
         + [f'sphere_{i:04d}.npz' for i in range(3)])
+
+
+def test_cli_guide_optim_with_code_act_state(srn_dir, tmp_path):
+    """'guide_optim' from a checkpoint, which the JAX package's CLI can
+    run once ``code_act`` is not None: ``NormalizedTanhCode`` (a JAX
+    checkpoint with its running statistics moved off their initial
+    values) through ``python -m ssdnerf_torch.test --device cpu`` and the
+    JAX package's root ``test.py``: the same result lines and keys,
+    finite values, and the port's saved codes within the activation's
+    range (``clip_range`` 2)."""
+    from ssdnerf_tpu.apis.inference import init_model as jax_init_model
+    from ssdnerf_tpu.core.checkpoint import save_checkpoint
+    import jax.numpy as jnp
+    model = dict(copy.deepcopy(TINY_MODEL_CFG), code_activation=dict(
+        type='NormalizedTanhCode', mean=0.0, std=0.5, clip_range=2))
+    test_cfg = dict(RECONS_CFG, img_size=(16, 16), cond_mode='guide_optim',
+                    n_inverse_steps=2, save_dir=str(tmp_path / 'save'))
+    cfg = str(tmp_path / 'ntanh.py')
+    with open(cfg, 'w') as f:
+        f.write(f'''model = {model!r}
+test_cfg = {test_cfg!r}
+data = dict(val_cond=dict(type='ShapeNetSRN', data_prefix={srn_dir!r},
+                          specific_observation_idcs=[1]))
+evaluation = [
+    dict(type='GenerativeEvalHook3D', data='val_cond', feed_batch_size=2)]
+''')
+    _, state = jax_init_model(cfg)
+    state['code_act'] = (jnp.full((1,), 0.05), jnp.full((1,), 0.3))
+    ckpt = str(tmp_path / 'jax.ckpt')
+    save_checkpoint(ckpt, state)
+    env = dict(os.environ, JAX_PLATFORMS='cpu')
+
+    def results(cmd):
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, check=True).stdout
+        lines = out[out.index('==== evaluation results ===='):].splitlines()
+        return [line.strip().split(':')[0] for line in lines], lines
+
+    keys, lines = results([sys.executable, '-m', 'ssdnerf_torch.test', cfg,
+                           ckpt, '--device', 'cpu'])
+    jkeys, jlines = results([sys.executable, 'test.py', cfg, ckpt])
+    assert keys == jkeys
+    assert {'code_rms', 'test_psnr', 'test_ssim'} <= set(keys)
+    for line in lines + jlines:
+        if line.strip().startswith(('code_rms', 'test_psnr')):
+            assert np.isfinite(float(line.split(':')[1])), line
+    codes = [np.load(tmp_path / 'save' / f'sphere_{i:04d}.npz')['code']
+             for i in range(3)]
+    assert all(np.abs(c).max() <= 2 and np.isfinite(c).all() for c in codes)

@@ -1037,3 +1037,66 @@ def test_runner_launches_kernels(cuda_device, tmp_path):
         assert math.isfinite(float(runner.last_log_vars[k]))
     assert any(not torch.equal(a, b) for a, b in zip(
         ema0, model.diffusion_ema.parameters()))
+
+
+def test_stage1_step_launches_kernels_at_flagship_planes(cuda_device):
+    """One stage-1 ``MultiSceneNeRF.train_step`` on the card at the stage-1
+    config's plane and grid shapes (3 x 6 x 128^2 codes, a 64^3 grid, the
+    64-wide decoder, the decode in bf16; 2 scenes, 2 views of 64^2, 2
+    inner steps of 4096 rays) with ``NormalizedTanhCode`` and TV, its
+    rows through a 16-bit bank: the march, the bf16 decode and its
+    backward launched; losses finite and within 1e-2 (relative) of the
+    same step on the CPU with the same draws (a flipped occupancy bit
+    moves a loss by far less); the bank's rows f16 / bf16."""
+    from synthetic import make_batch
+    from ssdnerf_torch.ops.kernels import launch_counts, reset_launches
+    from ssdnerf_torch.registry import build_model
+    from ssdnerf_torch.runner.optim import build_optimizers
+    cfg = dict(
+        type='MultiSceneNeRF', code_size=(3, 6, 128, 128), grid_size=64,
+        code_activation=dict(type='NormalizedTanhCode', mean=0.0, std=0.5,
+                             clip_range=2),
+        decoder=dict(base_layers=[18, 64], density_layers=[64, 1],
+                     color_layers=[64, 3], use_dir_enc=True,
+                     dir_layers=[16, 64], activation='silu',
+                     sigma_activation='trunc_exp', sigmoid_saturation=0.001,
+                     max_steps=256),
+        decoder_use_ema=True, pixel_loss=dict(type='MSELoss',
+                                              loss_weight=20.0),
+        reg_loss=dict(type='TVLoss', power=1.5, loss_weight=1.0),
+        cache_size=2, cache_16bit=True)
+    train_cfg = dict(dt_gamma_scale=0.5, density_thresh=0.1,
+                     extra_scene_step=2, n_inverse_rays=4096,
+                     n_decoder_rays=4096, loss_coef=0.1 / (64 * 64),
+                     optimizer=dict(type='Adam', lr=1e-2))
+    g = torch.Generator().manual_seed(23)
+    model = build_model(cfg, train_cfg=train_cfg)
+    model.init_weights(g)
+    with torch.no_grad():
+        model.decoder.density_net.dense_0.bias.fill_(1.0)
+    model.reset_ema()
+    batch = make_batch(num_scenes=2, num_views=2, h=64, w=64, seed=24)
+    data = {k: torch.from_numpy(batch[k]) for k in
+            ('cond_imgs', 'cond_poses', 'cond_intrinsics')}
+    code0 = torch.randn((2, 3, 6, 128, 128), generator=g) * 0.3
+    draws = model.train_draws(2, 2 * 64 * 64, g)
+    logs = {}
+    for dev in ('cpu', cuda_device):
+        m = copy.deepcopy(model).to(dev)
+        bank = m.make_cache(dev)
+        bank.ensure_init([0, 1], lambda n: code0)
+        opts, scheds = build_optimizers(m, dict(decoder=dict(lr=1e-3)))
+        reset_launches()
+        out, logs[str(dev)] = m.train_step(
+            bank.load([0, 1]), _to(data, dev), opts, scheds,
+            draws=_to(draws, dev))
+        bank.save([0, 1], out['code_'], out['opt'], out['density_grid'],
+                  out['density_bitfield'])
+        counts = launch_counts()
+    for name in ('march', 'decode_bf16', 'decode_bwd_bf16'):
+        assert counts[name] > 0, (name, counts)
+    assert bank.code_.dtype == torch.float16
+    assert bank.m.dtype == bank.v.dtype == torch.bfloat16
+    for k in ('loss', 'pixel_loss', 'reg_loss', 'train_psnr', 'code_rms'):
+        got, ref = float(logs['cuda'][k]), float(logs['cpu'][k])
+        assert math.isfinite(got) and abs(got - ref) <= 1e-2 * abs(ref), k

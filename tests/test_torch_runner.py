@@ -1,7 +1,8 @@
 """The port's runner parts against the JAX package's on the CPU: the lr
 policies and AdamW (optax), the training ``DataLoader``, the scene bank's
 state and init codes, ``EMAHook``, ``build_hooks``, the updater at resume,
-the evaluation and profiler hooks, the parts not ported (they raise), the
+the evaluation and profiler hooks, the parts not ported (they raise) and
+the stage-2 and filesystem branches (they step), the
 optimizer groups of a checkpoint, and that the port imports nothing of
 JAX.  Whole runs are ``test_torch_train_runner.py``'s.  Tolerances are
 stated in each test."""
@@ -18,7 +19,7 @@ import torch
 from flax import serialization
 from torch import nn
 
-from synthetic import TINY_MODEL_CFG, TINY_TRAIN_CFG
+from synthetic import TINY_MODEL_CFG, TINY_TRAIN_CFG, make_batch
 from ssdnerf_tpu.data.builder import DataLoader as JaxDataLoader
 from ssdnerf_tpu.models.autodecoders.multiscene import (
     DeviceSceneCache as JaxBank, MultiSceneNeRF as JaxMultiScene)
@@ -427,16 +428,21 @@ def test_build_hooks_priorities_match_jax():
     """``build_hooks`` orders the hooks by JAX's priorities (names and
     numbers; defaults per class), drops ``by_epoch`` and skips kinds it
     does not know, as JAX's does; ``UpdateCacheHook`` and
-    ``MeanCacheHook`` raise, naming ROADMAP section 1 item 3."""
+    ``MeanCacheHook`` build as JAX's do, with the same settings."""
     got = hooks.build_hooks(copy.deepcopy(HOOK_CFGS))
     want = jax_hooks.build_hooks(copy.deepcopy(HOOK_CFGS))
     assert [type(h).__name__ for h in got] == \
         [type(h).__name__ for h in want]
     assert [h.priority for h in got] == [h.priority for h in want]
     assert len(got) == len(HOOK_CFGS) - 1
-    for kind in ('UpdateCacheHook', 'MeanCacheHook'):
-        with pytest.raises(NotImplementedError, match='item 3'):
-            hooks.build_hooks([dict(type=kind, step=[1])])
+    cache_cfgs = [dict(type='UpdateCacheHook', step=[1], interval=4,
+                       batch_size=3, by_epoch=False),
+                  dict(type='MeanCacheHook', step=[0, 5], load_from='d',
+                       priority='HIGH')]
+    got = hooks.build_hooks(copy.deepcopy(cache_cfgs))
+    want = jax_hooks.build_hooks(copy.deepcopy(cache_cfgs))
+    assert [(type(h).__name__, h.priority, vars(h)) for h in got] == \
+        [(type(h).__name__, h.priority, vars(h)) for h in want]
 
 
 def test_model_updater_applies_at_step_and_on_resume():
@@ -552,25 +558,86 @@ def _tiny_parts(**train):
     return model, opts, scheds
 
 
+class _Files:
+    """A dataset's ``load_code`` over ``code_dir`` (a scene's name is its
+    id)."""
+
+    def __init__(self, code_dir):
+        self.code_dir = code_dir
+
+    def load_code(self, scene_id):
+        path = os.path.join(self.code_dir, f'{scene_id:04d}.npz')
+        if not os.path.exists(path):
+            return None
+        with np.load(path) as d:
+            return dict(d)
+
+
+class _Loader:
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+
 def test_unported_modes_raise(tmp_path):
-    """Stage 2 (no ``train_cfg.optimizer``), the filesystem cache (no bank:
-    ``cache_size`` 0, or ``num_file_writers``), more than one process and
-    ``--multi-host`` raise NotImplementedError, naming their ROADMAP
-    item."""
+    """More than one process and ``--multi-host`` raise
+    NotImplementedError, naming their ROADMAP item.  Stage 2 (no
+    ``train_cfg.optimizer``), the filesystem cache (no bank, with
+    ``num_file_writers``) and ``cache_device='host'`` were unported too:
+    the first two now build and step (stage 2 trains the UNet alone on the
+    batch's codes; the filesystem cache writes each scene's file and reads
+    it back at the scene's next iteration), the last raises naming item
+    4."""
     model, opts, scheds = _tiny_parts()
     bank = model.make_cache('cpu')
     with pytest.raises(NotImplementedError, match='item 6'):
         Runner(model, bank, None, opts, scheds, str(tmp_path), 1,
                world_size=2)
-    with pytest.raises(NotImplementedError, match='cache_size 0'):
-        Runner(model, None, None, opts, scheds, str(tmp_path), 1)
-    model.train_cfg.pop('optimizer')
-    with pytest.raises(NotImplementedError, match='stage-2'):
-        Runner(model, bank, None, opts, scheds, str(tmp_path), 1)
-    with pytest.raises(NotImplementedError, match='num_file_writers'):
-        build_model(dict(copy.deepcopy(TINY_MODEL_CFG), num_file_writers=2))
     with pytest.raises(NotImplementedError, match='item 6'):
         train_cli.main(['unread.py', '--multi-host'])
+    with pytest.raises(NotImplementedError, match='item 4'):
+        build_model(dict(copy.deepcopy(TINY_MODEL_CFG),
+                         cache_device='host')).make_cache('cpu')
+
+    batch = make_batch(num_scenes=2, num_views=2, h=16, w=16)
+    code_dir = str(tmp_path / 'code')
+    model = build_model(dict(copy.deepcopy(TINY_MODEL_CFG), cache_size=0,
+                             num_file_writers=2),
+                        train_cfg=dict(TINY_TRAIN_CFG, save_dir=code_dir))
+    assert model.num_file_writers == 2
+    opts, scheds = build_optimizers(model, dict(
+        diffusion=dict(lr=1e-4), decoder=dict(lr=1e-3)))
+    runner = Runner(model, None, _Loader(_Files(code_dir)), opts, scheds,
+                    str(tmp_path / 'fs'), 2)
+    runner.train_iter(batch)
+    runner.flush_scene_files()
+    files = sorted(os.listdir(code_dir))
+    assert files == ['0000.npz', '0001.npz']
+    with np.load(os.path.join(code_dir, files[0])) as d:
+        assert int(d['optimizer_step']) == TINY_TRAIN_CFG[
+            'extra_scene_step'] + 1
+        first = d['code_']
+    runner.train_iter(batch)
+    runner.flush_scene_files()
+    with np.load(os.path.join(code_dir, files[0])) as d:
+        assert int(d['optimizer_step']) == 2 * (
+            TINY_TRAIN_CFG['extra_scene_step'] + 1)
+        assert not np.array_equal(d['code_'], first)
+
+    model = build_model(copy.deepcopy(TINY_MODEL_CFG), train_cfg={})
+    opts, scheds = build_optimizers(model, dict(diffusion=dict(lr=1e-4)))
+    runner = Runner(model, None, None, opts, scheds, str(tmp_path / 's2'), 1)
+    assert runner.stage2
+    unet = [p.detach().clone() for p in model.diffusion.parameters()]
+    decoder = [p.detach().clone() for p in model.decoder.parameters()]
+    codes = np.random.RandomState(0).randn(
+        2, *model.code_size).astype(np.float32)
+    runner.train_iter(dict(scene_id=batch['scene_id'],
+                           code=dict(code_=codes)))
+    assert np.isfinite(float(runner.last_log_vars['loss_diffusion']))
+    assert any(not torch.equal(a, b) for a, b in
+               zip(unet, model.diffusion.parameters()))
+    assert all(torch.equal(a, b) for a, b in
+               zip(decoder, model.decoder.parameters()))
 
 
 def test_train_model_needs_the_card_unless_cpu(tmp_path):
@@ -612,3 +679,43 @@ def test_resume_load_is_strict(tmp_path):
     o2, s2 = build_optimizers(other, dict(decoder=dict(lr=1e-3)))
     with pytest.raises(ValueError):
         load_checkpoint(path, other, optimizers=o2, schedulers=s2)
+
+
+def test_all_reference_configs_load_and_build():
+    """Port twin of ``test_pipeline.py``'s test of the same name: every
+    config under ``configs/`` loads through ``_base_`` inheritance and
+    builds its model in the port (on the meta device: no weights are
+    drawn), its hooks, and the runner's choice of branch (a bank, stage 2
+    or the filesystem cache), the same model class as the JAX package's;
+    ``new_cfgs/ssdnerf_cars_recons1v_tiled.py`` (the grouped UNet's tiled
+    layout) alone raises, naming ROADMAP section 1 item 3."""
+    import glob
+    from ssdnerf_torch import Config
+    from ssdnerf_tpu.registry import build_model as jax_build_model
+    paths = sorted(p for p in glob.glob(os.path.join(
+        ROOT, 'configs', '**', '*.py'), recursive=True)
+        if os.sep + '_base_' + os.sep not in p)
+    assert len(paths) == 28
+    tiled = os.path.join(ROOT, 'configs', 'new_cfgs',
+                         'ssdnerf_cars_recons1v_tiled.py')
+    branches = set()
+    for path in paths:
+        cfg = Config.fromfile(path)
+        kwargs = dict(train_cfg=cfg.get('train_cfg'),
+                      test_cfg=cfg.get('test_cfg'))
+        if path == tiled:
+            with pytest.raises(NotImplementedError, match='item 3'), \
+                    torch.device('meta'):
+                build_model(cfg.model, **kwargs)
+            continue
+        with torch.device('meta'):
+            model = build_model(cfg.model, **kwargs)
+        jm = jax_build_model(cfg.model, **kwargs)
+        assert type(model).__name__ == type(jm).__name__, path
+        assert type(model.code_activation).__name__ == type(
+            jm.code_activation).__name__, path
+        hooks.build_hooks(copy.deepcopy(cfg.get('custom_hooks', [])))
+        stage2 = 'optimizer' not in model.train_cfg
+        branches.add('stage 2' if stage2 else 'bank' if model.cache_size
+                     else 'files')
+    assert branches == {'stage 2', 'bank', 'files'}
