@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ssdnerf_torch/csrc into build/kernels/, then
-runs eleven phases, any failure of which exits non-zero:
+runs twelve phases, any failure of which exits non-zero:
 
 1. device: a CUDA card is present; TF32 is switched off for matmuls and
    convolutions, so every plain f32 reference is full f32;
@@ -13,7 +13,9 @@ runs eleven phases, any failure of which exits non-zero:
    time the card could take for the same work, and the time of one
    PyTorch call computing the same function where there is one): march,
    the probe's per-row occupancy counts, decode and attention forward, the
-   decode and attention backward at the training shapes, and the decode
+   decode and attention backward at the training shapes (the attention
+   also at the tiled config's levels, T = 768 at hd 40 and 192 and 48 at
+   hd 80, with each kernel's shared memory), and the decode
    forward, the fused decode + composite and the banded decode on the
    packed layouts of a coherent render (a ball seen by 4 look-at views of
    128x128 per scene, where the banded guard holds), each decode row in
@@ -88,29 +90,33 @@ runs eleven phases, any failure of which exits non-zero:
    PNGs by the port's writer), a checkpoint of the seed-0 model written by
    the port and read back bitwise through ``init_model(checkpoint=)``,
    the real-image Inception statistics of the set, then the port's CLI
-   (``ssdnerf_torch.test.main``) on ssdnerf_cars_uncond.py (DDIM, density
-   rebuild, render of 251 views, FIDKID) and ssdnerf_cars_recons1v.py
-   (view 64 conditions 'guide_optim', render of the other 250 views,
-   PSNR / SSIM / substitute LPIPS, FID), at batch 8 with
+   (``ssdnerf_torch.test.main``) on ssdnerf_cars_uncond.py (DDIM cut to
+   EVAL_DDIM_STEPS, density rebuild, render of 251 views, FIDKID) and
+   ssdnerf_cars_recons1v.py (view 64 conditions 'guide_optim', cut to
+   EVAL_GUIDE_STEPS / EVAL_OPTIM_STEPS steps, render of the other 250
+   views, PSNR / SSIM / substitute LPIPS; no FID, whose host work the
+   uncond run does), at batch 8 with
    ``test_cfg.max_render_rays`` set from a measured render memory a ray;
    wall seconds by stage, peak memory of ``val_step`` and the render, the
    launch counts of both runs, one scene's mesh at 128^3 through
    ``save_mesh``; then the metrics, the Inception features and a cut-down
    ``evaluate_3d`` (1 scene, 4 views) on the card and on the CPU;
-10. training through the CLI (``python -m ssdnerf_torch.train``) at full
-   width: a synthetic SRN-layout ``cars_train`` (16 scenes x 50 views of
-   128x128, phase 3's 8 scenes twice) and the flagship config cut only
-   in run length and bank size (each cut printed): a run of 30
-   iterations (bank 16, checkpoints every 10, the updater's steps moved
-   to 5 / 15 / 25, the eval hook at 30 on phase 9's test set), a run of
-   20 and its resume to 30, whose batches and losses must agree with the
-   first run's; files, the EMA, the updater's effects, the kernels'
-   launch counts (the CLI prints them); then in-process a resume of the
-   same checkpoint whose reloaded state must equal the files bit for
-   bit, trained to 30 with the launch counts set to 0 just before; and 3
-   runner iterations of one scene on the card and on the CPU with the
-   same weights and replayed draws, in bf16 and in f32;
-11. stage-1 and two-stage training through the CLI on phase 10's
+10. training through the CLI's entry (``ssdnerf_torch.train.main``, what
+   ``python -m ssdnerf_torch.train`` runs, in this process with the TF32
+   switches of a fresh one) at full width: a synthetic SRN-layout
+   ``cars_train`` (16 scenes x 50 views of 128x128, phase 3's 8 scenes
+   twice) and the flagship config cut only in run length, bank size and
+   its eval hook's depth (each cut printed): a run of 12 iterations (bank
+   16, checkpoints every 6, the updater's steps moved to 2 / 4 / 9, the
+   eval hook at 12 on phase 9's test set, its DDIM cut and no FID / KID),
+   a run of 6 and its resume to 12, whose batches and losses must agree
+   with the first run's; files, the EMA, the updater's effects, the
+   kernels' launch counts (the CLI prints them); then in-process a resume
+   of the same checkpoint whose reloaded state must equal the files bit
+   for bit, trained to 12 with the launch counts set to 0 just before;
+   and 3 runner iterations of one scene on the card and on the CPU with
+   the same weights and replayed draws, in bf16 and in f32;
+11. stage-1 and two-stage training through the CLI's entry on phase 10's
    ``cars_train`` at the stage-1 configs' full widths (cuts printed: bank
    16, short runs, no evaluation): (a) stage1_cars_recons16v.py, 12
    iterations (the updater's step at 6), losses finite, ``train_psnr``
@@ -125,13 +131,32 @@ runs eleven phases, any failure of which exits non-zero:
    f32 attention forward and backward launched, stage 1's decoders
    untouched); (e) one stage-1 step of 1 scene on the card and on the
    CPU with TanhCode and NormalizedTanhCode, bf16 and f32, with the
-   CPU's bitfields replayed as a control.
+   CPU's bitfields replayed as a control;
+12. the tiled-triplane config (configs/new_cfgs/ssdnerf_cars_recons1v_
+   tiled.py) unchanged, every width (codes laid out 6 x 128 x 384 by
+   ``code_permute``; a six-level UNet of base 80 at 128 x 384 whose
+   attention runs at (T, hd) = (768, 40), (192, 80) and (48, 80); bf16
+   autocast sampling): (a) 4 timed train steps of 8 scenes with a 2458-row
+   bank, device ms by group, peak memory, the attention calls by shape;
+   (b) ``val_step`` over 8 scenes, one 128^2 view each (75 guided steps of
+   the bf16 UNet, then 25 ``val_optim`` steps), the guide's and optim's
+   walls, the attention calls by shape and dtype (the bf16 kernels at
+   (768, 40)), one profiled step of each; (c) the train CLI's entry on
+   phase 10's ``cars_train`` (cuts printed: bank 16, 6 iterations, no
+   evaluation hook), then ``ssdnerf_torch.test.main`` on its checkpoint
+   and phase 9's ``cars_test`` (phase 9's recons1v cuts, no image
+   dumps); (d) one train step and 3 guided steps
+   card vs CPU; (e) the flagship recons1v with ``image_cond`` (the UNet
+   reads a conditioning view): one train step, 2 guided steps and a
+   ``val_optim`` step card vs CPU.
 
-The line before the last is the card's name and power limit from
-nvidia-smi; the last line is the result JSON.  Imports nothing of JAX.
+Each phase's wall seconds are printed as it ends.  The line before the
+last is the card's name and power limit from nvidia-smi; the last line
+is the result JSON.  Imports nothing of JAX.
 """
 import contextlib
 import copy
+import io
 import json
 import math
 import pickle
@@ -146,11 +171,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from ssdnerf_torch import Config, init_model  # noqa: E402
 from ssdnerf_torch import test as test_cli  # noqa: E402
+from ssdnerf_torch.train import main as train_main  # noqa: E402
 from ssdnerf_torch.apis import eval_utils  # noqa: E402
 from ssdnerf_torch.apis.test import _save_scenes, evaluate_3d  # noqa: E402
 from ssdnerf_torch.apis.train import build_runner  # noqa: E402
@@ -230,6 +257,12 @@ TRAIN_PARTS = ('train_step.diffusion', 'train_step.inverse',
 RECONS = ('march', 'decode_bf16', 'decode_bwd_bf16', 'attention',
           'attention_bwd')
 RECONS_FP16 = ('attention_bf16', 'attention_bwd_bf16')
+# the attention levels (T, hd) at batch 8 x 4 heads: the flagship's 32^2,
+# 16^2 and 8^2; the tiled config's 16x48, 8x24 and 4x12 (and the middle
+# block), each with its calls a UNet pass
+FLAGSHIP_ATTN = ((1024, 64), (256, 128), (64, 128))
+TILED_ATTN = ((768, 40), (192, 80), (48, 80))
+TILED_PASS = {(768, 40): 5, (192, 80): 5, (48, 80): 6}
 # phase 5's synthetic views: view 0 conditions a reconstruction, these are
 # rendered from the result
 RECONS_VIEWS = (10, 20, 30, 40)
@@ -454,6 +487,26 @@ def ball_layouts(dec, num_scenes, grid, res, device):
 
 
 # ---------------------------------------------------------------- phases
+# torch's TF32 switches as a fresh process has them (phase 1 turns both
+# off for this one)
+FRESH_TF32 = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+
+
+@contextlib.contextmanager
+def fresh_process_tf32():
+    """While open, the TF32 switches a user's fresh process has."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = FRESH_TF32
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def phase_device():
     check(torch.cuda.is_available(), 'no CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -517,7 +570,7 @@ def phase_kernels(dev):
     def compare(name, tag, kernel, plain, tol, flops, moved,
                 relative=False, library=None, tensor_flops=0,
                 tensor_rate=PEAK_TF32_FLOPS, passes=3, f32_plain=None,
-                kernels=()):
+                kernels=(), smem=None):
         """max |kernel - plain| <= tol (a number, or one per output), or
         with ``relative`` each output's max |kernel - plain| / max |plain|
         <= tol; the times of kernel, plain and ``library`` (one PyTorch
@@ -531,7 +584,10 @@ def phase_kernels(dev):
         version's from ``f32_plain`` (the bf16-vs-f32 gap), which a kernel
         that skipped the bf16 roundings would not meet.  Each name in
         ``kernels`` must be among the kernels of the row's device trace,
-        whose names are printed."""
+        whose names are printed.  ``smem``: the dynamic shared memory of
+        the row's kernels (bytes by kernel), printed and kept.  The first
+        row of a kernel is its entry of the result; every row is kept
+        under its ``rows``."""
         out, ref = kernel(), plain()
         out = out if isinstance(out, tuple) else (out,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -595,16 +651,15 @@ def phase_kernels(dev):
                f'{"TF32" if tensor_rate == PEAK_TF32_FLOPS else "bf16"} x'
                f'{passes}; all-f32 bound {f32_ms:.4f} ms'
                if tensor_flops else '')
-            + f', {moved / 1e6:.1f} MB)')
+            + f', {moved / 1e6:.1f} MB)'
+            + ('' if smem is None else f' shared memory {smem} B'))
         for e, t in zip(shown, tols):
             check(e <= t, f'{tag}: error {e} > {t}')
-        results.setdefault(name, dict(max_abs_err=max(errs), ms=ms,
-                                      plain_ms=plain_ms, library_ms=lib_ms,
-                                      bound_ms=b_ms, bound_by=b_by,
-                                      bound_all_f32_ms=f32_ms,
-                                      device_ms=dev_ms,
-                                      library_device_ms=lib_dev_ms,
-                                      shape=tag))
+        row = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   bound_all_f32_ms=f32_ms, device_ms=dev_ms,
+                   library_device_ms=lib_dev_ms, shape=tag, smem_bytes=smem)
+        results.setdefault(name, dict(row, rows=[]))['rows'].append(row)
 
     # march: S=8 scenes, R=4*128^2 rays, T=128 slots; real orbit rays and
     # a random 10%-occupancy bitfield
@@ -694,11 +749,12 @@ def phase_kernels(dev):
             f32_plain=lambda: k_dec.triplane_decode_plain(
                 planes_f, xyz_d, params_b, hidden))
 
-    # attention: G = batch 8 x 4 heads at the 32^2, 16^2 and 8^2 levels.
+    # attention: G = batch 8 x 4 heads at the flagship's 32^2, 16^2 and 8^2
+    # levels and the tiled config's 16x48, 8x24 and 4x12 (TILED_ATTN).
     # Bound: the products (4 hd T^2 forward, 10 hd T^2 backward a program)
     # in three TF32 passes on the tensor cores, the softmax's elementwise
     # work (4 T^2 forward, 8 T^2 backward) in f32, or the bytes
-    for T_, hd in ((1024, 64), (256, 128), (64, 128)):
+    for T_, hd in FLAGSHIP_ATTN + TILED_ATTN:
         q, k, v = (torch.randn((32, T_, hd), generator=g).to(dev)
                    for _ in range(3))
         scale = 1.0 / math.sqrt(hd)
@@ -708,7 +764,8 @@ def phase_kernels(dev):
                 lambda: k_attn.attention_plain(q, k, v, scale), 2e-5,
                 32 * T_ * T_ * 4, 4 * nbytes(q),
                 library=lambda: sdpa(q, k, v, scale),
-                tensor_flops=3 * 32 * T_ * T_ * 4 * hd)
+                tensor_flops=3 * 32 * T_ * T_ * 4 * hd,
+                smem=k_attn.smem_bytes(T_, hd, torch.float32))
         # backward: dq, dk, dv from the forward kernel's own output and
         # row log-sum-exps; no atomics, so an absolute bound as in
         # tests/test_torch_gpu.py
@@ -725,7 +782,8 @@ def phase_kernels(dev):
                 nbytes(q, k, v, o, lse, do) + 3 * nbytes(q),
                 library=lambda: torch.autograd.grad(out_lib, leaves, do,
                                                     retain_graph=True),
-                tensor_flops=3 * 32 * T_ * T_ * 10 * hd)
+                tensor_flops=3 * 32 * T_ * T_ * 10 * hd,
+                smem=k_attn.smem_bytes(T_, hd, torch.float32))
         if T_ == 1024:
             lib_kernels = dict(
                 forward=sorted(device_profile(lambda: sdpa(q, k, v, scale))),
@@ -741,7 +799,8 @@ def phase_kernels(dev):
     # 1e-5 of it, and within half the gap to f32 (compare's f32_plain).
     # At hd 64 and T a multiple of 128 the wgmma kernels run (their names
     # must be in the row's trace), elsewhere attention.cu's mma.sync ones
-    for T_, hd in ((1024, 64), (256, 128), (64, 128)):
+    # (hd 40 padded to 48 in shared memory)
+    for T_, hd in FLAGSHIP_ATTN + TILED_ATTN:
         q, k, v, do = (torch.randn((32, T_, hd), generator=g).to(dev)
                        .bfloat16() for _ in range(4))
         q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
@@ -757,7 +816,9 @@ def phase_kernels(dev):
                 f32_plain=lambda: k_attn.attention_plain(q32, k32, v32,
                                                          scale),
                 kernels=(('attention_fwd_sm90_kernel',) if sm90 else
-                         ('attention_fwd_bf16_kernel',)))
+                         ('attention_fwd_bf16_kernel',)),
+                smem=None if sm90 else k_attn.smem_bytes(T_, hd,
+                                                         torch.bfloat16))
         _, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out_lib = sdpa(*leaves, scale)
@@ -777,7 +838,9 @@ def phase_kernels(dev):
                 kernels=(('attention_bwd_dkdv_sm90_kernel',
                           'attention_bwd_dq_sm90_kernel') if sm90 else
                          ('attention_bwd_dkdv_bf16_kernel',
-                          'attention_bwd_dq_bf16_kernel')))
+                          'attention_bwd_dq_bf16_kernel')),
+                smem=None if sm90 else k_attn.smem_bytes(T_, hd,
+                                                         torch.bfloat16))
         del leaves, out_lib
 
     # decode forward and backward at the training shapes: 8 scenes x 4096
@@ -956,7 +1019,9 @@ def make_model(seed, config=CONFIG):
     of every density grid is empty, as in a real scene: with random
     weights every voxel would otherwise be occupied and the march would
     test nothing."""
-    model = init_model(Config.fromfile(str(config)), 'cpu', seed)
+    if not isinstance(config, Config):
+        config = Config.fromfile(str(config))
+    model = init_model(config, 'cpu', seed)
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for p in list(model.decoder.parameters()) + list(
@@ -1380,7 +1445,7 @@ def phase_train(model, cfg, data, code, dev, timed=4, phase=5,
     opts, scheds = build_optimizers(model, cfg.optimizer, cfg.lr_config)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     ids = list(range(S))
-    code_ = model.code_activation.inverse(code)
+    code_ = model.code_activation.inverse(code, model.code_act)
     bank.ensure_init(ids, lambda n: code_[:n])
     code0 = bank.code_[:S].clone()
     logs = {}
@@ -1443,7 +1508,11 @@ def phase_train(model, cfg, data, code, dev, timed=4, phase=5,
         f'{bank.cache_size} scenes; peak memory {peak:.2f} GiB; '
         f'norm_factor {norm:.6f}; occupancy {occ:.4f}; codes moved '
         f'{moved:.3e}; Adam steps {counters}; launches {launches}')
-    check(math.isfinite(norm) and norm != 1.0, 'norm_factor')
+    # the factor moves only with scale_norm (the 16-bit and tiled configs
+    # train without it)
+    check(math.isfinite(norm) and (
+        norm != 1.0 or not model.diffusion.ddpm_loss.scale_norm),
+        'norm_factor')
     check(moved > 0, 'codes did not move')
     check(counters == [steps * (ess + 1)] * S, 'Adam step counters')
     check(0.0 < occ < 1.0, 'density grids entirely empty or full')
@@ -1462,7 +1531,8 @@ def module_grads(module):
     return torch.cat([p.grad.reshape(-1) for p in module.parameters()])
 
 
-def phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev):
+def phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev, phase=6,
+                            dtypes=('bfloat16', 'float32')):
     """One train step of scene 0 with 1 inner step and 1024 rays, on the
     card and on the CPU, from the same weights, codes and draws, in bf16
     (the decode as shipped) and with ``compute_dtype`` 'float32'.  f32:
@@ -1471,11 +1541,13 @@ def phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev):
     gap of the same quantity where that is larger (the UNet's gradient
     and the diffusion loss do not depend on the decode, so their gap is
     ~0 and the f32 limit holds).  Returns the launches of the f32 step on
-    the card (counts set to 0 just before it)."""
+    the card (counts set to 0 just before it).  ``dtypes``: the decode's,
+    the f32 one last; ``phase`` labels the lines."""
     tc = dict(model_cpu.train_cfg, extra_scene_step=1, n_inverse_rays=1024,
               n_decoder_rays=1024)
     data = {k: v[:1].cpu() for k, v in data.items()}
-    code_ = model_cpu.code_activation.inverse(code[:1].cpu())
+    code_ = model_cpu.code_activation.inverse(code[:1].cpu(),
+                                              model_cpu.code_act)
     H = model_cpu.grid_size
     batch = dict(code_=code_,
                  density_grid=torch.zeros((1, H ** 3), dtype=torch.float16),
@@ -1484,12 +1556,13 @@ def phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev):
     model_cpu.train_cfg = tc
     num_pixels = math.prod(data['cond_imgs'].shape[1:4])
     draws = model_cpu.train_draws(
-        1, num_pixels, torch.Generator().manual_seed(SEED + 6))
+        1, num_pixels, torch.Generator().manual_seed(SEED + 6),
+        num_views=data['cond_imgs'].shape[1])
     # a mid timestep: the SNR weight of the last ones is 0, which would
     # leave nothing to compare
     draws['t'] = torch.tensor([model_cpu.diffusion.num_timesteps // 2])
     outs = {}
-    for dtype in ('bfloat16', 'float32'):
+    for dtype in dtypes:
         for tag, d in (('card', dev), ('cpu', 'cpu')):
             model = copy.deepcopy(model_cpu).to(d)
             opts, scheds = build_optimizers(model, cfg.optimizer,
@@ -1511,7 +1584,8 @@ def phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev):
                 bits=out['density_bitfield'].cpu(),
                 unet=module_grads(model.diffusion).cpu(),
                 decoder=module_grads(model.decoder).cpu())
-            log(f'phase 6 {tag} ({dtype}): {time.perf_counter() - t0:.2f} s')
+            log(f'phase {phase} {tag} ({dtype}): '
+                f'{time.perf_counter() - t0:.2f} s')
             del model
 
     def rel(a, b, k):
@@ -1519,11 +1593,11 @@ def phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev):
             return abs(a['logs'][k] - b['logs'][k]) / abs(b['logs'][k])
         return ((a[k] - b[k]).abs().max() / b[k].abs().max()).item()
 
-    for dtype in ('bfloat16', 'float32'):
+    for dtype in dtypes:
         card, cpu = outs[dtype, 'card'], outs[dtype, 'cpu']
         flips = (np.unpackbits(card['bits'].numpy())
                  != np.unpackbits(cpu['bits'].numpy())).mean()
-        log(f'phase 6 card vs cpu ({dtype}): bitfield flipped share '
+        log(f'phase {phase} card vs cpu ({dtype}): bitfield flipped share '
             f'{flips:.2e}')
         # gradients: the codes' through the Adam first moment m (zero
         # before the step, so m is a fixed combination of this step's two
@@ -1537,10 +1611,11 @@ def phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev):
             if dtype == 'bfloat16':
                 gap = rel(cpu, outs['float32', 'cpu'], k)
                 tol = max(f32_tol, 0.5 * gap)
-            log(f'phase 6 {k} ({dtype}): rel_err {err:.2e} (tol {tol:.2e}'
+            log(f'phase {phase} {k} ({dtype}): rel_err {err:.2e} '
+                f'(tol {tol:.2e}'
                 + (f'; bf16-vs-f32 gap on the cpu {gap:.2e}'
                    if dtype == 'bfloat16' else '') + ')')
-            check(err <= tol, f'card vs cpu ({dtype}): {k}')
+            check(err <= tol, f'phase {phase} card vs cpu ({dtype}): {k}')
     return f32_launches
 
 
@@ -1839,7 +1914,8 @@ def phase_recons(model, data, dev):
         remat={str(k): v for k, v in remat.items()})
 
 
-def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev):
+def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev, phase=8,
+                             dtypes=('bfloat16', 'float32')):
     """1 scene: 2 guided DDIM steps, then 1 ``val_optim`` step (4 inverse
     steps) from the guide's codes and f16 grid, then a render of one test
     view, on the card and on the CPU with the same weights and draws, in
@@ -1853,7 +1929,8 @@ def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev):
     whose gradient is within the card's error of 0 steps the other way),
     the image max 2e-2 / mean 1e-3 (phase 4); bf16: each limit or half the
     CPU's bf16-vs-f32 gap of the same measure, where that is larger (phase
-    6); bits flipped at most 1e-3 in both."""
+    6); bits flipped at most 1e-3 in both.  ``dtypes``: the decode's, the
+    f32 one last; ``phase`` labels the lines."""
     cond, test = recons_inputs({k: v.cpu() for k, v in data.items()}, S=1)
     tcfg = dict(model_cpu.test_cfg, num_timesteps=2, n_inverse_steps=1,
                 n_inverse_rays=4096)
@@ -1863,14 +1940,15 @@ def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev):
     try:
         draws = model_cpu.val_draws(
             1, math.prod(cond['cond_imgs'].shape[1:4]),
-            torch.Generator().manual_seed(SEED + 10))
+            torch.Generator().manual_seed(SEED + 10),
+            num_views=cond['cond_imgs'].shape[1])
     finally:
         model_cpu.test_cfg = saved
     draws['optim'][0]['t'] = torch.tensor(
         [model_cpu.diffusion.num_timesteps // 2])
     view = {k: v[:, :1] for k, v in test.items()}
     outs = {}
-    for dtype in ('bfloat16', 'float32'):
+    for dtype in dtypes:
         for tag, model, d in (('card', model_dev, dev), ('cpu', model_cpu,
                                                          'cpu')):
             t0 = time.perf_counter()
@@ -1895,7 +1973,7 @@ def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev):
             outs[dtype, tag] = {k: v.cpu() for k, v in dict(
                 g_code=g_code, g_grid=g_grid, g_bits=g_bits, code=code,
                 bits=bits, img=img).items()}
-            log(f'phase 8 card vs cpu {tag} ({dtype}): '
+            log(f'phase {phase} card vs cpu {tag} ({dtype}): '
                 f'{time.perf_counter() - t0:.2f} s')
 
     def flipped(a, b):
@@ -1922,19 +2000,19 @@ def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev):
             ).item(), 1e-3)}
     result = {}
     ok = True
-    for dtype in ('bfloat16', 'float32'):
+    for dtype in dtypes:
         card, cpu = outs[dtype, 'card'], outs[dtype, 'cpu']
         for name, (fn, f32_tol) in measures.items():
             err, tol, gap = fn(card, cpu), f32_tol, None
             if dtype == 'bfloat16' and 'flipped' not in name:
                 gap = fn(cpu, outs['float32', 'cpu'])
                 tol = max(f32_tol, 0.5 * gap)
-            log(f'phase 8 card vs cpu ({dtype}) {name}: {err:.3e} (tol '
+            log(f'phase {phase} card vs cpu ({dtype}) {name}: {err:.3e} (tol '
                 f'{tol:.3e}' + (f'; bf16-vs-f32 gap on the cpu {gap:.3e}'
                                 if gap is not None else '') + ')')
             result[f'{dtype} {name}'] = dict(err=err, tol=tol, gap=gap)
             ok = ok and err <= tol
-    check(ok, 'phase 8 card vs cpu')
+    check(ok, f'phase {phase} card vs cpu')
     return result
 
 
@@ -1944,6 +2022,14 @@ def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev):
 EVAL_UNCOND = ('march', 'decode_bf16', 'attention')
 EVAL_RECONS = RECONS
 EVAL_VIEWS = 251            # SRN cars_test: 251 views a scene
+# the guided DDIM steps and val_optim steps of a reconstruction evaluated
+# through the test CLI (phase 9, phase 12 (c)): a cut of the configs' 75
+# and 25, which phases 8 and 12 (b) run in full
+EVAL_GUIDE_STEPS, EVAL_OPTIM_STEPS = 15, 5
+# the DDIM steps of a generation evaluated through the test CLI (phase 9)
+# or the eval hook (phase 10): a cut of the config's 50, which phase 3
+# runs in full
+EVAL_DDIM_STEPS = 10
 EVAL_SIZE = 128             # of 128 x 128
 MESH_RES = 128              # the mesh's grid, 128^3 (256 by default)
 # the render's share of the card a chunk of max_render_rays may take
@@ -2074,15 +2160,36 @@ def eval_stages(walls):
         (FIDKID, 'summary', 'fid/kid summary (host)')])
 
 
-def eval_entry(cfg, data_key, root, pkl, num_images):
+def eval_entry(cfg, data_key, root, pkl, num_images, metric=True,
+               viz=True):
     """The config's evaluation entry of ``data_key`` as a literal for
     ``--cfg-options``: batch 8, ``num_images`` images, the statistics
-    pickle ``pkl``."""
+    pickle ``pkl``; without ``metric`` no FID / KID (host-bound: phase
+    9's uncond run computes them), without ``viz`` no image dumps."""
     ev = copy.deepcopy(next(e for e in cfg.evaluation
                             if e['data'] == data_key))
-    ev.update(feed_batch_size=8, viz_dir=str(root / f'viz_{data_key}'))
-    ev['metrics'].update(num_images=num_images, inception_pkl=str(pkl))
+    ev.update(feed_batch_size=8,
+              viz_dir=str(root / f'viz_{data_key}') if viz else None)
+    if metric:
+        ev['metrics'].update(num_images=num_images, inception_pkl=str(pkl))
+    else:
+        ev['metrics'] = None
     return repr([dict(ev)])
+
+
+def depth_cuts(config, reconstruction):
+    """(``--cfg-options``, their printed cuts) cutting an evaluation's
+    depth: a reconstruction's to EVAL_GUIDE_STEPS guided and
+    EVAL_OPTIM_STEPS ``val_optim`` steps, a generation's to
+    EVAL_DDIM_STEPS DDIM steps."""
+    tcfg = Config.fromfile(str(config)).test_cfg
+    cuts = {'num_timesteps': EVAL_GUIDE_STEPS if reconstruction
+            else EVAL_DDIM_STEPS}
+    if reconstruction:
+        cuts['n_inverse_steps'] = EVAL_OPTIM_STEPS
+    return ([f'test_cfg.{k}={v}' for k, v in cuts.items()],
+            ''.join(f', test_cfg.{k} {tcfg[k]} -> {v}'
+                    for k, v in cuts.items()))
 
 
 def flat_arrays(tree):
@@ -2174,9 +2281,14 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
     for name, config, key, n in (
             ('uncond', CONFIG, 'val_uncond', S * EVAL_VIEWS),
             ('recons', CONFIG_RECONS, 'val_cond', S * (EVAL_VIEWS - 1))):
+        # FID / KID on the uncond run only: their host work is the same
+        # for both
         opts = data_opts + [
             'evaluation=' + eval_entry(Config.fromfile(str(config)), key,
-                                       root, pkl, n)]
+                                       root, pkl, n,
+                                       metric=name == 'uncond')]
+        depth, depth_text = depth_cuts(config, name == 'recons')
+        opts += depth
         if name == 'uncond':
             opts.append(f'test_cfg.save_dir={root / "save"}')
         if max_rays > 0:
@@ -2186,7 +2298,9 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
             + ' '.join(o.split('=')[0] for o in opts)
             + f' (reductions: feed_batch_size 32 -> 8, num_images '
             f'{n}' + (f', max_render_rays {max_rays}' if max_rays > 0
-                      else '') + ')')
+                      else '') + depth_text
+            + ('' if name == 'uncond' else ', evaluation.metrics None')
+            + ')')
         walls = {}
         reset_launches()
         torch.cuda.synchronize()
@@ -2199,7 +2313,8 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
         torch.cuda.synchronize()
         walls['total'] = time.perf_counter() - t0
         launches = launch_counts()
-        results = dict(log_vars, **metrics[0].result_dict)
+        results = dict(log_vars, **{k: v for m in metrics
+                                   for k, v in m.result_dict.items()})
         log(f'phase 9 {name} results: ' + ', '.join(
             f'{k} {v:.6g}' for k, v in results.items()))
         log(f'phase 9 {name} stages (wall s): ' + ', '.join(
@@ -2216,7 +2331,7 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
     expect = {'code_rms', 'fid_substitute', 'kid_substitute'}
     check(expect <= set(runs['uncond']['results']), 'uncond keys')
     check({'test_psnr', 'test_ssim', 'test_lpips_substitute',
-           'fid_substitute'} <= set(runs['recons']['results']),
+           'code_rms'} <= set(runs['recons']['results']),
           'recons keys')
     saved = sorted(p.name for p in (root / 'save').iterdir())
     check(saved == [f'{i:04d}.npz' for i in range(S)],
@@ -2398,9 +2513,10 @@ def phase_eval_card_vs_cpu(model_cpu, model_dev, code, bitfield, data_dir,
 # ------------------------------------------------------------- phase 10
 TRAIN_SCENES = 16           # the bank of phase 10 (the flagship's: 2458)
 TRAIN_VIEWS = 50            # views a training scene (SRN cars_train's)
-TRAIN_ITERS, CKPT_EVERY, RESUME_AT = 30, 10, 20
-UPDATER_STEPS = (5, 15, 25)
-EVAL_SCENES = 2             # scenes' views the eval hook's FID is fed
+# run a: checkpoints at 6 and 12; run b: 6, then resumed to 12; the
+# updater's steps before the resume (2, 4) and after it (9)
+TRAIN_ITERS, CKPT_EVERY, RESUME_AT = 12, 6, 6
+UPDATER_STEPS = (2, 4, 9)
 # |resumed - uninterrupted| / |uninterrupted| of each loss at every
 # iteration after the resume (stated before the first run): the card's
 # atomics make the runs differ by rounding, which a flipped occupancy bit
@@ -2449,10 +2565,11 @@ def phase10_config(root, run, max_rays, evaluate=True):
                           TRAIN_ITERS)
         ev.feed_batch_size = cut(cuts, 'evaluation.feed_batch_size',
                                  ev.feed_batch_size, 8)
-        ev.metrics.num_images = cut(cuts, 'evaluation.metrics.num_images',
-                                    ev.metrics.num_images,
-                                    EVAL_SCENES * EVAL_VIEWS)
-        ev.metrics.inception_pkl = str(root / 'inception_stats.pkl')
+        # FID / KID (host-bound sqrtm and kernel sums) run in phase 9
+        ev.metrics = cut(cuts, 'evaluation.metrics', ev.metrics.type, None)
+        cfg.test_cfg.num_timesteps = cut(
+            cuts, 'test_cfg.num_timesteps', cfg.test_cfg.num_timesteps,
+            EVAL_DDIM_STEPS)
         ev.viz_dir = str(work / 'viz_uncond')
     else:
         cfg.evaluation = cut(cuts, 'evaluation', '[...]', [])
@@ -2461,27 +2578,37 @@ def phase10_config(root, run, max_rays, evaluate=True):
     return path, cuts, cfg
 
 
-def train_cli(cfg_path, work, dev, *args, timeout=600):
-    """``python -m ssdnerf_torch.train`` on ``dev`` in a subprocess; its
-    output goes to ``work/cli.log``.  Returns (wall s, its Timing summary,
-    its kernel launches (printed on a card), stdout)."""
-    cmd = [sys.executable, '-m', 'ssdnerf_torch.train', str(cfg_path),
-           '--work-dir', str(work), '--seed', str(SEED), '--device',
-           str(dev), *args]
+def train_cli(cfg_path, work, dev, *args):
+    """The train CLI's entry (``ssdnerf_torch.train.main``, what ``python
+    -m ssdnerf_torch.train`` runs) in this process on ``dev``, with the
+    launch counts set to 0 just before and torch's TF32 switches as a
+    fresh process has them; what it prints goes to ``work/cli.log``.
+    Returns (wall s, its Timing summary, its kernel launches (printed on
+    a card), what it printed)."""
+    argv = [str(cfg_path), '--work-dir', str(work), '--seed', str(SEED),
+            '--device', str(dev), *args]
+    printed, runner = io.StringIO(), None
+    reset_launches()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=timeout)
+    try:
+        with fresh_process_tf32(), contextlib.redirect_stdout(printed):
+            runner = train_main(argv)
+    except BaseException:
+        log(printed.getvalue()[-5000:])
+        raise
+    finally:
+        work.mkdir(parents=True, exist_ok=True)
+        (work / 'cli.log').write_text(printed.getvalue())
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    work.mkdir(parents=True, exist_ok=True)
-    (work / 'cli.log').write_text(out.stdout + out.stderr)
-    if out.returncode != 0:
-        log(out.stdout[-3000:] + out.stderr[-5000:])
-        raise AssertionError(f'{" ".join(cmd[2:4])} exited with '
-                             f'{out.returncode}')
-    timing = json.loads(re.findall(r'Timing: (\{.*\})', out.stdout)[-1])
+    del runner
+    torch.cuda.empty_cache()
+    stdout = printed.getvalue()
+    timing = json.loads(re.findall(r'Timing: (\{.*\})', stdout)[-1])
     launches = [json.loads(x) for x in re.findall(
-        r'kernel launches: (\{.*\})', out.stdout)]
-    return wall, timing, launches[-1] if launches else {}, out.stdout
+        r'kernel launches: (\{.*\})', stdout)]
+    return wall, timing, launches[-1] if launches else {}, stdout
 
 
 def read_stats(work):
@@ -2537,12 +2664,12 @@ def write_train_set(model, code, bitfield, root):
 def phase_train_cli(dev, root, max_rays):
     """Training through the CLI at flagship width on ``root/cars_train``
     (:func:`write_train_set`): ``python -m ssdnerf_torch.train`` on the
-    flagship config with phase 10's cuts, a run of 30 iterations ending in
-    the eval hook (on phase 9's ``root/cars_test``), a run of 20 and its
-    resume to 30; then in-process a resume of the same checkpoint, its
-    reloaded state held bitwise against the files, trained to 30 with the
-    launch counts set to 0 just before, then :func:`phase_sync_cost`'s
-    legs."""
+    flagship config with phase 10's cuts, a run of TRAIN_ITERS iterations
+    ending in the eval hook (on phase 9's ``root/cars_test``), a run of
+    RESUME_AT and its resume to TRAIN_ITERS; then in-process a resume of
+    the same checkpoint, its reloaded state held bitwise against the
+    files, trained to TRAIN_ITERS with the launch counts set to 0 just
+    before, then :func:`phase_sync_cost`'s legs."""
     out = {}
     t_phase = time.perf_counter()
     cfg_a, cuts, _ = phase10_config(root, 'run_a', max_rays)
@@ -2556,7 +2683,8 @@ def phase_train_cli(dev, root, max_rays):
 
     runs = {}
     for name, cfg_path, args in (
-            ('a', cfg_a, ()), ('b20', cfg_b, ('--max-iters', str(RESUME_AT))),
+            ('a', cfg_a, ()),
+            (f'b{RESUME_AT}', cfg_b, ('--max-iters', str(RESUME_AT))),
             ('b_resumed', cfg_b, ('--resume-from', str(
                 root / 'run_b' / 'ckpt' / f'iter_{RESUME_AT}.ckpt')))):
         work = root / ('run_a' if name == 'a' else 'run_b')
@@ -2564,7 +2692,7 @@ def phase_train_cli(dev, root, max_rays):
                                                    *args)
         runs[name] = dict(wall_s=wall, timing=timing, launches=launches)
         hook_s = {k: v for k, v in timing['hook_s'].items() if '.' not in k}
-        log(f'phase 10 run {name}: python -m ssdnerf_torch.train '
+        log(f'phase 10 run {name}: ssdnerf_torch.train.main '
             f'{cfg_path.name} {" ".join(args)}: {wall:.1f} s wall; '
             f'{timing["iterations"]} iterations {timing["total_iter_s"]:.2f}'
             f' s (first {timing.get("first_iter_s", 0):.3f} s; median '
@@ -2576,9 +2704,6 @@ def phase_train_cli(dev, root, max_rays):
             + ', '.join(f'{k} {v:.3f}' for k, v in hook_s.items())
             + f'; resume {timing["resume_s"]}; peak '
             f'{timing.get("peak_gib", 0):.2f} GiB; launches {launches}')
-        if name == 'b20':   # pruned by the resumed run's saves
-            norm = {CKPT_EVERY: read_checkpoint(str(
-                work / 'ckpt' / f'iter_{CKPT_EVERY}.ckpt'))[0]['ddpm_loss']}
         if name == 'a':
             for line in stdout.splitlines():
                 if 'ModelUpdaterHook' in line or 'Eval:' in line:
@@ -2649,17 +2774,6 @@ def phase_train_cli(dev, root, max_rays):
         f' {out["checkpoint"]["s_each"]:.2f} s a save ({saves} in run a, '
         'with the bank .npz and pruning)')
 
-    # the EMA moved away from both the live and the initial weights
-    init = model_state(init_model(Config.fromfile(str(cfg_a)), 'cpu', SEED))
-    for name in ('diffusion', 'decoder'):
-        ema, live, first = (flat_arrays(t[name + s]) for t, s in (
-            (state, '_ema'), (state, ''), (init, '')))
-        gap_live = max(np.abs(a - b).max() for a, b in zip(ema, live))
-        gap_init = max(np.abs(a - b).max() for a, b in zip(ema, first))
-        log(f'phase 10 {name}_ema: max |ema - live| {gap_live:.3e}, max '
-            f'|ema - initial| {gap_init:.3e}')
-        check(gap_live > 0 and gap_init > 0, f'{name}_ema did not move')
-
     # the updater: its steps fired, and extra_scene_step and freeze_norm
     # show in the bank's Adam counts and the frozen norm factor
     check(runs['a']['updates'] == list(UPDATER_STEPS),
@@ -2671,19 +2785,11 @@ def phase_train_cli(dev, root, max_rays):
         expect[s['scene_id']] += ess_at(it) + 1
     check(np.array_equal(steps, expect), f'bank Adam counts {steps} vs '
           f'{expect} (extra_scene_step 15 -> 3 -> 1)')
-    norm[RESUME_AT] = read_checkpoint(str(
-        ckpt / f'iter_{RESUME_AT}.ckpt'))[0]['ddpm_loss']
-    norm[TRAIN_ITERS] = state['ddpm_loss']
-    log(f'phase 10 norm factor at iterations {sorted(norm)}: '
-        + ', '.join(f'{float(norm[k][0]):.6f}' for k in sorted(norm)))
-    check(np.array_equal(norm[RESUME_AT], norm[TRAIN_ITERS])
-          and not np.array_equal(norm[CKPT_EVERY], norm[RESUME_AT]),
-          'freeze_norm from iteration 15')
 
     # eval hook
     ev = runs['a']['eval']
-    check({'fid_substitute', 'kid_substitute', 'code_rms'} <= set(ev)
-          and all(math.isfinite(v) for v in ev.values()), f'eval {ev}')
+    check('code_rms' in ev and all(math.isfinite(v) for v in ev.values()),
+          f'eval {ev}')
     for name in TRAIN:
         check(runs['a']['launches'][name] > 0, f'kernel {name} was not '
               'launched by the CLI run')
@@ -2693,6 +2799,9 @@ def phase_train_cli(dev, root, max_rays):
     runner = build_runner(Config.fromfile(str(cfg_c)), str(root / 'run_c'),
                           seed=SEED, device=str(dev))
     try:
+        # the runner's fresh model: the initial weights of every run (a
+        # copy: on the CPU the state's arrays share the live tensors)
+        init = copy.deepcopy(model_state(runner.model))
         src = b_dir / 'ckpt' / f'iter_{RESUME_AT}.ckpt'
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2714,6 +2823,8 @@ def phase_train_cli(dev, root, max_rays):
         runner.run()
         torch.cuda.synchronize()
         launches = launch_counts()
+        norm_end = runner.model.diffusion.norm_factor.detach().float(
+            ).cpu().numpy().copy()
         out['sync_cost'] = phase_sync_cost(runner)
     finally:
         runner.data_loader.close()
@@ -2730,7 +2841,8 @@ def phase_train_cli(dev, root, max_rays):
                   lr=cfg.train_cfg.optimizer.lr,
                   pixel=cfg.model.pixel_loss.loss_weight,
                   reg=cfg.model.reg_loss.loss_weight)
-    log(f'phase 10 in-process run 20 -> 30: launches {launches}; updater '
+    log(f'phase 10 in-process run {RESUME_AT} -> {TRAIN_ITERS}: launches '
+        f'{launches}; updater '
         f'settings before {before}, after {got}')
     check(got == dict(ess=1, freeze=True, pack=(512, 512), march=(128, 128),
                       lr=2.5e-3, pixel=10.0, reg=1.5e-3)
@@ -2738,6 +2850,26 @@ def phase_train_cli(dev, root, max_rays):
     for name in TRAIN:
         check(launches[name] > 0, f'kernel {name} was not launched by the '
               'in-process run')
+
+    # run a's EMA moved away from both the live and the initial weights
+    for name in ('diffusion', 'decoder'):
+        ema, live, first = (flat_arrays(t[name + s]) for t, s in (
+            (state, '_ema'), (state, ''), (init, '')))
+        gap_live = max(np.abs(a - b).max() for a, b in zip(ema, live))
+        gap_init = max(np.abs(a - b).max() for a, b in zip(ema, first))
+        log(f'phase 10 {name}_ema: max |ema - live| {gap_live:.3e}, max '
+            f'|ema - initial| {gap_init:.3e}')
+        check(gap_live > 0 and gap_init > 0, f'{name}_ema did not move')
+    # the norm factor moves until freeze_norm (the updater's second step)
+    # and holds from there: the initial one, run b's checkpoint, the
+    # in-process run from it
+    norm = {0: init['ddpm_loss'], RESUME_AT: saved['ddpm_loss'],
+            TRAIN_ITERS: norm_end}
+    log(f'phase 10 norm factor at iterations {sorted(norm)}: '
+        + ', '.join(f'{float(norm[k][0]):.6f}' for k in sorted(norm)))
+    check(np.array_equal(norm[RESUME_AT], norm[TRAIN_ITERS])
+          and not np.array_equal(norm[0], norm[RESUME_AT]),
+          f'freeze_norm from iteration {UPDATER_STEPS[1]}')
     out.update(runs=runs, resume_in_process_s=resume_s, launches=launches,
                wall_s=time.perf_counter() - t_phase)
     return out
@@ -2750,12 +2882,12 @@ class SyncHook(Hook):
         torch.cuda.synchronize()
 
 
-SYNC_LEG = 6   # iterations a leg of phase_sync_cost
+SYNC_LEG = 3   # iterations a leg of phase_sync_cost
 
 
 def phase_sync_cost(runner):
     """The host wall of an iteration with and without a device wait after
-    each hook, on ``runner`` (trained to 30): four legs of SYNC_LEG
+    each hook, on ``runner`` (trained to TRAIN_ITERS): four legs of SYNC_LEG
     iterations past the run, without, with, with, without, each timed
     from one wait for the device to the next.  The legs run the
     per-iteration hooks at the flagship's log interval (50), without the
@@ -2798,7 +2930,7 @@ class LogVarsHook(Hook):
                           runner.last_log_vars.items() if np.ndim(v) == 0})
 
 
-RUNNER_SEEDS = (SEED + 30, SEED + 31, SEED + 32)  # of the replayed draws
+RUNNER_SEEDS = (SEED + 30,)  # of the replayed draws
 
 
 @contextlib.contextmanager
@@ -3147,7 +3279,7 @@ def phase11_config(src, root, run, iters, cuts, **over):
 def log_cli_run(tag, cfg_path, args, wall, timing, launches, smi):
     hook_s = {k: round(v, 4) for k, v in timing['hook_s'].items()
               if '.' not in k}
-    log(f'phase 11 {tag}: python -m ssdnerf_torch.train {cfg_path.name} '
+    log(f'phase 11 {tag}: ssdnerf_torch.train.main {cfg_path.name} '
         f'{" ".join(args)}: {wall:.1f} s wall; {timing["iterations"]} '
         f'iterations {timing["total_iter_s"]:.3f} s (first '
         f'{timing.get("first_iter_s", 0):.4f} s; median '
@@ -3488,7 +3620,430 @@ def phase_stage1_card_vs_cpu(root, dev):
     return launches, out
 
 
+# ------------------------------------------------------------ phase 12
+CONFIG_TILED = ROOT / 'configs' / 'new_cfgs' / 'ssdnerf_cars_recons1v_tiled.py'
+TILED_ITERS = 6             # iterations of phase 12's CLI run
+TILED_UPDATER = (2, 4, 5)   # its updater's steps (the config's 2000, ...)
+TILED_GUIDE_STEPS = 3       # guided steps of (d)
+# the kernels of the tiled reconstruction: the bf16 guide's (the 16x48
+# level's attention in bf16, the others in f32) and val_optim's (f32)
+TILED_RECONS = RECONS + RECONS_FP16
+
+
+@contextlib.contextmanager
+def attention_shapes(tally):
+    """Counts in ``tally`` each attention kernel launch of the block by
+    direction, operand dtype and (T, hd), at the library's entry
+    (``_build.launch``; the wrappers keep their own counts)."""
+    launch = _build.launch
+
+    def counted(name, device, *args):
+        if name.startswith('attention_'):
+            direction = name.split('_')[1]
+            dtype = 'bfloat16' if name.endswith('bf16') else 'float32'
+            key = f'{direction} {dtype} T={args[-3]} hd={args[-2]}'
+            tally[key] = tally.get(key, 0) + 1
+        return launch(name, device, *args)
+
+    _build.launch = counted
+    try:
+        yield
+    finally:
+        _build.launch = launch
+
+
+def expected_shapes(passes, dtype_at_768):
+    """The attention calls of ``passes`` UNet passes (forward or backward)
+    of the tiled UNet at batch 8: TILED_PASS calls a pass, the 16x48
+    level's in ``dtype_at_768``, the others in f32 (JAX's gate)."""
+    out = {}
+    for direction, n in passes.items():
+        for (T, hd), calls in TILED_PASS.items():
+            dt = dtype_at_768 if T == 768 else 'float32'
+            key = f'{direction} {dt} T={T} hd={hd}'
+            out[key] = out.get(key, 0) + n * calls
+    return out
+
+
+def phase_tiled_recons(model, data, dev):
+    """Phase 12 (b): the tiled config's ``val_step`` ('guide_optim': 75
+    guided DDIM steps of the bf16 UNet at 2^14 rays, then 25 ``val_optim``
+    steps of 4 inverse steps with the f32 EMA UNet) on 8 scenes with one
+    128^2 view each, between ``eval_mode`` and ``train_mode``; a render of
+    4 other views; the walls of the guide and the optimisation, peak
+    memory, the attention calls by shape and dtype (exactly those of 75
+    forward and input-backward passes in bf16 autocast and 25 of each in
+    f32), then one guided and one ``val_optim`` step under the profiler.
+    Each of TILED_RECONS must launch."""
+    tcfg = model.test_cfg
+    cond, test = recons_inputs(data)
+    S = cond['cond_imgs'].shape[0]
+    num_pixels = math.prod(cond['cond_imgs'].shape[1:4])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    model.eval_mode()
+    walls, tally = {}, {}
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_ranges(model, walls), attention_shapes(tally):
+        code, grid, bitfield = model.val_step(cond, generator=gen)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.train_mode()
+    h, w = test['cond_imgs'].shape[2:4]
+    img, depth = model.render(code, bitfield, h, w,
+                              test['cond_intrinsics'], test['cond_poses'])
+    psnrs = [psnr_db(img[i], test['cond_imgs'][i]) for i in range(S)]
+    occ = np.unpackbits(bitfield.cpu().numpy()).mean()
+    steps, optim = tcfg['num_timesteps'], tcfg['n_inverse_steps']
+    log(f'phase 12 (b) reconstruction ({tcfg["cond_mode"]}, {S} scenes, 1 '
+        f'view of 128x128, autocast {model.autocast_dtype}): val_step '
+        f'{total_s:.3f} s = guide {walls["val_step.guide"]:.3f} s ({steps} '
+        f'guided DDIM steps at {tcfg["n_inverse_rays"]} rays) + optim '
+        f'{walls["val_step.optim"]:.3f} s ({optim} steps x '
+        f'{tcfg["extra_scene_step"] + 1} inverse steps); peak memory '
+        f'{peak:.2f} GiB; launches {launches}')
+    log(f'phase 12 (b) attention calls by shape: {tally}')
+    log(f'phase 12 (b) outputs: code {tuple(code.shape)} |code|max='
+        f'{code.abs().max().item():.3f}; occupancy {occ:.4f}; render of '
+        f'{len(RECONS_VIEWS)} other views PSNR (dB) mean '
+        f'{statistics.mean(psnrs):.3f} (random weights: no bar)')
+    check(code.shape == (S,) + model.code_size, 'tiled code shape')
+    check(torch.isfinite(code).all().item(), 'tiled codes not finite')
+    check(grid.dtype == torch.float16 and not torch.isnan(grid).any().item(),
+          'tiled grid')
+    for t in (img, depth):
+        check(torch.isfinite(t).all().item(), 'tiled render not finite')
+    for name in TILED_RECONS:
+        check(launches[name] > 0, f'phase 12 (b): kernel {name} was not '
+              'launched by the reconstruction')
+    want = expected_shapes(dict(fwd=steps, bwd=steps), 'bfloat16')
+    for key, n in expected_shapes(dict(fwd=optim, bwd=optim),
+                                  'float32').items():
+        want[key] = want.get(key, 0) + n
+    check(tally == want, f'phase 12 (b): attention calls {tally} != {want}')
+    check(tally.get('fwd bfloat16 T=768 hd=40', 0) > 0,
+          'phase 12 (b): no bf16 attention at (768, 40)')
+
+    model.test_cfg = dict(tcfg, num_timesteps=1, n_inverse_steps=1)
+    try:
+        draws = model.val_draws(S, num_pixels, gen, dev)
+        profiles = {
+            'guide': profile_step(lambda: model.val_guide(
+                cond, draws['noise'], draws), ranges=('val_step.guide',)),
+            'optim': profile_step(lambda: model.val_optim(
+                cond, draws, code_=model.code_activation.inverse(
+                    code, model.code_act),
+                density_grid=grid, density_bitfield=bitfield),
+                ranges=('val_step.optim',))}
+    finally:
+        model.test_cfg = tcfg
+    for part, (wall_ms, dev_ms, _, groups, top) in profiles.items():
+        log(f'phase 12 (b) profiled {part} step: wall {wall_ms:.1f} ms, '
+            f'device {dev_ms:.1f} ms; by group: ' + ', '.join(
+                f'{k} {v:.2f} ms ({v / dev_ms:.1%})'
+                for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+        for name, (n, ms) in top[:6]:
+            log(f'phase 12 (b) {part} kernel {ms:8.3f} ms x{n:4d} '
+                f'{name[:90]}')
+    check(profiles['guide'][3].get('attention_bwd_bf16', 0.0) > 0,
+          'phase 12 (b): the bf16 attention backward read no device time '
+          'in the profiled guided step')
+    # device ms of one UNet forward at batch 8: the guide's bf16 copy and
+    # val_optim's f32 EMA UNet
+    g = torch.Generator().manual_seed(SEED + 42)
+    x = torch.randn((S,) + model.code_diff_size, generator=g).to(dev)
+    t = torch.randint(0, model.diffusion.num_timesteps, (S,),
+                      generator=g).to(dev)
+    unet_ms = {}
+    for tag, unet, inp in (
+            ('bf16', model.sampling_diffusion.denoising, x.bfloat16()),
+            ('ieee_f32', model.ema_diffusion.denoising, x)):
+        with torch.no_grad():
+            unet_ms[tag] = sum(device_profile(lambda: unet(inp, t),
+                                              3).values())
+    log('phase 12 (b) tiled UNet forward (batch 8) device ms: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in unet_ms.items()))
+    return launches, dict(unet_forward_device_ms=unet_ms,
+        val_step_s=total_s, range_wall_s=walls, peak_gib=peak,
+        attention_calls=tally, psnr_db=psnrs, occupancy=occ,
+        profiled={k: dict(wall_ms=v[0], device_ms=v[1],
+                          device_ms_by_group=v[3])
+                  for k, v in profiles.items()})
+
+
+def phase12_config(root, run, cuts):
+    """The tiled config with phase 12 (c)'s cuts (each listed in ``cuts``):
+    bank 16 scenes, TILED_ITERS iterations, one checkpoint at the end, a
+    log line each iteration, the updater at TILED_UPDATER, no evaluation;
+    its data ``root/cars_train`` and its outputs under ``root/run``.
+    Written as ``root/<run>.py``."""
+    cfg = Config.fromfile(str(CONFIG_TILED))
+    work = root / run
+    cfg.model.cache_size = cut(cuts, 'model.cache_size', cfg.model.cache_size,
+                               TRAIN_SCENES)
+    cfg.total_iters = cut(cuts, 'total_iters', cfg.total_iters, TILED_ITERS)
+    cfg.checkpoint_config.interval = cut(
+        cuts, 'checkpoint_config.interval', cfg.checkpoint_config.interval,
+        TILED_ITERS)
+    cfg.log_config.interval = cut(cuts, 'log_config.interval',
+                                  cfg.log_config.interval, 1)
+    for hook in cfg.custom_hooks:
+        if hook.type == 'ModelUpdaterHook':
+            hook.step = cut(cuts, 'ModelUpdaterHook.step', hook.step,
+                            list(TILED_UPDATER))
+        if hook.type == 'SaveCacheHook':
+            hook.update(out_dir=str(work / 'code'), viz_dir=str(work / 'viz'))
+    cfg.train_cfg.cache_load_from = str(work / 'code')
+    cfg.data.train.update(data_prefix=str(root / 'cars_train'),
+                          cache_path=str(root / 'cars_train_cache.pkl'))
+    cfg.evaluation = cut(cuts, 'evaluation', '[...]', [])
+    path = root / f'{run}.py'
+    path.write_text(''.join(f'{k} = {v!r}\n' for k, v in cfg.items()))
+    return path
+
+
+def phase_tiled_cli(dev, root, smi):
+    """Phase 12 (c): ``python -m ssdnerf_torch.train`` with the tiled
+    config (phase12_config's cuts) on phase 10's ``root/cars_train``: every
+    iteration logged with finite losses, the f32 attention kernels (the
+    training UNet's, at the tiled levels) launched, the checkpoint and the
+    bank's code file written."""
+    cuts = []
+    cfg_path = phase12_config(root, 'tiled', cuts)
+    log('phase 12 (c) cuts of the tiled config (every width unchanged): '
+        + '; '.join(cuts))
+    work = root / 'tiled'
+    wall, timing, launches, _ = train_cli(cfg_path, work, dev)
+    hook_s = {k: round(v, 4) for k, v in timing['hook_s'].items()
+              if '.' not in k}
+    log(f'phase 12 (c): ssdnerf_torch.train.main {cfg_path.name}: '
+        f'{wall:.1f} s wall; {timing["iterations"]} iterations '
+        f'{timing["total_iter_s"]:.3f} s (first '
+        f'{timing.get("first_iter_s", 0):.4f} s; median '
+        f'{timing.get("median_iter_s", 0):.4f}, min '
+        f'{timing.get("min_iter_s", 0):.4f}, max '
+        f'{timing.get("max_iter_s", 0):.4f}; CUDA events); hooks (s): '
+        f'{hook_s}; peak {timing.get("peak_gib", 0):.2f} GiB; launches '
+        f'{launches}; {smi}')
+    stats = read_stats(work)
+    check(sorted(stats) == list(range(1, TILED_ITERS + 1)),
+          'phase 12 (c): iterations logged')
+    for s_ in stats.values():
+        for k in LOSS_KEYS + ('train_psnr',):
+            check(math.isfinite(s_[k]), f'phase 12 (c): {k} not finite')
+    for name in TRAIN:
+        check(launches.get(name, 0) > 0,
+              f'phase 12 (c): kernel {name} was not launched')
+    ckpt = work / 'ckpt'
+    check((ckpt / f'iter_{TILED_ITERS}.ckpt').exists()
+          and (ckpt / f'iter_{TILED_ITERS}_cache_rank0.npz').exists(),
+          f'phase 12 (c): checkpoint files {sorted(ckpt.iterdir())}')
+    return dict(wall_s=wall, timing=timing, launches=launches, cuts=cuts,
+                losses={it: {k: stats[it][k] for k in LOSS_KEYS}
+                        for it in stats},
+                checkpoint=str(ckpt / f'iter_{TILED_ITERS}.ckpt'))
+
+
+def phase_tiled_test_cli(dev, root, ckpt, max_rays):
+    """Phase 12 (c), evaluation: ``python -m ssdnerf_torch.test`` (its
+    ``main``) with the tiled config on (c)'s checkpoint and phase 9's
+    ``root/cars_test`` (8 scenes: view 64 conditions 'guide_optim', the
+    other 250 are rendered), with phase 9's cuts (batch 8, its render
+    chunk); the metrics finite, the bf16 attention launched (the guide's
+    16 x 48 level)."""
+    cache = root / 'cars_test_cache.pkl'
+    cfg = Config.fromfile(str(CONFIG_TILED))
+    n = 8 * (EVAL_VIEWS - 1)
+    opts = [f'data.val_cond.data_prefix={root / "cars_test"}',
+            f'data.val_cond.cache_path={cache}',
+            'evaluation=' + eval_entry(cfg, 'val_cond', root, None, n,
+                                       metric=False, viz=False)]
+    depth, depth_text = depth_cuts(CONFIG_TILED, True)
+    opts += depth
+    if max_rays > 0:
+        opts.append(f'test_cfg.max_render_rays={max_rays}')
+    log(f'phase 12 (c) evaluation: python -m ssdnerf_torch.test '
+        f'{CONFIG_TILED.relative_to(ROOT)} <the checkpoint of (c)> '
+        '--cfg-options '
+        + ' '.join(o.split('=')[0] for o in opts)
+        + f' (cuts: feed_batch_size 32 -> 8, num_images {n}'
+        + (f', max_render_rays {max_rays}' if max_rays > 0 else '')
+        + depth_text + ', evaluation.metrics None, evaluation.viz_dir None'
+        ')')
+    walls = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with eval_stages(walls):
+        (log_vars, metrics), = test_cli.main(
+            [str(CONFIG_TILED), ckpt, '--device', str(dev), '--seed',
+             str(SEED), '--cfg-options', *opts])
+    torch.cuda.synchronize()
+    walls['total'] = time.perf_counter() - t0
+    launches = launch_counts()
+    results = dict(log_vars, **{k: v for m in metrics
+                                   for k, v in m.result_dict.items()})
+    log('phase 12 (c) evaluation results: ' + ', '.join(
+        f'{k} {v:.6g}' for k, v in results.items()))
+    log('phase 12 (c) evaluation stages (wall s): ' + ', '.join(
+        f'{k} {v:.3f}' if isinstance(v, float) else f'{k} {v}'
+        for k, v in walls.items()) + f'; launches {launches}')
+    check(all(math.isfinite(v) for v in results.values()),
+          'phase 12 (c) evaluation: metric values not finite')
+    check({'test_psnr', 'test_ssim', 'test_lpips_substitute'}
+          <= set(results),
+          'phase 12 (c) evaluation keys')
+    for name in TILED_RECONS:
+        check(launches[name] > 0, f'phase 12 (c) evaluation: kernel {name} '
+              'was not launched')
+    return dict(results=results, stages=walls, launches=launches)
+
+
+def phase_tiled_guide_card_vs_cpu(model_cpu, data, dev):
+    """Phase 12 (d), the guide: TILED_GUIDE_STEPS guided DDIM steps of 1
+    scene (rays cut to 4096 a guided step, as phase 8 cuts them for the
+    CPU) on the card and on the CPU under the config's bf16 autocast, and
+    on the CPU without it, with the same weights and draws.  Phase 7's rule
+    for a bf16 UNet: the card's codes within 1.25 x the CPU's bf16-vs-f32
+    gap of the CPU's bf16 codes (relative L2) and at least half that gap
+    from the f32 codes; the bitfields' flipped share within 1e-3 or 1.25 x
+    the CPU's own bf16-vs-f32 share, where that is larger."""
+    cond, _ = recons_inputs({k: v.cpu() for k, v in data.items()}, S=1)
+    tcfg = dict(model_cpu.test_cfg, num_timesteps=TILED_GUIDE_STEPS,
+                n_inverse_rays=4096, cond_mode='guide')
+    saved = model_cpu.test_cfg
+    model_cpu.test_cfg = tcfg
+    try:
+        draws = model_cpu.val_draws(
+            1, math.prod(cond['cond_imgs'].shape[1:4]),
+            torch.Generator().manual_seed(SEED + 41))
+    finally:
+        model_cpu.test_cfg = saved
+    model_dev = copy.deepcopy(model_cpu).to(dev)
+    outs = {}
+    for tag, model, d, autocast in (('card', model_dev, dev, 'bfloat16'),
+                                    ('cpu', model_cpu, 'cpu', 'bfloat16'),
+                                    ('cpu f32', model_cpu, 'cpu', None)):
+        t0 = time.perf_counter()
+        saved, saved_ac = model.test_cfg, model.autocast_dtype
+        model.test_cfg, model.autocast_dtype = tcfg, autocast
+        model.eval_mode()
+        try:
+            dr = to_device(draws, d)
+            code, _, bits = model.val_guide(to_device(cond, d), dr['noise'],
+                                            dr)
+        finally:
+            model.train_mode()
+            model.test_cfg, model.autocast_dtype = saved, saved_ac
+        outs[tag] = (code.cpu(), bits.cpu())
+        log(f'phase 12 (d) guide {tag}: {time.perf_counter() - t0:.2f} s')
+    del model_dev
+
+    def flipped(a, b):
+        return float((np.unpackbits(a.numpy())
+                      != np.unpackbits(b.numpy())).mean())
+
+    (card, cbits), (cpu, pbits), (f32, fbits) = (
+        outs['card'], outs['cpu'], outs['cpu f32'])
+    err, gap, far = l2(card, cpu), l2(cpu, f32), l2(card, f32)
+    flips, flip_gap = flipped(cbits, pbits), flipped(pbits, fbits)
+    log(f'phase 12 (d) card vs cpu (bf16 autocast, {TILED_GUIDE_STEPS} '
+        f'guided steps, 1 scene): codes rel_l2 {err:.3e} (tol 1.25 x gap '
+        f'{gap:.3e}); card from f32 {far:.3e} (tol >= 0.5 x gap); bits '
+        f'flipped {flips:.2e} (tol max(1e-3, 1.25 x the cpu\'s bf16-vs-f32 '
+        f'{flip_gap:.2e}))')
+    check(torch.isfinite(card).all().item(), 'phase 12 (d): guide codes')
+    check(err <= 1.25 * gap and far >= 0.5 * gap,
+          'phase 12 (d): card vs cpu guide codes')
+    check(flips <= max(1e-3, 1.25 * flip_gap), 'phase 12 (d): bits')
+    return dict(rel_l2=err, gap=gap, from_f32=far, bits_flipped=flips,
+                bits_gap=flip_gap)
+
+
+def phase_tiled(dev, root, data, code, smi, max_rays):
+    """Phase 12: configs/new_cfgs/ssdnerf_cars_recons1v_tiled.py at every
+    width (random seeded weights): (a) 4 timed train steps of 8 scenes with
+    a 2458-row bank (phase 5's protocol); (b) ``val_step``
+    (:func:`phase_tiled_recons`); (c) the train CLI
+    (:func:`phase_tiled_cli`), then the evaluation CLI on its checkpoint
+    (:func:`phase_tiled_test_cli`, phase 9's test set; ``max_rays`` its
+    render chunk); (d) one train step (phase 6's rule; the f32
+    decode only: the bf16 decode's rule is held by phase 6) and
+    TILED_GUIDE_STEPS guided steps card vs CPU; (e) the flagship recons1v
+    with ``image_cond`` (a UNet of 18 + 3 input channels): one train step
+    and 2 guided steps + 1 ``val_optim`` step card vs CPU (phases 6 and 8,
+    f32 decode)."""
+    out = {}
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(str(CONFIG_TILED))
+    model_cpu = make_model(SEED, CONFIG_TILED)
+    model_dev = copy.deepcopy(model_cpu).to(dev)
+    unet = model_dev.diffusion.denoising
+    log(f'phase 12 tiled config: codes {model_dev.code_size} laid out '
+        f'{model_dev.code_diff_size} (code_permute '
+        f'{model_dev.code_permute}); UNet image {unet.image_size}, levels '
+        f'{len(unet.channels_cfg)}, attention at scales '
+        f'{unet.attention_scale}, {sum(p.numel() for p in unet.parameters())}'
+        f' parameters; autocast {model_dev.autocast_dtype}; cuts: none in '
+        f'(a)-(b), (c) and (d)-(e) print theirs')
+    tally = {}
+    with attention_shapes(tally):
+        train_launches, out['train'] = phase_train(model_dev, cfg, data, code,
+                                                   dev, timed=4, phase=12)
+    log(f'phase 12 (a) attention calls by shape over 6 steps: {tally}')
+    check(tally == expected_shapes(dict(fwd=6, bwd=6), 'float32'),
+          f'phase 12 (a): attention calls {tally}')
+    torch.cuda.empty_cache()
+    recons_launches, out['recons'] = phase_tiled_recons(model_dev, data, dev)
+    del model_dev
+    torch.cuda.empty_cache()
+    out['cli'] = phase_tiled_cli(dev, root, smi)
+    torch.cuda.empty_cache()
+    out['test_cli'] = phase_tiled_test_cli(dev, root, out['cli']['checkpoint'],
+                                           max_rays)
+    torch.cuda.empty_cache()
+    log('phase 12 (d) cut: the decode in f32 only (phase 6 holds the bf16 '
+        f'decode card vs cpu); {TILED_GUIDE_STEPS} guided steps of 75')
+    out['card_vs_cpu'] = dict(train_f32_launches=phase_train_card_vs_cpu(
+        model_cpu, cfg, data, code, dev, phase=12, dtypes=('float32',)))
+    out['card_vs_cpu']['guide'] = phase_tiled_guide_card_vs_cpu(
+        model_cpu, data, dev)
+    del model_cpu
+    torch.cuda.empty_cache()
+    cfg_ic = Config.fromfile(str(CONFIG_RECONS))
+    cfg_ic.model.image_cond = True
+    cfg_ic.model.diffusion.denoising.concat_cond_channels = 3
+    ic_cpu = make_model(SEED, cfg_ic)
+    ic_dev = copy.deepcopy(ic_cpu).to(dev)
+    log('phase 12 (e) recons1v with image_cond (UNet in_conv over '
+        f'{ic_dev.diffusion.denoising.in_conv.in_channels} channels); cut: '
+        'the decode in f32 only')
+    ic_launches = phase_train_card_vs_cpu(ic_cpu, cfg_ic, data, code, dev,
+                                          phase=12, dtypes=('float32',))
+    out['image_cond'] = dict(
+        train_f32_launches=ic_launches,
+        recons=phase_recons_card_vs_cpu(ic_cpu, ic_dev, data, dev,
+                                        phase=12, dtypes=('float32',)))
+    del ic_cpu, ic_dev
+    torch.cuda.empty_cache()
+    out['phase_s'] = time.perf_counter() - t_phase
+    log(f'phase 12: {out["phase_s"]:.1f} s')
+    return train_launches, recons_launches, out
+
+
 def main():
+    walls = {}
+
+    def done(phase):
+        """Prints the wall seconds since the last phase ended."""
+        walls[phase] = time.perf_counter() - T0 - sum(walls.values())
+        log(f'phase {phase} wall: {walls[phase]:.1f} s '
+            f'({time.perf_counter() - T0:.1f} s since the start)')
+
     log(f'torch {torch.__version__} cuda {torch.version.cuda} python '
         f'{sys.version.split()[0]}')
     dev = phase_device()
@@ -3505,15 +4060,18 @@ def main():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             log('  ptxas:', line.strip())
     _build.library()
+    done('1 (with the build)')
 
     kernels, lib_kernels = phase_kernels(dev)
     probe_launches, probe = phase_probe(dev)
+    done(2)
     cfg = Config.fromfile(str(CONFIG))
     model_cpu = make_model(SEED)
     model_dev = copy.deepcopy(model_cpu).to(dev)
     serve_launches, code, bitfield, times = phase_slice(model_dev, dev)
     variant_launches, variants = phase_variants(model_dev, code, bitfield,
                                                 dev)
+    done(3)
     f32_render_launches = phase_card_vs_cpu(model_cpu, model_dev, dev)
     f32_variant_launches = phase_variants_card_vs_cpu(model_cpu, model_dev,
                                                       code, dev)
@@ -3522,9 +4080,11 @@ def main():
     for name in F32_RENDER:
         check(f32_render_launches[name] > 0,
               f'kernel {name} was not launched by the f32 renders')
+    done(4)
     data = training_data(model_dev, code, bitfield, dev)
     train_launches, train_times = phase_train(model_dev, cfg, data, code,
                                                dev)
+    done(5)
     del model_dev
     torch.cuda.empty_cache()
     f32_train_launches = phase_train_card_vs_cpu(model_cpu, cfg, data, code,
@@ -3532,6 +4092,7 @@ def main():
     for name in F32_TRAIN:
         check(f32_train_launches[name] > 0,
               f'kernel {name} was not launched by the f32 train step')
+    done(6)
 
     # the bf16 UNet path: the same weights in the bf16 configuration
     model_bf16_cpu = make_model(SEED, CONFIG_BF16)
@@ -3552,6 +4113,7 @@ def main():
         required=TRAIN + ('attention_bf16', 'attention_bwd_bf16'))
     del model_bf16_dev, model_bf16_cpu
     torch.cuda.empty_cache()
+    done(7)
 
     # reconstruction: the recons1v configuration, the same seeded weights
     model_recons_cpu = make_model(SEED, CONFIG_RECONS)
@@ -3560,6 +4122,7 @@ def main():
         model_recons_dev, data, dev)
     recons['card_vs_cpu'] = phase_recons_card_vs_cpu(
         model_recons_cpu, model_recons_dev, data, dev)
+    done(8)
 
     with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
         root = Path(tmp)
@@ -3567,6 +4130,7 @@ def main():
         # weights
         evals = phase_eval(model_recons_dev, model_recons_cpu, code,
                            bitfield, dev, root)
+        done(9)
         # training through the CLI on the card, then the runner on the
         # card and the CPU; the recons1v decoder is the flagship's
         write_train_set(model_recons_dev, code, bitfield, root)
@@ -3576,6 +4140,7 @@ def main():
         torch.cuda.empty_cache()
         train_cli_out['card_vs_cpu'] = phase_runner_card_vs_cpu(
             model_cpu, cfg, root, dev)
+        done(10)
         # stage-1 and two-stage training through the CLI on phase 10's
         # cars_train, then the stage-1 step on the card and the CPU
         torch.cuda.empty_cache()
@@ -3586,6 +4151,12 @@ def main():
         for name in STAGE1_KERNELS:
             check(stage1_launches[name.replace('_bf16', '')] > 0,
                   f'phase 11 (e): kernel {name} (f32) was not launched')
+        done(11)
+        # the tiled config at every width, its CLI on phase 10's cars_train
+        torch.cuda.empty_cache()
+        tiled_train_launches, tiled_launches, tiled_out = phase_tiled(
+            dev, root, data, code, smi, evals['max_render_rays'])
+        done(12)
 
     # launches: the generation kernels' counts from the phase-3 slice, the
     # render variants' from the phase-3 variant renders, the probe's from
@@ -3604,7 +4175,7 @@ def main():
                 train_launches[n]
                 for n in WRAPPERS}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms', 'device_ms', 'library_device_ms')
+            'library_ms', 'device_ms', 'library_device_ms', 'rows')
     # the reconstruction's counts: the f32-UNet reconstruction's, the bf16
     # attention's from the use_fp16 guide
     recons['launches'] = {n: recons_fp16_launches[n] if n in RECONS_FP16
@@ -3622,6 +4193,8 @@ def main():
                        name],
                    stage2_cli_launches=stage1_out['runs']['d']['launches'][
                        name],
+                   tiled_train_launches=tiled_train_launches[name],
+                   tiled_recons_launches=tiled_launches[name],
                    **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
@@ -3632,7 +4205,8 @@ def main():
                                  train=bf16_train,
                                  unet_forward_device_ms=precision_ms),
                     'recons': recons, 'eval': evals,
-                    'train_cli': train_cli_out, 'stage1': stage1_out}))
+                    'train_cli': train_cli_out, 'stage1': stage1_out,
+                    'tiled': tiled_out, 'phase_walls_s': walls}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

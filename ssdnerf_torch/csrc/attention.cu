@@ -7,7 +7,7 @@
 // whole (T, T) score matrix of one program in VMEM; a Hopper block has at
 // most 227 KB of shared memory, so this kernel streams instead (online
 // softmax): one block per (g, tile of query rows), 16 query rows a warp, K
-// and V in tiles of 64 keys (32 at hd = 128) through shared memory, a
+// and V in tiles of 64 keys (32 from hd = 80) through shared memory, a
 // running max and sum per row.  Under autograd it also writes each row's
 // log-sum-exp (LSE, in units of the scaled scores) for the backward.
 //
@@ -32,8 +32,8 @@
 // form on mma.sync bf16 products; at hd 64 and T a multiple of 128 (the
 // bf16 UNet's 32^2 level) the forward and the backward dispatch to the
 // wgmma + TMA kernels of attention_fwd_sm90.cu and attention_bwd_sm90.cu,
-// so this file's bf16 kernels serve hd 32 and 128 (the 16^2 and 8^2
-// levels) and hd 64 at other lengths.
+// so this file's bf16 kernels serve hd 16, 32, 40, 80 and 128 and hd 64 at
+// other lengths.
 //
 // Products: every matrix product (Q K^T and P V forward; K Q^T, V dO^T,
 // P^T dO, dS^T Q, Q K^T, dO V^T and dS K backward) runs on the tensor cores
@@ -62,7 +62,8 @@
 // 8-key step, the accumulator holds keys 2t and 2t + 1, and since a sum over
 // keys ignores their order, the B fragment is loaded with key 2t at k = t
 // and key 2t + 1 at k = t + 4.  Tile rows are padded by 4 floats (row stride
-// HD + 4, = 4 mod 32 banks), which keeps 16-byte cp.async copies aligned and
+// HD + 4, 4 times an odd number mod 32 banks: 4 at hd 32, 64 and 128, 12 at
+// 40, 20 at 16 and 80), which keeps 16-byte cp.async copies aligned and
 // every fragment load of the three access patterns free of bank conflicts.
 //
 // Copies: tiles arrive by cp.async, 16 B a thread, double-buffered: the next
@@ -73,8 +74,19 @@
 // Filling the card: 16 rows a warp, and the rows a block owns (query rows,
 // or keys in the dK/dV kernel) follow T so that each UNet level launches
 // >= 128 blocks at G = 32: 64 rows (4 warps) from T = 512, 32 from T = 128,
-// else 16.  Streamed tiles have 64 rows, 32 at hd = 128 (shared memory and
+// else 16.  Streamed tiles have 64 rows, 32 from hd = 80 (shared memory and
 // registers, see tile_rows).
+//
+// Head dims: 16, 32, 40, 64, 80 and 128 (every attention level of the
+// shipped UNets and the grouped UNet of the tests: hd 40 and 80 are the
+// tiled-triplane config's 16x48 and 8x24 / 4x12 levels; hd 16 the grouped
+// UNet's), in f32 and bf16; any other head dim returns
+// cudaErrorInvalidValue.  At hd 80 the 10 accumulator tiles of P V run as
+// a group of 8 and a group of 2 (mma_pb).  The bf16 products sum over hd
+// in steps of 16, so hd 40 is padded to 48 inside the kernels: columns
+// past hd are zero-filled in shared memory (cp.async with source size 0)
+// and never stored, so Q K^T, dO V^T and the stored dQ, dK and dV are
+// exact.
 //
 // Bound on the H100: tensor-core operations, 3 passes x (4 hd T^2 forward,
 // 10 hd T^2 backward) per program at 495 TFLOP/s dense TF32, at the 32^2
@@ -91,6 +103,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_tf32.cuh"
 
 namespace {
@@ -101,12 +115,19 @@ constexpr int kMaxThreads = 128;  // 4 warps: 64 rows a block
 int rows_per_block(int T) { return T >= 512 ? 64 : T >= 128 ? 32 : 16; }
 
 // Rows a streamed tile (keys in the forward and the dQ kernel, queries in
-// the dK/dV kernel): 32 at hd = 128, where a 64-row f32 tile is 33 KB (two
-// blocks fit an SM with double-buffered K and V) and the dK and dV
-// accumulators take 128 registers a thread; else 64.
+// the dK/dV kernel): 32 from hd = 80, where a 64-row f32 tile is 21-33 KB
+// (two blocks fit an SM with double-buffered K and V) and the dK and dV
+// accumulators take 80-128 registers a thread; else 64.
 template <int HD>
 __host__ __device__ constexpr int tile_rows() {
-  return HD == 128 ? 32 : 64;
+  return HD >= 80 ? 32 : 64;
+}
+
+// The head dim the bf16 kernels compute at: hd rounded up to the 16 of an
+// m16n8k16 step (48 at hd = 40; every other head dim as it is).
+template <int HD>
+__host__ __device__ constexpr int padded_hd() {
+  return (HD + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -163,8 +184,8 @@ constexpr int kGroup = 8;
 
 // acc (16 x 8 NT) += A Bt^T over 8 KS columns: A is the warp's 16 rows of a
 // row-major shared tile, Bt 8 NT rows of another (row stride RS both).
-// The k loop is unrolled whole up to hd = 64 and by 2 at hd = 128, where the
-// whole loop made the kernels slower on the H100 (PERF.md).
+// The k loop is unrolled whole up to hd = 64 and by 2 from hd = 80 (at 128
+// the whole loop made the kernels slower on the H100, PERF.md).
 template <int KS, int NT, int RS>
 __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
                                         const float* Bt) {
@@ -189,15 +210,33 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* A,
   }
 }
 
+// The N accumulator tiles from tile c of acc += A B, B's fragments read
+// from bp (see mma_pb).
+template <int N, int RS>
+__device__ __forceinline__ void mma_pb_group(float (*acc)[4],
+                                             const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4],
+                                             const float* bp, int c) {
+  float b[N][2];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    b[n][0] = bp[8 * (c + n)];
+    b[n][1] = bp[8 * (c + n) + RS];
+  }
+  mma3<N>(acc + c, ah, al, b);
+}
+
 // acc (16 x 8 NT) += P B over 8 KS rows of B: P (16 x 8 KS) in the
 // accumulator layout, B a row-major shared tile (row stride RS).  Within an
 // 8-row step, k = t reads row 2t and k = t + 4 row 2t + 1 (see the note).
+// The tiles run in groups of kGroup and a last group of the rest (2 at
+// hd = 80).
 template <int KS, int NT, int RS>
 __device__ __forceinline__ void mma_pb(float (&acc)[NT][4],
                                        const float (&p)[KS][4],
                                        const float* B) {
   constexpr int N = NT < kGroup ? NT : kGroup;
-  static_assert(NT % N == 0, "whole groups of accumulator tiles");
+  constexpr int NF = NT / N * N, NR = NT - NF;  // whole groups, the rest
   const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
@@ -208,15 +247,8 @@ __device__ __forceinline__ void mma_pb(float (&acc)[NT][4],
     split(p[ks][3], ah[3], al[3]);
     const float* bp = B + (8 * ks + 2 * t) * RS + gr;
 #pragma unroll
-    for (int c = 0; c < NT; c += N) {
-      float b[N][2];
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        b[n][0] = bp[8 * (c + n)];
-        b[n][1] = bp[8 * (c + n) + RS];
-      }
-      mma3<N>(acc + c, ah, al, b);
-    }
+    for (int c = 0; c < NF; c += N) mma_pb_group<N, RS>(acc, ah, al, bp, c);
+    if constexpr (NR > 0) mma_pb_group<NR, RS>(acc, ah, al, bp, NF);
   }
 }
 
@@ -603,13 +635,15 @@ int launch_bwd(const float* q, const float* k, const float* v,
 // of the f32 softmax, which the dQ kernel recomputes in a first pass over
 // the key tiles (rowsum(dO * O) of the forward's output would hold bf16(P)
 // in place of P).  These
-// kernels serve the shapes the wgmma kernels do not tile: hd 32 and 128,
-// and hd 64 at a T that is not a multiple of 128 (attention_fwd_bf16 and
-// attention_bwd_bf16 below dispatch).
+// kernels serve the shapes the wgmma kernels do not tile: hd 16, 32, 40,
+// 80 and 128, and hd 64 at a T that is not a multiple of 128
+// (attention_fwd_bf16 and attention_bwd_bf16 below dispatch).
 //
-// Tiles are bf16 rows padded by 8 elements (row stride HD + 8: 16-byte
-// cp.async copies stay aligned, and HD / 2 + 4 words = 4 mod 32 banks keeps
-// the fragment loads free of conflicts).  A fragments and the B fragments
+// Tiles are bf16 rows of the padded head dim HP (padded_hd) and 8 more
+// elements (row stride HP + 8: 16-byte cp.async copies stay aligned, and
+// HP / 2 + 4 words, 4 times an odd number mod 32 banks (4 at hd 32, 64 and
+// 128, 28 at 40, 12 at 80, 12 at 16), keeps the fragment loads and the
+// ldmatrix rows free of conflicts).  A fragments and the B fragments
 // of S = Q K^T are 32-bit loads of two neighbouring columns; the B
 // fragments of P V (V, dO, Q or K read along their rows) come by
 // ldmatrix.trans.  The accumulator of S (or P^T, dS, dS^T) is the A
@@ -648,16 +682,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
 }
 
 // Rows [r0, r0 + n) of a (T, HD) bf16 matrix into a tile of row stride
-// HD + 8, by cp.async; rows past T are zero-filled.
-template <int HD>
+// HP + 8, by cp.async; rows past T and columns past HD are zero-filled.
+template <int HD, int HP>
 __device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
                                                int r0, int n, int T) {
-  constexpr int C8 = HD / 8;
+  static_assert(HD % 8 == 0 && HP >= HD, "16-byte chunks of a row");
+  constexpr int C8 = HP / 8;
   for (int e = threadIdx.x; e < n * C8; e += blockDim.x) {
     const int r = e / C8, c = (e % C8) * 8;
-    const bool in = r0 + r < T;
-    cp_async16(dst + r * (HD + 8) + c,
-               src + (size_t)(in ? r0 + r : 0) * HD + c, in);
+    const bool in = r0 + r < T && c < HD;
+    cp_async16(dst + r * (HP + 8) + c,
+               src + (size_t)(in ? r0 + r : 0) * HD + (in ? c : 0), in);
   }
 }
 
@@ -714,12 +749,12 @@ __device__ __forceinline__ void pack_frags(uint32_t (&p)[KT / 2][4],
   }
 }
 
-// Rows gr and gr + 8 of the warp's accumulator (16 x HD) to rows r0 + gr,
-// r0 + gr + 8 of a bf16 out (and of an f32 out32 unless null), those
-// below T.
-template <int HD>
+// Rows gr and gr + 8 of the warp's accumulator (16 x HP) to rows r0 + gr,
+// r0 + gr + 8 of a bf16 out (and of an f32 out32 unless null) of row
+// length HD, those below T; the padding columns are not stored.
+template <int HD, int HP>
 __device__ __forceinline__ void store_rows_bf16(bf16* out, float* out32,
-                                                const float (&acc)[HD / 8][4],
+                                                const float (&acc)[HP / 8][4],
                                                 int r0, int T) {
   const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -739,7 +774,8 @@ __device__ __forceinline__ void store_rows_bf16(bf16* out, float* out32,
 
 template <int HD>
 int fwd_bf16_smem(int rows) {
-  return (rows + 4 * tile_rows<HD>()) * (HD + 8) * (int)sizeof(bf16);
+  return (rows + 4 * tile_rows<HD>()) * (padded_hd<HD>() + 8) *
+         (int)sizeof(bf16);
 }
 
 // Block: (g = blockIdx.y, query rows blockIdx.x * R .. + R), R = blockDim.x
@@ -752,7 +788,8 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           float* __restrict__ o32, float* __restrict__ lse,
                           int T, float scale) {
-  constexpr int RS = HD + 8, BK = tile_rows<HD>(), KT = BK / 8, NO = HD / 8;
+  constexpr int HP = padded_hd<HD>(), RS = HP + 8, BK = tile_rows<HD>(),
+                KT = BK / 8, NO = HP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   const int R = blockDim.x / 2;
@@ -767,14 +804,15 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
   const int tiles = (T + BK - 1) / BK;
 
   // pass 1: the row max m and sum l of exp(s - m)
-  load_rows_bf16<HD>(sQ, q + base, q0, R, T);
-  load_rows_bf16<HD>(sK, kg, 0, BK, T);
+  load_rows_bf16<HD, HP>(sQ, q + base, q0, R, T);
+  load_rows_bf16<HD, HP>(sK, kg, 0, BK, T);
   cp_async_commit();
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   for (int it = 0; it < tiles; ++it) {
     const int cur = it & 1;
     if (it + 1 < tiles) {
-      load_rows_bf16<HD>(sK + (cur ^ 1) * BK * RS, kg, (it + 1) * BK, BK, T);
+      load_rows_bf16<HD, HP>(sK + (cur ^ 1) * BK * RS, kg, (it + 1) * BK, BK,
+                             T);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -782,7 +820,7 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     float s[KT][4] = {};
-    mma_abt_bf16<HD / 16, KT, RS>(s, sQw, sK + cur * BK * RS);
+    mma_abt_bf16<HP / 16, KT, RS>(s, sQw, sK + cur * BK * RS);
     const int k0 = it * BK;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -819,15 +857,16 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
   }
 
   // pass 2: O = bf16(exp(s - m) / l) V
-  load_rows_bf16<HD>(sK, kg, 0, BK, T);
-  load_rows_bf16<HD>(sV, vg, 0, BK, T);
+  load_rows_bf16<HD, HP>(sK, kg, 0, BK, T);
+  load_rows_bf16<HD, HP>(sV, vg, 0, BK, T);
   cp_async_commit();
   float acc[NO][4] = {};
   for (int it = 0; it < tiles; ++it) {
     const int cur = it & 1;
     if (it + 1 < tiles) {
-      load_rows_bf16<HD>(sK + (cur ^ 1) * BK * RS, kg, (it + 1) * BK, BK, T);
-      load_rows_bf16<HD>(sV + (cur ^ 1) * BK * RS, vg, (it + 1) * BK, BK, T);
+      const int k1 = (it + 1) * BK;
+      load_rows_bf16<HD, HP>(sK + (cur ^ 1) * BK * RS, kg, k1, BK, T);
+      load_rows_bf16<HD, HP>(sV + (cur ^ 1) * BK * RS, vg, k1, BK, T);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -835,7 +874,7 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();
     float s[KT][4] = {};
-    mma_abt_bf16<HD / 16, KT, RS>(s, sQw, sK + cur * BK * RS);
+    mma_abt_bf16<HP / 16, KT, RS>(s, sQw, sK + cur * BK * RS);
     const int k0 = it * BK;
 #pragma unroll
     for (int n = 0; n < KT; ++n)
@@ -851,8 +890,8 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
     __syncthreads();  // this buffer is free for the copy after next
   }
   const int r0 = q0 + warp * 16;
-  store_rows_bf16<HD>(o + base, o32 == nullptr ? nullptr : o32 + base, acc,
-                      r0, T);
+  store_rows_bf16<HD, HP>(o + base, o32 == nullptr ? nullptr : o32 + base,
+                          acc, r0, T);
   if (lse != nullptr && t == 0) {
     const int gr = (threadIdx.x & 31) >> 2;
 #pragma unroll
@@ -864,7 +903,8 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
 
 template <int HD>
 int bwd_bf16_smem(int rows, int vec) {
-  return (2 * rows + 4 * tile_rows<HD>()) * (HD + 8) * (int)sizeof(bf16) +
+  return (2 * rows + 4 * tile_rows<HD>()) * (padded_hd<HD>() + 8) *
+             (int)sizeof(bf16) +
          vec * (int)sizeof(float);
 }
 
@@ -880,7 +920,8 @@ attention_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                                const float* __restrict__ D,
                                bf16* __restrict__ dk, bf16* __restrict__ dv,
                                int T, float scale) {
-  constexpr int RS = HD + 8, BN = tile_rows<HD>(), NT = BN / 8, NO = HD / 8;
+  constexpr int HP = padded_hd<HD>(), RS = HP + 8, BN = tile_rows<HD>(),
+                NT = BN / 8, NO = HP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int R = blockDim.x / 2;
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
@@ -898,10 +939,10 @@ attention_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
   const float* lg = lse + (size_t)g * T;
   const float* Dg = D + (size_t)g * T;
 
-  load_rows_bf16<HD>(sK, k + base, k0, R, T);
-  load_rows_bf16<HD>(sV, v + base, k0, R, T);
-  load_rows_bf16<HD>(sQ, qg, 0, BN, T);
-  load_rows_bf16<HD>(sdO, dog, 0, BN, T);
+  load_rows_bf16<HD, HP>(sK, k + base, k0, R, T);
+  load_rows_bf16<HD, HP>(sV, v + base, k0, R, T);
+  load_rows_bf16<HD, HP>(sQ, qg, 0, BN, T);
+  load_rows_bf16<HD, HP>(sdO, dog, 0, BN, T);
   load_vec(sL, lg, 0, BN, T);
   load_vec(sD, Dg, 0, BN, T);
   cp_async_commit();
@@ -915,8 +956,8 @@ attention_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
     const int cur = it & 1, nxt = cur ^ 1;
     if (it + 1 < tiles) {
       const int r1 = (it + 1) * BN;
-      load_rows_bf16<HD>(sQ + nxt * BN * RS, qg, r1, BN, T);
-      load_rows_bf16<HD>(sdO + nxt * BN * RS, dog, r1, BN, T);
+      load_rows_bf16<HD, HP>(sQ + nxt * BN * RS, qg, r1, BN, T);
+      load_rows_bf16<HD, HP>(sdO + nxt * BN * RS, dog, r1, BN, T);
       load_vec(sL + nxt * BN, lg, r1, BN, T);
       load_vec(sD + nxt * BN, Dg, r1, BN, T);
       cp_async_commit();
@@ -931,8 +972,8 @@ attention_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
     const float* cD = sD + cur * BN;
 
     float st[NT][4] = {}, dst[NT][4] = {};
-    mma_abt_bf16<HD / 16, NT, RS>(st, sKw, cQ);    // S^T = K Q^T
-    mma_abt_bf16<HD / 16, NT, RS>(dst, sVw, cdO);  // dP^T = V dO^T
+    mma_abt_bf16<HP / 16, NT, RS>(st, sKw, cQ);    // S^T = K Q^T
+    mma_abt_bf16<HP / 16, NT, RS>(dst, sVw, cdO);  // dP^T = V dO^T
     const int q0 = it * BN;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -951,8 +992,8 @@ attention_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
     mma_pb_bf16<NT / 2, NO, RS>(acc_k, dsf, cQ);  // dK += dS^T Q
     __syncthreads();  // this buffer is free for the copy after next
   }
-  store_rows_bf16<HD>(dv + base, nullptr, acc_v, k0 + warp * 16, T);
-  store_rows_bf16<HD>(dk + base, nullptr, acc_k, k0 + warp * 16, T);
+  store_rows_bf16<HD, HP>(dv + base, nullptr, acc_v, k0 + warp * 16, T);
+  store_rows_bf16<HD, HP>(dk + base, nullptr, acc_k, k0 + warp * 16, T);
 }
 
 // Block: (g, query rows blockIdx.x * R .. + R): the row terms D of those
@@ -971,7 +1012,8 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                              const float* __restrict__ lse,
                              float* __restrict__ D, bf16* __restrict__ dq,
                              int T, float scale) {
-  constexpr int RS = HD + 8, BN = tile_rows<HD>(), NT = BN / 8, NO = HD / 8;
+  constexpr int HP = padded_hd<HD>(), RS = HP + 8, BN = tile_rows<HD>(),
+                NT = BN / 8, NO = HP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int R = blockDim.x / 2;
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -986,11 +1028,11 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   const bf16* kg = k + base;
   const bf16* vg = v + base;
 
-  load_rows_bf16<HD>(sQ, q + base, q0, R, T);
-  load_rows_bf16<HD>(sdO, dout + base, q0, R, T);
+  load_rows_bf16<HD, HP>(sQ, q + base, q0, R, T);
+  load_rows_bf16<HD, HP>(sdO, dout + base, q0, R, T);
   load_vec(sL, lse + (size_t)g * T, q0, R, T);
-  load_rows_bf16<HD>(sK, kg, 0, BN, T);
-  load_rows_bf16<HD>(sV, vg, 0, BN, T);
+  load_rows_bf16<HD, HP>(sK, kg, 0, BN, T);
+  load_rows_bf16<HD, HP>(sV, vg, 0, BN, T);
   cp_async_commit();
 
   float acc[NO][4] = {};
@@ -1002,8 +1044,8 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     const int cur = it & 1, nxt = cur ^ 1;
     if (it + 1 < 2 * tiles) {
       const int k1 = ((it + 1) % tiles) * BN;
-      load_rows_bf16<HD>(sK + nxt * BN * RS, kg, k1, BN, T);
-      load_rows_bf16<HD>(sV + nxt * BN * RS, vg, k1, BN, T);
+      load_rows_bf16<HD, HP>(sK + nxt * BN * RS, kg, k1, BN, T);
+      load_rows_bf16<HD, HP>(sV + nxt * BN * RS, vg, k1, BN, T);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -1014,8 +1056,8 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     const bf16* cV = sV + cur * BN * RS;
 
     float s[NT][4] = {}, dp[NT][4] = {};
-    mma_abt_bf16<HD / 16, NT, RS>(s, sQ + w0 * RS, cK);    // S = Q K^T
-    mma_abt_bf16<HD / 16, NT, RS>(dp, sdO + w0 * RS, cV);  // dP = dO V^T
+    mma_abt_bf16<HP / 16, NT, RS>(s, sQ + w0 * RS, cK);    // S = Q K^T
+    mma_abt_bf16<HP / 16, NT, RS>(dp, sdO + w0 * RS, cV);  // dP = dO V^T
     const int kb = (it % tiles) * BN;
     float Lr[2];
     bool row_in[2];
@@ -1052,7 +1094,7 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();  // this buffer is free for the copy after next
   }
-  store_rows_bf16<HD>(dq + base, nullptr, acc, q0 + w0, T);
+  store_rows_bf16<HD, HP>(dq + base, nullptr, acc, q0 + w0, T);
 }
 
 template <int HD>
@@ -1093,7 +1135,38 @@ int launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
   return (int)cudaGetLastError();
 }
 
+// f(std::integral_constant<int, HD>) for the head dims with instances;
+// cudaErrorInvalidValue for any other.
+template <typename F>
+int with_hd(int hd, F&& f) {
+  switch (hd) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 40: return f(std::integral_constant<int, 40>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
+    case 128: return f(std::integral_constant<int, 128>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// The dynamic shared memory of this file's kernels at (T, hd), in bytes:
+// out[0] the forward's, out[1] the dQ kernel's, out[2] the dK/dV kernel's
+// (f32 operands, or bf16 ones with is_bf16 != 0).  cudaErrorInvalidValue
+// for a head dim without an instance.
+extern "C" int attention_smem_bytes(int T, int hd, int is_bf16, int* out) {
+  return with_hd(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    const int rows = rows_per_block(T);
+    out[0] = is_bf16 ? fwd_bf16_smem<HD>(rows) : fwd_smem<HD>(rows);
+    out[1] = is_bf16 ? bwd_bf16_smem<HD>(rows, rows) : dq_smem<HD>(rows);
+    out[2] = is_bf16 ? bwd_bf16_smem<HD>(rows, 4 * tile_rows<HD>())
+                     : dkdv_smem<HD>(rows);
+    return 0;
+  });
+}
 
 // q, k, v, o: (G, T, hd) f32 contiguous, 16-byte aligned; lse: (G, T) f32
 // or nullptr (the row log-sum-exps the backward reads).  Returns
@@ -1107,12 +1180,10 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   float* of = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 32: return launch_fwd<32>(qf, kf, vf, of, lf, G, T, scale, st);
-    case 64: return launch_fwd<64>(qf, kf, vf, of, lf, G, T, scale, st);
-    case 128: return launch_fwd<128>(qf, kf, vf, of, lf, G, T, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_hd(hd, [&](auto h) {
+    return launch_fwd<decltype(h)::value>(qf, kf, vf, of, lf, G, T, scale,
+                                          st);
+  });
 }
 
 // q, k, v, o, dout, dq, dk, dv: (G, T, hd) f32 contiguous, 16-byte aligned;
@@ -1133,18 +1204,10 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
   float* dvf = static_cast<float*>(dv);
   float* Df = static_cast<float*>(D);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 32:
-      return launch_bwd<32>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, Df, G, T,
-                            scale, st);
-    case 64:
-      return launch_bwd<64>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, Df, G, T,
-                            scale, st);
-    case 128:
-      return launch_bwd<128>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, Df, G, T,
-                             scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_hd(hd, [&](auto h) {
+    return launch_bwd<decltype(h)::value>(qf, kf, vf, of, gf, lf, dqf, dkf,
+                                          dvf, Df, G, T, scale, st);
+  });
 }
 
 extern "C" int attention_fwd_bf16_sm90_supported(int T, int hd);
@@ -1172,15 +1235,10 @@ extern "C" int attention_fwd_bf16(const void* q, const void* k, const void* v,
   float* of = static_cast<float*>(o32);
   float* lf = static_cast<float*>(lse);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 32:
-      return launch_fwd_bf16<32>(qb, kb, vb, ob, of, lf, G, T, scale, st);
-    case 64:
-      return launch_fwd_bf16<64>(qb, kb, vb, ob, of, lf, G, T, scale, st);
-    case 128:
-      return launch_fwd_bf16<128>(qb, kb, vb, ob, of, lf, G, T, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_hd(hd, [&](auto h) {
+    return launch_fwd_bf16<decltype(h)::value>(qb, kb, vb, ob, of, lf, G, T,
+                                               scale, st);
+  });
 }
 
 extern "C" int attention_bwd_bf16_sm90_supported(int T, int hd);
@@ -1198,7 +1256,7 @@ extern "C" int attention_bwd_bf16_sm90(const void* q, const void* k,
 // order.  attention_bwd_sm90.cu's wgmma kernels
 // run where they tile the shape (the forward's gate: hd 64, T a multiple
 // of 128, the bf16 UNet's 32^2 level), this file's mma.sync kernels
-// elsewhere (hd 32 and 128, and hd 64 at other lengths).
+// elsewhere (the other head dims, and hd 64 at other lengths).
 extern "C" int attention_bwd_bf16(const void* q, const void* k, const void* v,
                                   const void* o32, const void* dout,
                                   const void* lse, void* dq, void* dk,
@@ -1217,16 +1275,8 @@ extern "C" int attention_bwd_bf16(const void* q, const void* k, const void* v,
   bf16* dvb = static_cast<bf16*>(dv);
   float* Df = static_cast<float*>(D);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 32:
-      return launch_bwd_bf16<32>(qb, kb, vb, gb, lf, dqb, dkb, dvb, Df, G, T,
-                                 scale, st);
-    case 64:
-      return launch_bwd_bf16<64>(qb, kb, vb, gb, lf, dqb, dkb, dvb, Df, G, T,
-                                 scale, st);
-    case 128:
-      return launch_bwd_bf16<128>(qb, kb, vb, gb, lf, dqb, dkb, dvb, Df, G,
-                                  T, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_hd(hd, [&](auto h) {
+    return launch_bwd_bf16<decltype(h)::value>(qb, kb, vb, gb, lf, dqb, dkb,
+                                               dvb, Df, G, T, scale, st);
+  });
 }

@@ -1,5 +1,13 @@
 """ADM-style denoising UNet (port of
-``ssdnerf_tpu/models/architecture/unet.py``, NCHW, ``groups=1``).
+``ssdnerf_tpu/models/architecture/unet.py``, NCHW).
+
+Images may be non-square (``image_size`` (H, W), as the tiled-triplane
+config's 128 x 384); the attention levels are ``min(image_size) // r`` for
+each ``r`` of ``attention_res``, as in the JAX module.  With ``groups`` > 1
+every convolution is grouped (Flax ``feature_group_count``) and the
+attention runs over the tokens of all groups.  With
+``concat_cond_channels`` > 0 the input convolution reads the condition
+image concatenated to x_t.
 
 Submodule names follow the Flax module's (``in_res_0``, ``mid_attn``,
 ``out_conv``, ...), so ``convert.load_jax_params`` fills them by path.  The
@@ -104,20 +112,24 @@ class TimeEmbedding(nn.Module):
 
 class ResBlock(nn.Module):
     """GN-SiLU-conv, scale-shift GN from the embedding, GN-SiLU-(dropout)-
-    conv, residual with a 1x1 shortcut when the width changes."""
+    conv, residual with a 1x1 shortcut when the width changes; the
+    convolutions in ``groups`` groups."""
 
     def __init__(self, in_channels, out_channels, emb_channels, norm_groups,
-                 use_scale_shift_norm=True, dropout=0.0):
+                 use_scale_shift_norm=True, dropout=0.0, groups=1):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.dropout = dropout
         self.norm_1 = _gn(norm_groups, in_channels)
-        self.conv_1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv_1 = nn.Conv2d(in_channels, out_channels, 3, padding=1,
+                                groups=groups)
         self.embedding_dense = nn.Linear(
             emb_channels, out_channels * (2 if use_scale_shift_norm else 1))
         self.norm_2 = _gn(norm_groups, out_channels)
-        self.conv_2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv_2 = nn.Conv2d(out_channels, out_channels, 3, padding=1,
+                                groups=groups)
+        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1,
+                                   groups=groups)
                          if in_channels != out_channels else None)
 
     def forward(self, x, emb, dtype=torch.float32, keep=None):
@@ -144,44 +156,50 @@ class ResBlock(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention over the H*W tokens, pre-norm, residual
-    with the pre-norm input.  The qkv projection's output channels are
-    [q, k, v], each ``num_heads`` heads of ``hd`` channels.  Norm, qkv,
-    attention and proj compute in ``dtype`` where
-    :func:`attention_supported` holds, else in f32 (the JAX module's
-    ``f32_core``); the output has the input's dtype."""
+    """Multi-head self-attention over the H*W tokens of every group
+    (``groups`` g: g*H*W tokens, head dim C / (g * num_heads)), pre-norm,
+    residual with the pre-norm input.  The qkv projection (grouped) lays
+    out its output channels as g blocks of [q, k, v], each ``num_heads``
+    heads of ``hd`` channels; the output channels are (group, head, hd).
+    Norm, qkv, attention and proj compute in ``dtype`` where
+    :func:`attention_supported` holds for g*H*W tokens, else in f32 (the
+    JAX module's ``f32_core``); the output has the input's dtype."""
 
-    def __init__(self, channels, num_heads=4, norm_groups=32):
+    def __init__(self, channels, num_heads=4, norm_groups=32, groups=1):
         super().__init__()
         self.num_heads = num_heads
+        self.groups = groups
         self.norm = _gn(norm_groups, channels)
-        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
-        self.proj = nn.Conv1d(channels, channels, 1)
+        self.qkv = nn.Conv1d(channels, 3 * channels, 1, groups=groups)
+        self.proj = nn.Conv1d(channels, channels, 1, groups=groups)
 
     def forward(self, x, dtype=torch.float32):
         B, C, H, W = x.shape
-        T, nh = H * W, self.num_heads
-        hd = C // nh
-        cdtype = dtype if attention_supported(T, hd) else torch.float32
+        T, nh, g = H * W, self.num_heads, self.groups
+        hd = C // (g * nh)
+        cdtype = dtype if attention_supported(g * T, hd) else torch.float32
         qkv = _conv(self.qkv, _norm(self.norm, x, cdtype).reshape(B, C, T),
                     cdtype)                                   # (B, 3C, T)
-        qkv = qkv.reshape(B, 3, nh, hd, T).permute(1, 0, 2, 4, 3)
+        # (q|k|v, B, nh, g, T, hd): the tokens of all groups in a row
+        qkv = qkv.reshape(B, g, 3, nh, hd, T).permute(2, 0, 3, 1, 5, 4)
 
-        def prog(a):                                          # (B*nh, T, hd)
-            return a.reshape(B * nh, T, hd).contiguous()
+        def prog(a):                                      # (B*nh, g*T, hd)
+            return a.reshape(B * nh, g * T, hd).contiguous()
 
         a = attention(prog(qkv[0]), prog(qkv[1]), prog(qkv[2]),
                       1.0 / math.sqrt(hd))
-        a = a.reshape(B, nh, T, hd).permute(0, 1, 3, 2).reshape(B, C, T)
+        a = a.reshape(B, nh, g, T, hd).permute(0, 2, 1, 4, 3).reshape(
+            B, C, T)
         out = _conv(self.proj, a, cdtype) + x.reshape(B, C, T)
         return out.to(x.dtype).reshape(B, C, H, W)
 
 
 class Downsample(nn.Module):
 
-    def __init__(self, channels):
+    def __init__(self, channels, groups=1):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1,
+                              groups=groups)
 
     def forward(self, x, dtype=torch.float32):
         return _conv(self.conv, x, dtype)
@@ -189,9 +207,9 @@ class Downsample(nn.Module):
 
 class Upsample(nn.Module):
 
-    def __init__(self, channels):
+    def __init__(self, channels, groups=1):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1, groups=groups)
 
     def forward(self, x, dtype=torch.float32):
         return _conv(self.conv,
@@ -203,9 +221,11 @@ class DenoisingUnet(nn.Module):
     ``configs/_base_/models/ssdnerf_18ch.py``).  ``dtype`` ('float32' or
     'bfloat16') is the compute dtype; parameters stay as they are.
     ``attn_kernel`` chooses the JAX module's attention backend; the port
-    has one, so it takes the default only."""
+    has one, so it takes the default only.  ``image_size`` is an int or
+    (H, W)."""
 
-    def __init__(self, image_size=128, in_channels=18, base_channels=128,
+    def __init__(self, image_size=128, in_channels=18,
+                 concat_cond_channels=0, base_channels=128,
                  resblocks_per_downsample=2, num_timesteps=1000,
                  use_rescale_timesteps=True, dropout=0.0,
                  embedding_channels=-1,
@@ -220,17 +240,15 @@ class DenoisingUnet(nn.Module):
                 f'DenoisingUnet: dtype {dtype!r} / attn_kernel '
                 f'{attn_kernel!r}: only float32 and bfloat16 with the '
                 'default attention backend are ported')
-        if groups != 1:
-            raise NotImplementedError(
-                'DenoisingUnet: the grouped UNet (groups > 1) is not ported: '
-                'ROADMAP section 1 item 3')
         if not downsample_conv or not upsample_conv:
             raise ValueError('DenoisingUnet: only conv down/up-sampling is '
                              'ported')
         if isinstance(image_size, int):
             image_size = (image_size, image_size)
+        self.image_size = tuple(image_size)
         self.dtype = getattr(torch, dtype)
         self.in_channels = in_channels
+        self.concat_cond_channels = concat_cond_channels
         self.num_timesteps = num_timesteps
         self.use_rescale_timesteps = use_rescale_timesteps
         self.channels_cfg = tuple(channels_cfg)
@@ -245,14 +263,17 @@ class DenoisingUnet(nn.Module):
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock(cin, cout, emb_ch, norm_groups,
-                                           use_scale_shift_norm, dropout))
+                                           use_scale_shift_norm, dropout,
+                                           groups))
             self.res_scales[name] = scale
 
         def attn(name, ch):
-            self.add_module(name, SelfAttention(ch, num_heads, norm_groups))
+            self.add_module(name, SelfAttention(ch, num_heads, norm_groups,
+                                                groups))
 
         self.time_embedding = TimeEmbedding(base_channels, emb_ch)
-        self.in_conv = nn.Conv2d(in_channels, base_channels, 3, padding=1)
+        self.in_conv = nn.Conv2d(in_channels + concat_cond_channels,
+                                 base_channels, 3, padding=1, groups=groups)
         chans = [base_channels]
         ch, scale, i = base_channels, 1, 0
         for level, factor in enumerate(self.channels_cfg):
@@ -264,7 +285,7 @@ class DenoisingUnet(nn.Module):
                 chans.append(ch)
                 i += 1
             if level != len(self.channels_cfg) - 1:
-                self.add_module(f'down_{level}', Downsample(ch))
+                self.add_module(f'down_{level}', Downsample(ch, groups))
                 chans.append(ch)
                 scale *= 2
         res('mid_res_0', ch, ch)
@@ -278,11 +299,12 @@ class DenoisingUnet(nn.Module):
                 if scale in self.attention_scale:
                     attn(f'out_attn_{i}', ch)
                 if level != len(self.channels_cfg) - 1 and idx == self.rpd:
-                    self.add_module(f'up_{level}', Upsample(ch))
+                    self.add_module(f'up_{level}', Upsample(ch, groups))
                     scale //= 2
                 i += 1
         self.out_norm = _gn(norm_groups, ch)
-        self.out_conv = nn.Conv2d(ch, in_channels, 3, padding=1)
+        self.out_conv = nn.Conv2d(ch, in_channels, 3, padding=1,
+                                  groups=groups)
 
     def init_weights(self, generator):
         """JAX-package init: lecun-normal conv and dense kernels, zero
@@ -317,11 +339,15 @@ class DenoisingUnet(nn.Module):
                                      device=device) >= self.dropout
         return masks
 
-    def forward(self, x_t, t, dropout=None):
+    def forward(self, x_t, t, dropout=None, concat_cond=None):
         """x_t: (B, C_in, H, W); t: (B,) timesteps -> (B, C_in, H, W) f32,
         computed in ``self.dtype`` under :func:`precision`.  ``dropout``:
         the ResBlocks' keep masks (:meth:`dropout_masks`), or None for the
-        deterministic forward (Flax's ``deterministic=True``)."""
+        deterministic forward (Flax's ``deterministic=True``).
+        ``concat_cond``: (B, concat_cond_channels, H, W), concatenated to
+        x_t after its channels (with ``concat_cond_channels`` > 0)."""
+        if self.concat_cond_channels > 0:
+            x_t = torch.cat([x_t, concat_cond.to(x_t.dtype)], dim=1)
         with precision():
             return self._forward(x_t, t, self.dtype, dropout or {})
 

@@ -15,6 +15,14 @@ The test-time diffusion losses (``val_optim``, the polish of
 ``val_uncond``) run the EMA UNet in its own dtype with the live module's
 scale-norm factor, as JAX runs its EMA parameters with its one loss
 state.
+
+Codes (S, *code_size) reach the UNet in the diffusion layout of
+:meth:`code_diff_pr`: transposed by ``code_permute`` and reshaped to
+``code_reshape`` (the tiled-triplane config lays its three planes side by
+side, (3, 6, 128, 128) -> (6, 128, 384)).  With ``image_cond`` the UNet
+also reads the conditioning views (``concat_cond``): in training one view
+a scene, drawn; at test time all of them, in a drawn order a scene, one a
+UNet call.
 """
 import copy
 import math
@@ -42,15 +50,23 @@ class DiffusionNeRF(MultiSceneNeRF):
         if cfg.get('diffusion_use_ema', True):
             self.diffusion_ema = copy.deepcopy(self.diffusion).requires_grad_(
                 False)
-        if cfg.get('code_permute') is not None:
-            raise NotImplementedError(
-                'code_permute (the tiled layout of the grouped UNet) is not '
-                'ported: ROADMAP section 1 item 3')
-        if cfg.get('image_cond', False):
-            raise NotImplementedError('image_cond is not ported')
         self.freeze_decoder = cfg.get('freeze_decoder', True)
+        self.image_cond = cfg.get('image_cond', False)
+        self.code_permute = cfg.get('code_permute')
         self.code_reshape = tuple(cfg['code_reshape']) \
             if cfg.get('code_reshape') else None
+        # the inverse layout (JAX diffusion_nerf.py:42-51)
+        if self.code_permute is not None:
+            self.code_reshape_inv = tuple(self.code_size[ax]
+                                          for ax in self.code_permute)
+            self.code_permute_inv = tuple(
+                self.code_permute.index(ax)
+                for ax in range(len(self.code_permute)))
+        else:
+            self.code_reshape_inv = self.code_size
+            self.code_permute_inv = None
+        # a code's shape in the diffusion layout
+        self.code_diff_size = self.code_reshape or self.code_reshape_inv
         self.autocast_dtype = cfg.get('autocast_dtype')
         # the scale-norm factor stays put while True (ModelUpdaterHook)
         self.freeze_norm = False
@@ -104,28 +120,66 @@ class DiffusionNeRF(MultiSceneNeRF):
         if self.diffusion_ema is not None:
             self.diffusion_ema.load_state_dict(self.diffusion.state_dict())
 
-    # code <-> diffusion layout
+    # code <-> diffusion layout (JAX diffusion_nerf.py:56-70)
     def code_diff_pr(self, code):
-        if self.code_reshape is None:
-            return code
-        return code.reshape((code.shape[0],) + self.code_reshape)
+        """(S, *code_size) -> (S, *code_diff_size): the axes after the
+        first transposed by ``code_permute``, then reshaped to
+        ``code_reshape``."""
+        out = code
+        if self.code_permute is not None:
+            out = out.permute(0, *(ax + 1 for ax in self.code_permute))
+        if self.code_reshape is not None:
+            out = out.reshape((code.shape[0],) + self.code_reshape)
+        return out
 
     def code_diff_pr_inv(self, code_diff):
-        if self.code_reshape is None:
-            return code_diff
-        return code_diff.reshape((code_diff.shape[0],) + self.code_size)
+        """The inverse of :meth:`code_diff_pr`: reshaped to the permuted
+        code size, then transposed back."""
+        out = code_diff
+        if self.code_reshape is not None:
+            out = out.reshape((code_diff.shape[0],) + self.code_reshape_inv)
+        if self.code_permute_inv is not None:
+            out = out.permute(0, *(ax + 1 for ax in self.code_permute_inv))
+        return out
+
+    def _tile_cond(self, cc):
+        """Condition images (..., 3, h, w) tiled to the UNet's (H, W)."""
+        H, W = self.diffusion.denoising.image_size
+        h, w = cc.shape[-2:]
+        return cc.repeat((1,) * (cc.dim() - 2) + (H // h, W // w))
+
+    def _image_cond_train(self, cond_imgs, view):
+        """The UNet's condition in training (JAX ``_image_cond_train``):
+        view ``view[s]`` (S,) of each scene's (S, V, h, w, 3) views, (S, 3,
+        H, W)."""
+        S = cond_imgs.shape[0]
+        sel = cond_imgs[torch.arange(S, device=cond_imgs.device),
+                        view.to(cond_imgs.device)]
+        return self._tile_cond(sel.permute(0, 3, 1, 2))
+
+    def _image_cond_multi(self, cond_imgs, perm):
+        """The condition of a test-time chain (JAX ``_image_cond_multi``):
+        every view of each scene in the order ``perm`` (S, V), (S, V, 3,
+        H, W)."""
+        S = cond_imgs.shape[0]
+        cc = cond_imgs.permute(0, 1, 4, 2, 3)
+        cc = cc[torch.arange(S, device=cc.device)[:, None],
+                perm.to(cc.device)]
+        return self._tile_cond(cc)
 
     # ------------------------------------------------------------ training
     def train_draws(self, num_scenes, num_pixels, generator=None,
-                    device='cpu'):
+                    device='cpu', num_views=None):
         """Every random draw of one :meth:`train_step`: diffusion timesteps
         ``t`` and ``noise``; with ``num_pixels`` (the pixels of a scene's
         conditioning views; None for a step without renders, as stage
         2's) the renders' draws (``MultiSceneNeRF.train_draws``:
         ``inverse``, ``jitter``, ``ray_inds``, ``perturb``); the UNet's
-        ``dropout`` keep masks (None without dropout)."""
+        ``dropout`` keep masks (None without dropout); with
+        ``image_cond`` and ``num_views`` (the conditioning views a scene)
+        ``cond_view`` (S,), the view each scene conditions the UNet on."""
         S = num_scenes
-        shape = (S,) + (self.code_reshape or self.code_size)
+        shape = (S,) + self.code_diff_size
         draws = dict(
             t=self.diffusion.timestep_sampler.sample(S, generator, device),
             noise=torch.randn(shape, generator=generator, device=device))
@@ -134,6 +188,9 @@ class DiffusionNeRF(MultiSceneNeRF):
                                              device))
         draws['dropout'] = self.diffusion.denoising.dropout_masks(
             S, *shape[-2:], generator=generator, device=device)
+        if self.image_cond and num_views is not None:
+            draws['cond_view'] = torch.randint(
+                0, num_views, (S,), generator=generator, device=device)
         return draws
 
     def train_step(self, scene_batch, data, optimizers, lr_schedulers=None,
@@ -151,6 +208,10 @@ class DiffusionNeRF(MultiSceneNeRF):
            batch: a ``decoder`` optimizer step (none with
            ``freeze_decoder``) and a last code Adam step on its gradient
            plus the prior's; then the ``init_code`` EMA.
+
+        With ``image_cond`` and conditioning views the UNet reads one
+        view a scene (``draws['cond_view']``); with ``train_cfg``'s
+        ``x_t_detach`` the prior gradient skips the UNet's input.
 
         Steps 2-3 read the new statistics, and run only with conditioning
         views.  Stage 2 (``scene_batch`` None) is step 1 alone, on
@@ -176,8 +237,6 @@ class DiffusionNeRF(MultiSceneNeRF):
         """
         tc = self.train_cfg
         lr_schedulers = lr_schedulers or {}
-        if tc.get('x_t_detach', False):
-            raise NotImplementedError('x_t_detach is not ported')
         stage2 = scene_batch is None
         if not stage2:
             lr, betas = code_adam_cfg(tc.get('optimizer'))
@@ -191,11 +250,18 @@ class DiffusionNeRF(MultiSceneNeRF):
             with torch.no_grad():
                 _, new_state = act(code_, old_state, update_stats=True)
         S = code_.shape[0]
-        renders = 'cond_imgs' in data and not stage2
+        has_cond = 'cond_imgs' in data
+        renders = has_cond and not stage2
         num_pixels = math.prod(data['cond_imgs'].shape[1:4]) if renders \
             else None
         if draws is None:
-            draws = self.train_draws(S, num_pixels, generator, code_.device)
+            draws = self.train_draws(
+                S, num_pixels, generator, code_.device,
+                data['cond_imgs'].shape[1] if has_cond else None)
+        concat_cond = None
+        if has_cond and self.image_cond:
+            concat_cond = self._image_cond_train(data['cond_imgs'],
+                                                 draws['cond_view'])
 
         # ---- diffusion loss, prior gradient on the codes ----
         with record_function('train_step.diffusion'):
@@ -204,7 +270,8 @@ class DiffusionNeRF(MultiSceneNeRF):
                 self.code_diff_pr(leaf if stage2 else act(leaf, old_state)),
                 t=draws['t'], noise=draws['noise'],
                 update_norm=not self.freeze_norm,
-                dropout=draws.get('dropout'))
+                dropout=draws.get('dropout'), concat_cond=concat_cond,
+                x_t_detach=tc.get('x_t_detach', False))
             unet_params = list(self.diffusion.parameters())
             with precision():
                 grads = torch.autograd.grad(
@@ -337,8 +404,8 @@ class DiffusionNeRF(MultiSceneNeRF):
     # ----------------------------------------------------- reconstruction
     def diffusion_draws(self, num_scenes, generator=None, device='cpu'):
         """The draws of one diffusion-loss evaluation: timesteps ``t`` (S,)
-        and ``noise`` (S, *code_reshape)."""
-        shape = (num_scenes,) + (self.code_reshape or self.code_size)
+        and ``noise`` (S, *code_diff_size)."""
+        shape = (num_scenes,) + self.code_diff_size
         return dict(
             t=self.diffusion.timestep_sampler.sample(num_scenes, generator,
                                                      device),
@@ -370,7 +437,7 @@ class DiffusionNeRF(MultiSceneNeRF):
         return d
 
     def val_draws(self, num_scenes, num_pixels=None, generator=None,
-                  device='cpu', cond_mode=None):
+                  device='cpu', cond_mode=None, num_views=None):
         """Every random draw of one :meth:`val_step` in ``cond_mode``
         (default ``test_cfg``'s; unconditional when ``num_pixels``, the
         pixels of a scene's conditioning views, is None), from
@@ -378,8 +445,8 @@ class DiffusionNeRF(MultiSceneNeRF):
 
         - ``noise`` (S, *code_size): the chain's start;
         - ``sample``: the chain's noises, (steps, calls a step, S,
-          *code_reshape) (``GaussianDiffusion.chain_draws``), or None when
-          the chain draws none;
+          *code_diff_size) (``GaussianDiffusion.chain_draws``), or None
+          when the chain draws none;
         - unconditional: ``polish``, one :meth:`diffusion_draws` a polish
           step (None without one), and ``jitter`` (density_step, H^3, 3);
         - 'guide' and 'guide_optim': ``guide``, the draws of every guide
@@ -389,7 +456,11 @@ class DiffusionNeRF(MultiSceneNeRF):
           S, n);
         - 'optim': ``init`` (S, *code_size), the starting raw codes;
         - 'optim' and 'guide_optim': ``optim``, one dict a
-          ``n_inverse_steps`` outer step (:meth:`_optim_step_draws`).
+          ``n_inverse_steps`` outer step (:meth:`_optim_step_draws`);
+        - with ``image_cond`` and conditioning views (``num_views`` V):
+          ``cond_perm`` (S, V), each scene's order of its views for the
+          UNet's condition (the guide and ``val_optim`` share it, as in
+          JAX).
         """
         tcfg = self.test_cfg
         S = num_scenes
@@ -402,7 +473,7 @@ class DiffusionNeRF(MultiSceneNeRF):
         if mode != 'optim':
             steps = self.ema_diffusion.chain_draws(tcfg)
             draws['sample'] = None if steps is None else torch.randn(
-                steps + (S,) + (self.code_reshape or self.code_size), **gen)
+                steps + (S,) + self.code_diff_size, **gen)
         if mode == 'uncond':
             draws['polish'] = [self.diffusion_draws(S, **gen) for _ in range(
                 tcfg.get('n_inverse_steps', 0))] or None
@@ -425,22 +496,27 @@ class DiffusionNeRF(MultiSceneNeRF):
             draws['optim'] = [
                 self._optim_step_draws(S, num_pixels, generator, device)
                 for _ in range(tcfg.get('n_inverse_steps', 100))]
+        if self.image_cond and mode != 'uncond' and num_views is not None:
+            draws['cond_perm'] = torch.rand((S, num_views), **gen).argsort(
+                dim=1)
         return draws
 
-    def prior_grad(self, code_, draws):
+    def prior_grad(self, code_, draws, concat_cond=None, x_t_detach=False):
         """The gradient w.r.t. the raw codes ``code_`` of the EMA UNet's
         diffusion loss with the live scale-norm factor, left as it is
         (JAX ``diffusion.forward_train(diff_params, ..., state['ddpm_loss'],
-        update_norm=False)``); ``draws`` are :meth:`diffusion_draws`'.
-        Only the codes' gradient is formed; the UNet's backward runs under
-        its precision pin."""
+        update_norm=False)``); ``draws`` are :meth:`diffusion_draws`';
+        ``concat_cond`` and ``x_t_detach`` as
+        ``GaussianDiffusion.forward_train``'s.  Only the codes' gradient is
+        formed; the UNet's backward runs under its precision pin."""
         leaf = code_.detach().requires_grad_()
         with torch.enable_grad():
             loss, _ = self.ema_diffusion.forward_train(
                 self.code_diff_pr(self.code_activation(leaf, self.code_act)),
                 t=draws['t'],
                 noise=draws['noise'], update_norm=False,
-                norm_factor=self.diffusion.norm_factor)
+                norm_factor=self.diffusion.norm_factor,
+                concat_cond=concat_cond, x_t_detach=x_t_detach)
             with precision():
                 grad, = torch.autograd.grad(loss, leaf)
         return grad
@@ -473,7 +549,8 @@ class DiffusionNeRF(MultiSceneNeRF):
         from an f32 grid of zeros) from the predicted codes, then renders a
         batch of ``n_inverse_rays`` rays (all of a scene's when it has no
         more pixels).  ``draws`` are :meth:`val_draws`' (``sample`` and
-        ``guide``), drawn from ``generator`` when None.
+        ``guide``; ``cond_perm`` with ``image_cond``), drawn from
+        ``generator`` when None.
 
         Args:
             data: dict(cond_imgs (S, V, h, w, 3), cond_poses (S, V, 4, 4),
@@ -484,11 +561,13 @@ class DiffusionNeRF(MultiSceneNeRF):
         """
         tcfg = self.test_cfg
         cond_imgs = data['cond_imgs']
-        S = cond_imgs.shape[0]
+        S, V = cond_imgs.shape[:2]
         num_pixels = math.prod(cond_imgs.shape[1:4])
         if draws is None:
             draws = self.val_draws(S, num_pixels, generator,
-                                   cond_imgs.device, 'guide')
+                                   cond_imgs.device, 'guide', V)
+        concat_cond = self._image_cond_multi(cond_imgs, draws['cond_perm']) \
+            if self.image_cond else None
         rays_o, rays_d, dt_gamma = self.cond_rays(data, tcfg)
         n_rays = tcfg.get('n_inverse_rays', 4096)
         density_thresh = tcfg.get('density_thresh', 0.01)
@@ -525,7 +604,8 @@ class DiffusionNeRF(MultiSceneNeRF):
             x = x.to(torch.bfloat16)
         with record_function('val_step.guide'):
             code_diff, state = self.sampling_diffusion.sample_from_noise(
-                x, tcfg, draws['sample'], generator, grad_guide_fn, state)
+                x, tcfg, draws['sample'], generator, grad_guide_fn, state,
+                concat_cond)
         return (self.code_diff_pr_inv(code_diff.float()),
                 state['density_grid'], state['density_bitfield'])
 
@@ -544,21 +624,25 @@ class DiffusionNeRF(MultiSceneNeRF):
         None.  ``code_`` / ``density_grid`` / ``density_bitfield`` start
         the codes (raw) and the f16 grids; else the codes start from the
         inverse activation of ``init_code * mean_scale`` (with
-        ``init_from_mean``) or ``init``, and the grids empty.
+        ``init_from_mean``) or ``init``, and the grids empty.  With
+        ``image_cond`` outer step i conditions the UNet on view i % V of
+        the views in ``cond_perm``'s order; ``test_cfg``'s ``x_t_detach``
+        as in training.
 
         Returns (code, density_grid, density_bitfield).
         """
         tcfg = self.test_cfg
-        if tcfg.get('x_t_detach', False):
-            raise NotImplementedError('x_t_detach is not ported')
         cond_imgs = data['cond_imgs']
-        S = cond_imgs.shape[0]
+        S, V = cond_imgs.shape[:2]
         dev = cond_imgs.device
         num_pixels = math.prod(cond_imgs.shape[1:4])
         if draws is None:
             draws = self.val_draws(S, num_pixels, generator, dev,
                                    'optim' if code_ is None
-                                   else 'guide_optim')
+                                   else 'guide_optim', V)
+        concat_cond = self._image_cond_multi(cond_imgs, draws['cond_perm']) \
+            if self.image_cond else None
+        x_t_detach = tcfg.get('x_t_detach', False)
         rays_o, rays_d, dt_gamma = self.cond_rays(data, tcfg)
         ess = tcfg.get('extra_scene_step', 0)
         lr0, betas, gamma = self._code_adam()
@@ -579,8 +663,10 @@ class DiffusionNeRF(MultiSceneNeRF):
             if density_bitfield is None else density_bitfield
         opt = adam_init(code_)
         with record_function('val_step.optim'), torch.enable_grad():
-            for d in draws['optim']:
-                prior_grad = self.prior_grad(code_, d)
+            for i, d in enumerate(draws['optim']):
+                prior_grad = self.prior_grad(
+                    code_, d, None if concat_cond is None
+                    else concat_cond[:, i % V], x_t_detach)
                 if ess > 0:
                     code_, opt, grid, bitfield, _ = inverse_code(
                         decoder, activate, rays_o, rays_d,
@@ -626,15 +712,17 @@ class DiffusionNeRF(MultiSceneNeRF):
         ``generator`` when None.  Returns (code, density_grid,
         density_bitfield)."""
         cond = 'cond_imgs' in data
+        V = None
         if cond:
-            S = data['cond_imgs'].shape[0]
+            S, V = data['cond_imgs'].shape[:2]
             num_pixels = math.prod(data['cond_imgs'].shape[1:4])
             dev = data['cond_imgs'].device
         else:
             S, num_pixels = len(data['scene_id']), None
             dev = next(self.parameters()).device
         if draws is None:
-            draws = self.val_draws(S, num_pixels, generator, dev)
+            draws = self.val_draws(S, num_pixels, generator, dev,
+                                   num_views=V)
         noise = data.get('noise')
         if noise is None:
             noise = draws['noise']

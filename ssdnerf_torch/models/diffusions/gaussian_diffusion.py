@@ -14,6 +14,11 @@ its chain and returns ``(x, final guide state)``, as the JAX samplers do.
 The chains run under ``torch.no_grad``; a guided prediction takes its
 gradient under ``torch.enable_grad`` from a detached leaf, so only input
 gradients are formed (the EMA UNet's parameters need none).
+
+A UNet with ``concat_cond_channels`` reads a condition image beside x_t:
+``concat_cond`` (B, C_cond, H, W) for a loss or a prediction, and for a
+chain (B, V, C_cond, H, W), of which UNet call n of the chain reads view
+n % V (JAX ``ddim_sample`` / ``ddpm_sample``).
 """
 import math
 
@@ -88,7 +93,8 @@ class GaussianDiffusion(nn.Module):
         return x_0 * mean + noise * std, mean, std
 
     def forward_train(self, x_0, t=None, noise=None, generator=None,
-                      update_norm=True, norm_factor=None, dropout=None):
+                      update_norm=True, norm_factor=None, dropout=None,
+                      concat_cond=None, x_t_detach=False):
         """One diffusion training loss evaluation (gradients flow to the
         UNet and to ``x_0``).
 
@@ -106,6 +112,9 @@ class GaussianDiffusion(nn.Module):
             dropout: the UNet's keep masks
                 (``DenoisingUnet.dropout_masks``); None for a
                 deterministic forward.
+            concat_cond: the UNet's condition image, or None.
+            x_t_detach: x_t carries no gradient to x_0 (only the target
+                and the loss's x_0 do).
 
         Returns (loss, log_vars).
         """
@@ -116,7 +125,9 @@ class GaussianDiffusion(nn.Module):
             noise = torch.randn(x_0.shape, generator=generator,
                                 device=x_0.device)
         x_t, mean, std = self.q_sample(x_0, t, noise)
-        out = self.denoising(x_t, t, dropout)
+        if x_t_detach:
+            x_t = x_t.detach()
+        out = self.denoising(x_t, t, dropout, concat_cond)
         mode = self.denoising_mean_mode
         if mode == 'EPS':
             target = noise
@@ -154,7 +165,8 @@ class GaussianDiffusion(nn.Module):
         raise ValueError(mode)
 
     def pred_x_0(self, x_t, t, cfg=None, grad_guide_fn=None,
-                 guide_state=None, update_denoising_output=False):
+                 guide_state=None, update_denoising_output=False,
+                 concat_cond=None):
         """x_0 prediction at timestep t (int), clipped to
         ``cfg['clip_range']`` when ``cfg['clip_denoised']`` (default on),
         optionally steered by a guide (``gaussian_diffusion.py:139-213``).
@@ -167,6 +179,7 @@ class GaussianDiffusion(nn.Module):
         guidance_gain`` (p = ``snr_weight_power``); then it is clipped
         again.  ``update_denoising_output`` recomputes the UNet output from
         the steered x_0.  The UNet's backward runs under its precision pin.
+        ``concat_cond``: the UNet's condition image, or None.
 
         Returns (x_0, denoising output, new guide state).
         """
@@ -179,7 +192,7 @@ class GaussianDiffusion(nn.Module):
         sqrt_1mab = self._at('sqrt_one_minus_alphas_bar', tb, x_t)
 
         def x0_of_xt(x):
-            out = self.denoising(x, tb)
+            out = self.denoising(x, tb, concat_cond=concat_cond)
             return self._x0_from_output(x, out, sqrt_ab, sqrt_1mab), out
 
         def clipped(x_0):
@@ -228,7 +241,8 @@ class GaussianDiffusion(nn.Module):
         return np.float32(getattr(self.schedule, name)[t])
 
     def p_sample_ddim(self, x_t, t, t_prev, cfg=None, noise=None,
-                      grad_guide_fn=None, guide_state=None):
+                      grad_guide_fn=None, guide_state=None,
+                      concat_cond=None):
         """One DDIM step (``gaussian_diffusion.py:259-281``); t_prev == -1
         selects alpha_bar_prev = 1.  With ``eta > 0`` the step adds
         ``eta * sqrt(tilde_beta_t) * noise``.  Returns (x_prev, x_0_pred,
@@ -236,7 +250,8 @@ class GaussianDiffusion(nn.Module):
         cfg = cfg or {}
         eta = cfg.get('eta', 0)
         x_0, _, guide_state = self.pred_x_0(x_t, t, cfg, grad_guide_fn,
-                                            guide_state)
+                                            guide_state,
+                                            concat_cond=concat_cond)
         tb = torch.full((x_t.shape[0],), t, dtype=torch.long,
                         device=x_t.device)
         ab_prev = self._sched('alphas_bar', t_prev) if t_prev >= 0 \
@@ -256,7 +271,7 @@ class GaussianDiffusion(nn.Module):
         return x_prev, x_0, guide_state
 
     def p_sample_langevin(self, x_t, t, noise, cfg=None, grad_guide_fn=None,
-                          guide_state=None):
+                          guide_state=None, concat_cond=None):
         """One Langevin correction step at timestep t
         (``gaussian_diffusion.py:283-295``).  Returns (x, guide state)."""
         cfg = cfg or {}
@@ -266,7 +281,8 @@ class GaussianDiffusion(nn.Module):
         sigma = self._at('sqrt_one_minus_alphas_bar', tb, x_t)
         sqrt_ab = self._at('sqrt_alphas_bar', tb, x_t)
         x_0, _, guide_state = self.pred_x_0(x_t, t, cfg, grad_guide_fn,
-                                            guide_state)
+                                            guide_state,
+                                            concat_cond=concat_cond)
         eps = (x_t - sqrt_ab * x_0) / sigma
         return (x_t - 0.5 * delta * sigma * eps
                 + math.sqrt(delta) * sigma * noise), guide_state
@@ -305,7 +321,7 @@ class GaussianDiffusion(nn.Module):
 
     @torch.no_grad()
     def ddim_sample(self, noise, cfg=None, draws=None, generator=None,
-                    grad_guide_fn=None, guide_state=None):
+                    grad_guide_fn=None, guide_state=None, concat_cond=None):
         """The DDIM chain from ``noise`` (B, C, H, W)
         (``gaussian_diffusion.py:313-388``), with ``langevin_steps``
         Langevin corrections after each step whose t_prev lies inside
@@ -313,31 +329,34 @@ class GaussianDiffusion(nn.Module):
         noise's dtype.  ``draws`` (steps, 1 + langevin_steps, B, C, H, W)
         replays every noise the chain draws; without it they come from
         ``generator``.  The guide (see :meth:`pred_x_0`) steers every
-        prediction, its state threaded through the chain.  Returns (x,
-        guide state)."""
+        prediction, its state threaded through the chain; call j of step i
+        reads view (i * (1 + langevin_steps) + j) % V of ``concat_cond``.
+        Returns (x, guide state)."""
         cfg = cfg or {}
         eta = cfg.get('eta', 0)
         langevin_steps = cfg.get('langevin_steps', 0)
         lo, hi = cfg.get('langevin_t_range', [0, 1000])
         x_t = noise
         for i, (t, t_prev) in enumerate(zip(*self._timestep_seq(cfg))):
+            call = i * (1 + langevin_steps)
             step_noise = self._draw(draws, i, 0, x_t, generator) \
                 if eta > 0 else None
             x_t, _, guide_state = self.p_sample_ddim(
                 x_t, int(t), int(t_prev), cfg, step_noise, grad_guide_fn,
-                guide_state)
+                guide_state, _view(concat_cond, call))
             x_t = x_t.to(noise.dtype)
             for j in range(langevin_steps):
                 lang_noise = self._draw(draws, i, 1 + j, x_t, generator)
                 if lo < t_prev < hi:
                     x_t, guide_state = self.p_sample_langevin(
                         x_t, max(int(t_prev), 0), lang_noise, cfg,
-                        grad_guide_fn, guide_state)
+                        grad_guide_fn, guide_state,
+                        _view(concat_cond, call + 1 + j))
                     x_t = x_t.to(noise.dtype)
         return x_t, guide_state
 
     def p_sample_ddpm(self, x_t, t, noise, cfg=None, grad_guide_fn=None,
-                      guide_state=None):
+                      guide_state=None, concat_cond=None):
         """One ancestral DDPM step (``gaussian_diffusion.py:390-411``):
         variance ``FIXED_LARGE`` (beta_t, tilde beta_1 at t = 0) or
         ``FIXED_SMALL`` (tilde beta_t); no noise at t = 0.  Returns (x,
@@ -350,7 +369,8 @@ class GaussianDiffusion(nn.Module):
         else:
             raise ValueError(self.denoising_var_mode)
         x_0, _, guide_state = self.pred_x_0(x_t, t, cfg, grad_guide_fn,
-                                            guide_state)
+                                            guide_state,
+                                            concat_cond=concat_cond)
         tb = torch.full((x_t.shape[0],), t, dtype=torch.long,
                         device=x_t.device)
         std = float(np.sqrt(np.float32(var_arr[t]))) if t != 0 else 0.0
@@ -360,25 +380,35 @@ class GaussianDiffusion(nn.Module):
 
     @torch.no_grad()
     def ddpm_sample(self, noise, cfg=None, draws=None, generator=None,
-                    grad_guide_fn=None, guide_state=None):
+                    grad_guide_fn=None, guide_state=None, concat_cond=None):
         """The ancestral chain from ``noise`` over the timesteps of
         ``cfg['num_timesteps']``, in the noise's dtype; ``draws`` (steps, 1,
         B, C, H, W) replays its noises, else they come from
-        ``generator``.  Guided as :meth:`ddim_sample`.  Returns (x, guide
-        state)."""
+        ``generator``.  Guided as :meth:`ddim_sample`; step i reads view i %
+        V of ``concat_cond``.  Returns (x, guide state)."""
         cfg = cfg or {}
         x_t = noise
         for i, t in enumerate(self._timestep_seq(cfg)[0]):
             x_t, guide_state = self.p_sample_ddpm(
                 x_t, int(t), self._draw(draws, i, 0, x_t, generator), cfg,
-                grad_guide_fn, guide_state)
+                grad_guide_fn, guide_state, _view(concat_cond, i))
             x_t = x_t.to(noise.dtype)
         return x_t, guide_state
 
     def sample_from_noise(self, noise, cfg=None, draws=None, generator=None,
-                          grad_guide_fn=None, guide_state=None):
+                          grad_guide_fn=None, guide_state=None,
+                          concat_cond=None):
         """The ``sample_method`` chain ('ddim' or 'ddpm') from noise.
         Returns (x, guide state)."""
         fn = {'ddim': self.ddim_sample, 'ddpm': self.ddpm_sample}[
             self.sample_method]
-        return fn(noise, cfg, draws, generator, grad_guide_fn, guide_state)
+        return fn(noise, cfg, draws, generator, grad_guide_fn, guide_state,
+                  concat_cond)
+
+
+def _view(concat_cond, call):
+    """View ``call`` % V of a chain's condition images (B, V, C, H, W), or
+    None."""
+    if concat_cond is None:
+        return None
+    return concat_cond[:, call % concat_cond.shape[1]]

@@ -37,6 +37,7 @@ _SIGNATURES = {
     'attention_bwd': [_P] * 10 + [_I, _I, _I, _F, _P],
     'attention_fwd_bf16': [_P] * 6 + [_I, _I, _I, _F, _P],
     'attention_bwd_bf16': [_P] * 10 + [_I, _I, _I, _F, _P],
+    'attention_smem_bytes': [_I, _I, _I, _P],
 }
 
 

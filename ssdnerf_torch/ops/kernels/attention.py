@@ -13,18 +13,24 @@ forward finds each row's log-sum-exp first and rounds the normalised
 weights to bf16 for the product with v; the backward recomputes the
 Pallas kernel's row term rowsum(p * dp) with the f32 softmax p (the f32
 output ``o32`` holds bf16(p) v, so its rowsum(do * o32) would differ).
-They run at every attention level of the UNet (head dims 32, 64 and
-128); at hd 64 and T a multiple of 128 (the 32^2 level) the bf16 forward
-and backward are ``wgmma`` + TMA kernels (``csrc/attention_fwd_sm90.cu``,
-``csrc/attention_bwd_sm90.cu``).  Under autograd a CUDA call goes through
+They run at every attention level of the shipped UNets (head dims 32, 64
+and 128 of the 128^2 configs; 40 and 80 of the tiled config's 16x48, 8x24
+and 4x12 levels) and of the grouped UNet of the tests (16): ``HEAD_DIMS``;
+the bf16 kernels compute hd 40 padded to 48 in shared memory.  At hd 64 and
+T a multiple of 128 (the 32^2 level) the bf16 forward and backward are
+``wgmma`` + TMA kernels (``csrc/attention_fwd_sm90.cu``,
+``csrc/attention_bwd_sm90.cu``).  A CUDA call at any other head dim
+raises.  Under autograd a CUDA call goes through
 :class:`_AttentionFn`, whose forward also keeps each row's log-sum-exp and
 the f32 output and whose backward is the backward kernel.
 """
+import ctypes
+
 import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 40, 64, 80, 128)
 
 
 def _up(x):
@@ -83,6 +89,19 @@ def _check(name, q, *others):
     if any(t.data_ptr() % 16 for t in (q,) + others):
         raise ValueError(f'{name}: needs 16-byte aligned tensors')
     return G, T, hd
+
+
+def smem_bytes(T, hd, dtype):
+    """The dynamic shared memory (bytes) of ``csrc/attention.cu``'s
+    forward, dQ and dK/dV kernels at (T, hd) for operands of ``dtype``, as
+    the library computes it for their launches (the ``wgmma`` kernels of
+    hd 64 bf16 at T a multiple of 128 are not these)."""
+    out = (ctypes.c_int * 3)()
+    err = _build.library().attention_smem_bytes(
+        T, hd, int(dtype == torch.bfloat16), out)
+    if err:
+        raise ValueError(f'attention_smem_bytes: no kernel at hd {hd}')
+    return dict(forward=out[0], dq=out[1], dkdv=out[2])
 
 
 def _count(wrapper, dtype):

@@ -113,9 +113,14 @@ def test_march_popcount_kernel_matches_plain(cuda_device):
         assert torch.equal(got.cpu(), ref)
 
 
-# the UNet levels (32^2, 16^2, 8^2) and ragged lengths at every head dim
+# the UNet levels (32^2, 16^2, 8^2; the tiled config's 16x48, 8x24 and
+# 4x12 at hd 40 and 80, whose 192 and 48 tokens are ragged against the key
+# tiles; the grouped UNet's 3 x 4x12 at hd 16) and ragged lengths at every
+# head dim
+TILED_SHAPES = [(768, 40), (192, 80), (48, 80), (144, 16)]
 ATTENTION_SHAPES = [(1024, 64), (256, 128), (64, 128), (100, 32), (1000, 64),
-                    (100, 128), (1000, 128), (1000, 32)]
+                    (100, 128), (1000, 128), (1000, 32), (100, 40),
+                    (100, 80)] + TILED_SHAPES
 
 
 @pytest.mark.parametrize('T,hd', ATTENTION_SHAPES)
@@ -233,7 +238,8 @@ def _bf16_ulps(got, ref):
 # (attention_fwd_sm90.cu, attention_bwd_sm90.cu), the others attention.cu's
 # mma.sync kernels
 SM90_SHAPES = [(1024, 64), (768, 64), (512, 64)]
-BF16_SHAPES = SM90_SHAPES + [(256, 128), (64, 128), (100, 32), (1000, 64)]
+BF16_SHAPES = SM90_SHAPES + [(256, 128), (64, 128), (100, 32), (1000, 64),
+                             (100, 40)] + TILED_SHAPES
 
 
 @pytest.mark.parametrize('T,hd', BF16_SHAPES)
@@ -299,7 +305,8 @@ def test_attention_bf16_forward_lse_and_o32(cuda_device, T, hd):
     assert torch.equal(o, o32.bfloat16())
 
 
-@pytest.mark.parametrize('T,hd', SM90_SHAPES + [(256, 128), (1000, 64)])
+@pytest.mark.parametrize('T,hd', SM90_SHAPES + [(256, 128), (1000, 64),
+                                               (768, 40)])
 def test_attention_bf16_backward_dispatch(cuda_device, T, hd):
     """The kernels a bf16 backward launches, by their names in a
     torch.profiler trace: the wgmma dK/dV and dQ kernels of
@@ -325,6 +332,82 @@ def test_attention_bf16_backward_dispatch(cuda_device, T, hd):
                    'attention_bwd_dq_bf16_kernel'):
         assert (kernel in names) != sm90, (kernel, names)
     assert 'attention_bwd_dot_kernel' not in names
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_attention_shared_memory_fits(cuda_device, dtype):
+    """attention.cu's kernels at every head dim and the shapes of the
+    shipped levels ask for no more dynamic shared memory than a block may
+    have (227 KB), and the bf16 kernels' tiles hold hd 40 padded to 48."""
+    for T, hd in ATTENTION_SHAPES:
+        sizes = k_attn.smem_bytes(T, hd, dtype)
+        assert max(sizes.values()) <= 232448, (T, hd, sizes)
+    f32, b16 = (k_attn.smem_bytes(768, 40, d)
+                for d in (torch.float32, torch.bfloat16))
+    assert f32['forward'] == (64 + 4 * 64) * 44 * 4
+    assert b16['forward'] == (64 + 4 * 64) * 56 * 2
+    with pytest.raises(ValueError):
+        k_attn.smem_bytes(64, 48, dtype)
+
+
+UNETS = dict(
+    # tests/test_diffusion.py's grouped UNet: 3 groups, the attention over
+    # 3 x 4 x 12 = 144 tokens of hd 16
+    grouped=dict(image_size=(8, 24), in_channels=6, base_channels=48,
+                 channels_cfg=(1, 2), resblocks_per_downsample=1,
+                 num_heads=2, groups=3, attention_res=(4,), norm_groups=24),
+    # the tiled config's 16 x 48 level: 80 channels, 2 heads, T = 768, hd 40
+    tiled=dict(image_size=(16, 48), in_channels=4, base_channels=80,
+               channels_cfg=(1,), resblocks_per_downsample=1, num_heads=2,
+               attention_res=(16,), norm_groups=16))
+
+
+@pytest.mark.parametrize('variant,dtype', [
+    ('grouped', 'float32'), ('tiled', 'float32'), ('tiled', 'bfloat16')])
+def test_grouped_and_tiled_unets_match_cpu(cuda_device, variant, dtype):
+    """The grouped UNet and a level of the tiled config's UNet (UNETS) on
+    the card against the CPU with the same weights (init plus N(0, 0.05)):
+    the output and the input gradient of sum(out * w); in f32 within 1e-4
+    of their largest entry; in bf16 (the T = 768 level on the bf16
+    attention kernels) within 1.25 x the CPU's bf16-vs-f32 gap of the
+    CPU's bf16 result and at least half of it from the f32 one (the rule
+    of chip_smoke.py phase 7).  The attention kernels of the dtype
+    launch, forward and backward."""
+    from ssdnerf_torch.models.architecture.unet import DenoisingUnet
+    kw = UNETS[variant]
+    g = torch.Generator().manual_seed(29)
+    unet = DenoisingUnet(**kw)
+    unet.init_weights(g)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    x = torch.randn((2, kw['in_channels']) + kw['image_size'], generator=g)
+    w = torch.randn(x.shape, generator=g)
+    t = torch.tensor([5, 900])
+
+    def run(device, dt):
+        m = copy.deepcopy(unet).to(device)
+        m.dtype = getattr(torch, dt)
+        xx = x.to(device).requires_grad_()
+        out = m(xx, t.to(device))
+        gx, = torch.autograd.grad((out * w.to(device)).sum(), xx)
+        return out.detach().cpu(), gx.cpu()
+
+    attr = 'launches' if dtype == 'float32' else 'launches_bf16'
+    before = (getattr(k_attn.attention, attr),
+              getattr(k_attn.attention_backward, attr))
+    card = run(cuda_device, dtype)
+    assert getattr(k_attn.attention, attr) > before[0]
+    assert getattr(k_attn.attention_backward, attr) > before[1]
+    cpu = run('cpu', dtype)
+    if dtype == 'float32':
+        for a, b in zip(card, cpu):
+            assert _max_rel_err(a, b) <= 1e-4
+        return
+    f32 = run('cpu', 'float32')
+    for a, b, c in zip(card, cpu, f32):
+        err, gap, far = _l2(a, b), _l2(b, c), _l2(a, c)
+        assert err <= 1.25 * gap and far >= 0.5 * gap, (err, gap, far)
 
 
 def test_attention_mixed_dtypes_raise(cuda_device):

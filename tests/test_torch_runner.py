@@ -686,9 +686,9 @@ def test_all_reference_configs_load_and_build():
     config under ``configs/`` loads through ``_base_`` inheritance and
     builds its model in the port (on the meta device: no weights are
     drawn), its hooks, and the runner's choice of branch (a bank, stage 2
-    or the filesystem cache), the same model class as the JAX package's;
-    ``new_cfgs/ssdnerf_cars_recons1v_tiled.py`` (the grouped UNet's tiled
-    layout) alone raises, naming ROADMAP section 1 item 3."""
+    or the filesystem cache), the same model class as the JAX package's,
+    with the same diffusion layout (``new_cfgs/ssdnerf_cars_recons1v_
+    tiled.py``'s ``code_permute``: (3, 6, 128, 128) <-> (6, 128, 384))."""
     import glob
     from ssdnerf_torch import Config
     from ssdnerf_tpu.registry import build_model as jax_build_model
@@ -696,26 +696,24 @@ def test_all_reference_configs_load_and_build():
         ROOT, 'configs', '**', '*.py'), recursive=True)
         if os.sep + '_base_' + os.sep not in p)
     assert len(paths) == 28
-    tiled = os.path.join(ROOT, 'configs', 'new_cfgs',
-                         'ssdnerf_cars_recons1v_tiled.py')
-    branches = set()
+    branches, layouts = set(), set()
     for path in paths:
         cfg = Config.fromfile(path)
         kwargs = dict(train_cfg=cfg.get('train_cfg'),
                       test_cfg=cfg.get('test_cfg'))
-        if path == tiled:
-            with pytest.raises(NotImplementedError, match='item 3'), \
-                    torch.device('meta'):
-                build_model(cfg.model, **kwargs)
-            continue
         with torch.device('meta'):
             model = build_model(cfg.model, **kwargs)
         jm = jax_build_model(cfg.model, **kwargs)
         assert type(model).__name__ == type(jm).__name__, path
         assert type(model.code_activation).__name__ == type(
             jm.code_activation).__name__, path
+        if hasattr(jm, 'code_diff_pr'):
+            assert model.code_reshape_inv == tuple(jm.code_reshape_inv), path
+            assert model.code_permute_inv == jm.code_permute_inv, path
+            layouts.add(model.code_diff_size)
         hooks.build_hooks(copy.deepcopy(cfg.get('custom_hooks', [])))
         stage2 = 'optimizer' not in model.train_cfg
         branches.add('stage 2' if stage2 else 'bank' if model.cache_size
                      else 'files')
     assert branches == {'stage 2', 'bank', 'files'}
+    assert (6, 128, 384) in layouts and (18, 128, 128) in layouts
