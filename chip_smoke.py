@@ -67,9 +67,10 @@ runs twelve phases, any failure of which exits non-zero:
    launch; and one line of device times of a flagship UNet forward at
    batch 8 in IEEE f32, TF32 (switched on here only), f32 channels-last and
    bf16.  Phase 2 holds the bf16 attention kernels against their plain
-   bf16 versions at the three flagship levels, bounded at the dense bf16
-   tensor rate (at T=1024, hd=64 the forward is the wgmma kernel of
-   csrc/attention_fwd_sm90.cu);
+   bf16 versions at the three flagship levels and the tiled config's
+   three, bounded at the dense bf16 tensor rate (at T=1024, hd=64 and
+   T=768, hd=40 the forward and backward are the wgmma kernels of
+   csrc/attention_fwd_sm90.cu and csrc/attention_bwd_sm90.cu);
 8. reconstruction: configs/paper_cfgs/ssdnerf_cars_recons1v.py unchanged
    (random seeded weights), 8 scenes with one 128x128 conditioning view
    each (view 0 of phase 5's synthetic images): ``eval_mode`` (its
@@ -311,8 +312,8 @@ KERNEL_META = {
                   'ssdnerf_tpu/ops/pallas/attention.py:44'),
     'attention_bwd': ('ssdnerf_torch/csrc/attention.cu',
                       'ssdnerf_tpu/ops/pallas/attention.py:58'),
-    # the path's shape (T=1024, hd=64) takes the wgmma forward; others
-    # attention.cu's mma.sync one
+    # the paths' shapes (T=1024, hd=64; the tiled T=768, hd=40) take the
+    # wgmma forward; others attention.cu's mma.sync one
     'attention_bf16': ('ssdnerf_torch/csrc/attention_fwd_sm90.cu',
                        'ssdnerf_tpu/ops/pallas/attention.py:44'),
     # likewise the wgmma backward
@@ -518,14 +519,18 @@ def phase_device():
     return torch.device('cuda')
 
 
-def device_profile(fn, calls=30, tries=3, expect=None):
+def device_profile(fn, calls=30, tries=3, expect=None, require=()):
     """Device ms a call of ``fn`` spends in each kernel (or copy) it
     launches, by name: ``torch.profiler`` over ``calls`` calls after a
     warm-up call.  Unlike a CUDA-event time of one call, this leaves out
     the host's launch latency, which a kernel of tens of microseconds does
     not hide.  A trace in which a kernel reads 0 device ms, that holds no
-    kernel, or that holds none of the group ``expect`` (of PORT_KERNELS)
-    is taken again, up to ``tries`` times; then the phase fails.
+    kernel, that holds none of the group ``expect`` (of PORT_KERNELS) or
+    not every name of ``require`` (substrings of kernel names), or in
+    which a kernel of ``require`` has a count of events that is not a
+    multiple of ``calls`` (every call launches it the same number of
+    times, so the trace lost events and would undercount the sum) is taken
+    again, up to ``tries`` times; then the phase fails.
     ``device_profile.retries`` counts the retakes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -541,21 +546,26 @@ def device_profile(fn, calls=30, tries=3, expect=None):
         # a range's device-side annotation shares its name: not a kernel
         annotations = {e.name for e in events
                        if e.device_type == DeviceType.CPU}
-        ms = {}
+        ms, count = {}, {}
         for e in events:
             if e.device_type == DeviceType.CUDA and e.name not in annotations:
                 ms[e.name] = ms.get(e.name, 0.0) + (
                     e.time_range.elapsed_us() / (1e3 * calls))
+                count[e.name] = count.get(e.name, 0) + 1
         zero = sorted(n for n, t in ms.items() if t <= 0)
-        found = expect is None or any(kernel_group(n, None) == expect
-                                      for n in ms)
-        if ms and not zero and found:
+        lost = sorted(n for n, c in count.items() if c % calls
+                      and any(r in n for r in require))
+        found = (expect is None or any(kernel_group(n, None) == expect
+                                       for n in ms)) and all(
+            any(r in n for n in ms) for r in require)
+        if ms and not zero and not lost and found:
             return ms
         device_profile.retries += 1
     raise AssertionError(f'device_profile: {tries} traces of {calls} calls; '
-                         f'the last read 0 ms for {zero}, '
-                         f'{"found" if found else "lacked"} {expect}, '
-                         f'{len(ms)} kernels')
+                         f'the last read 0 ms for {zero}, counted events '
+                         f'not a multiple of the calls for {lost}, '
+                         f'{"found" if found else "lacked"} {expect} '
+                         f'{list(require)}, {len(ms)} kernels')
 
 
 device_profile.retries = 0
@@ -620,7 +630,7 @@ def phase_kernels(dev):
         ms, plain_ms, lib_ms = (
             None if fn is None else median_ms(fn, dev, 7, warmup=2)
             for fn in (kernel, plain, library))
-        traced = device_profile(kernel, expect=name)
+        traced = device_profile(kernel, expect=name, require=kernels)
         dev_ms = sum(traced.values())
         if kernels:
             names = [re.sub(r'^(void )?(\(anonymous namespace\)::)?', '',
@@ -797,15 +807,16 @@ def phase_kernels(dev):
     # bf16 ulp of the largest entry (forward) and two (backward) of the
     # plain version at the Pallas kernels' rounding points, a mean within
     # 1e-5 of it, and within half the gap to f32 (compare's f32_plain).
-    # At hd 64 and T a multiple of 128 the wgmma kernels run (their names
+    # Where the library's gate admits the shape (k_attn.sm90_supported: hd
+    # 40 or 64 at T a multiple of 128) the wgmma kernels run (their names
     # must be in the row's trace), elsewhere attention.cu's mma.sync ones
-    # (hd 40 padded to 48 in shared memory)
     for T_, hd in FLAGSHIP_ATTN + TILED_ATTN:
         q, k, v, do = (torch.randn((32, T_, hd), generator=g).to(dev)
                        .bfloat16() for _ in range(4))
         q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
         scale = 1.0 / math.sqrt(hd)
-        sm90 = T_ % 128 == 0 and hd == 64
+        sm90 = k_attn.sm90_supported(T_, hd)
+        sm90_bwd = k_attn.sm90_supported(T_, hd, backward=True)
         compare('attention_bf16', f'attention bf16 G=32 T={T_} hd={hd}',
                 lambda: k_attn.attention(q, k, v, scale),
                 lambda: k_attn.attention_plain(q, k, v, scale), 2.0 ** -7,
@@ -836,11 +847,11 @@ def phase_kernels(dev):
                 f32_plain=lambda: k_attn.attention_backward_plain(
                     q32, k32, v32, do32, scale),
                 kernels=(('attention_bwd_dkdv_sm90_kernel',
-                          'attention_bwd_dq_sm90_kernel') if sm90 else
+                          'attention_bwd_dq_sm90_kernel') if sm90_bwd else
                          ('attention_bwd_dkdv_bf16_kernel',
                           'attention_bwd_dq_bf16_kernel')),
-                smem=None if sm90 else k_attn.smem_bytes(T_, hd,
-                                                         torch.bfloat16))
+                smem=None if sm90_bwd else k_attn.smem_bytes(T_, hd,
+                                                             torch.bfloat16))
         del leaves, out_lib
 
     # decode forward and backward at the training shapes: 8 scenes x 4096

@@ -29,11 +29,11 @@
 // one writer, so the gradients are bitwise reproducible.
 //
 // bf16 operands (the "bf16 operands" section below) take the same flash
-// form on mma.sync bf16 products; at hd 64 and T a multiple of 128 (the
-// bf16 UNet's 32^2 level) the forward and the backward dispatch to the
-// wgmma + TMA kernels of attention_fwd_sm90.cu and attention_bwd_sm90.cu,
-// so this file's bf16 kernels serve hd 16, 32, 40, 80 and 128 and hd 64 at
-// other lengths.
+// form on mma.sync bf16 products; at hd 40 or 64 and T a multiple of 128
+// (the bf16 UNet's 32^2 level, the tiled config's 16 x 48 level) the
+// forward and the backward dispatch to the wgmma + TMA kernels of
+// attention_fwd_sm90.cu and attention_bwd_sm90.cu, so this file's bf16
+// kernels serve hd 16, 32, 80 and 128 and hd 40 and 64 at other lengths.
 //
 // Products: every matrix product (Q K^T and P V forward; K Q^T, V dO^T,
 // P^T dO, dS^T Q, Q K^T, dO V^T and dS K backward) runs on the tensor cores
@@ -635,8 +635,8 @@ int launch_bwd(const float* q, const float* k, const float* v,
 // of the f32 softmax, which the dQ kernel recomputes in a first pass over
 // the key tiles (rowsum(dO * O) of the forward's output would hold bf16(P)
 // in place of P).  These
-// kernels serve the shapes the wgmma kernels do not tile: hd 16, 32, 40,
-// 80 and 128, and hd 64 at a T that is not a multiple of 128
+// kernels serve the shapes the wgmma kernels do not tile: hd 16, 32, 80
+// and 128, and hd 40 and 64 at a T that is not a multiple of 128
 // (attention_fwd_bf16 and attention_bwd_bf16 below dispatch).
 //
 // Tiles are bf16 rows of the padded head dim HP (padded_hd) and 8 more
@@ -1213,20 +1213,21 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
 extern "C" int attention_fwd_bf16_sm90_supported(int T, int hd);
 extern "C" int attention_fwd_bf16_sm90(const void* q, const void* k,
                                        const void* v, void* o, void* o32,
-                                       void* lse, int G, int T, float scale,
-                                       void* stream);
+                                       void* lse, int G, int T, int hd,
+                                       float scale, void* stream);
 
 // The bf16 instances.  q, k, v, o: (G, T, hd) bf16 contiguous, 16-byte
 // aligned; o32: (G, T, hd) f32 or nullptr (the output before its
 // rounding); lse: (G, T) f32 or nullptr (what the backward reads).  The
 // forward runs attention_fwd_sm90.cu's wgmma kernel where it tiles the
-// shape (hd 64, T a multiple of 128: the bf16 UNet's 32^2 level), this
-// file's mma.sync kernel elsewhere.
+// shape (hd 40 or 64, T a multiple of 128: the bf16 UNet's 32^2 level and
+// the tiled config's 16 x 48 level), this file's mma.sync kernel
+// elsewhere.
 extern "C" int attention_fwd_bf16(const void* q, const void* k, const void* v,
                                   void* o, void* o32, void* lse, int G, int T,
                                   int hd, float scale, void* stream) {
   if (attention_fwd_bf16_sm90_supported(T, hd))
-    return attention_fwd_bf16_sm90(q, k, v, o, o32, lse, G, T, scale,
+    return attention_fwd_bf16_sm90(q, k, v, o, o32, lse, G, T, hd, scale,
                                    stream);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
@@ -1246,7 +1247,7 @@ extern "C" int attention_bwd_bf16_sm90(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, void* dq, void* dk,
                                        void* dv, void* D, int G, int T,
-                                       float scale, void* stream);
+                                       int hd, float scale, void* stream);
 
 // q, k, v, dout, dq, dk, dv: (G, T, hd) bf16 contiguous, 16-byte aligned;
 // lse (G, T) f32 from attention_fwd_bf16, 16-byte aligned; D: (G, T) f32
@@ -1254,9 +1255,10 @@ extern "C" int attention_bwd_bf16_sm90(const void* q, const void* k,
 // row terms are rowsum(P * dP) with the f32 softmax, recomputed (see
 // attention_bwd_dq_bf16_kernel); the argument keeps the f32 entry's
 // order.  attention_bwd_sm90.cu's wgmma kernels
-// run where they tile the shape (the forward's gate: hd 64, T a multiple
-// of 128, the bf16 UNet's 32^2 level), this file's mma.sync kernels
-// elsewhere (the other head dims, and hd 64 at other lengths).
+// run where they tile the shape (the forward's gate: hd 40 or 64, T a
+// multiple of 128, the bf16 UNet's 32^2 level and the tiled config's 16 x
+// 48 level), this file's mma.sync kernels elsewhere (the other head dims,
+// and hd 40 or 64 at other lengths).
 extern "C" int attention_bwd_bf16(const void* q, const void* k, const void* v,
                                   const void* o32, const void* dout,
                                   const void* lse, void* dq, void* dk,
@@ -1264,7 +1266,7 @@ extern "C" int attention_bwd_bf16(const void* q, const void* k, const void* v,
                                   float scale, void* stream) {
   if (attention_bwd_bf16_sm90_supported(T, hd))
     return attention_bwd_bf16_sm90(q, k, v, dout, lse, dq, dk, dv, D, G, T,
-                                   scale, stream);
+                                   hd, scale, stream);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);

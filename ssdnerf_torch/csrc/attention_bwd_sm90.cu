@@ -1,7 +1,8 @@
 // The bf16 attention backward on Hopper's warpgroup products (sm_90a).
 //
-// Replaces, for bf16 operands at head dim 64 and T a multiple of 128 (the
-// bf16 UNet's 32^2 level: T = 1024, 8 scenes x 4 heads), the Pallas kernel
+// Replaces, for bf16 operands at head dim 40 or 64 and T a multiple of 128
+// (the bf16 UNet's 32^2 level: T = 1024, hd 64, 8 scenes x 4 heads; the
+// tiled config's 16 x 48 level: T = 768, hd 40), the Pallas kernel
 // ssdnerf_tpu/ops/pallas/attention.py:_bwd_kernel (reached through
 // vmem_attention -> _bwd_rule); attention.cu's mma.sync kernels keep the
 // other shapes.  Semantics are those of attention.cu's bf16 backward, at
@@ -13,15 +14,15 @@
 // the sums in f32, each gradient rounded to bf16 once.
 //
 // Bound on the H100: the five products, 10 hd T^2 operations a program,
-// at the dense bf16 rate (0.0217 ms at G = 32, T = 1024; the bytes are a
-// few MB).  Two kernels, so that every output element has one writer and
-// the gradients are bitwise reproducible (no atomics on dQ): the dQ kernel
-// forms D in a first pass over the key tiles (S and dP) and then runs
-// three products (S and dP again, and dQ); the dK/dV kernel, launched
-// after it, four (S^T, dP^T, dV, dK).  That is 18 hd T^2 operations (0.038
-// ms at the dense rate) and 3 T^2 exponentials a program (~0.025 ms on the
-// SFU).  The design follows
-// attention_fwd_sm90.cu:
+// at the dense bf16 rate (0.0217 ms at G = 32, T = 1024, hd 64; 0.0076 at
+// T = 768, hd 40; the bytes are a few MB).  Two kernels, so that every
+// output element has one writer and the gradients are bitwise
+// reproducible (no atomics on dQ): the dQ kernel forms D in a first pass
+// over the key tiles (S and dP) and then runs three products (S and dP
+// again, and dQ); the dK/dV kernel, launched after it, four (S^T, dP^T,
+// dV, dK).  That is 18 hd T^2 operations (0.038 ms at the dense rate at T
+// = 1024, hd 64) and 3 T^2 exponentials a program (~0.025 ms on the SFU).
+// The design follows attention_fwd_sm90.cu:
 //   - a CTA owns 128 rows (keys in the dK/dV kernel, queries in the dQ
 //     kernel): two consumer warpgroups of 64 rows each, and a producer
 //     warpgroup of which one thread issues the copies; setmaxnreg moves
@@ -40,6 +41,12 @@
 //   - P^T and dS^T, rounded to bf16, are the register A fragments of
 //     dV += P^T dO and dK += dS^T Q (keys on M), with dO and Q read from
 //     the same shared tiles MN-major (dQ += dS K reads K so);
+//   - shared memory holds a token as a 64-column row whatever the head
+//     dim; at hd 40 TMA fills columns 40-63 with zeros, the products over
+//     the head dim (S, dP) run 3 k16 steps instead of 4, and those whose N
+//     is the head dim (dV, dK, dQ) compute 64 columns of which the first
+//     40 are stored (the canonical MN-major layout of a 128-byte-swizzled
+//     B tile spans 64 columns, so N stays 64);
 //   - the two consumer warpgroups take turns at issuing their products,
 //     each turn the last two products of one tile with the first two of
 //     the next, so that one warpgroup's exponentials overlap the other's
@@ -48,8 +55,10 @@
 //     read it.
 // What keeps it above the bound: the dQ kernel's four extra products (its
 // first pass runs without turns), the exponentials and the elementwise
-// work, which the turns hide only in part, the m64n64 products (N = 64 is the head dim), and one CTA an SM
-// (256 CTAs at G = 32, T = 1024: two waves over 132 SMs).
+// work, which the turns hide only in part, the m64n64 products (N = 64 is
+// the head dim, or its padding), and one CTA an SM (256 CTAs at G = 32, T =
+// 1024: two waves over 132 SMs; 192 at T = 768, 1.45 waves: 240 registers
+// a consumer thread leave no room for a third consumer warpgroup).
 
 #include "sm90.cuh"
 
@@ -62,7 +71,7 @@ constexpr int kConsumers = 2;  // warpgroups
 // a third warpgroup produces (one thread issues the copies), so that
 // setmaxnreg can move its registers to the consumers
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kTileBytes = kBN * kHD * 2;  // one 64-row bf16 tile
+constexpr int kTileBytes = kBN * kRow * 2;  // one 64-row bf16 tile
 constexpr int kVecBytes = kBN * 4;         // a 64-row f32 slice of L or D
 constexpr float kLog2e = 1.4426950408889634f;
 // owned tiles (two 64-row halves of each of two matrices), the ring, the
@@ -71,29 +80,31 @@ constexpr int kDkdvSmem = 1024 + 4 * kTileBytes + 2 * kStages * kTileBytes +
                           2 * kStages * kVecBytes + 256;
 constexpr int kDqSmem = 1024 + 4 * kTileBytes + 2 * kStages * kTileBytes + 256;
 
-// d (64 x 64) = A B over the head dim, A the register fragments of four
+// d (64 x 64) = A B over the head dim, A the register fragments of its
 // k16 steps (see load_frags), B a K-major 64-row tile in shared memory;
 // issued, not waited for.
+template <int HD>
 __device__ __forceinline__ void wgmma_rs_hd(float (&d)[32],
                                             const uint32_t (&a)[4][4],
                                             const bf16* b) {
   const uint64_t db = desc_k_major(b);
 #pragma unroll
-  for (int ks = 0; ks < kHD / 16; ++ks)
+  for (int ks = 0; ks < kSteps<HD>; ++ks)
     wgmma_rs<0>(d, a[ks], db + 2 * ks, ks > 0);
 }
 
-// The A fragments (four k16 steps over the head dim) of the warp's 16
+// The A fragments (the k16 steps over the head dim) of the warp's 16
 // rows of a 64-row, 128-byte-swizzled tile in shared memory: register r
 // of step ks holds row 16 w + gr (+ 8 if r & 1), columns 16 ks + 2 t (+ 8
 // if r >> 1) and the next, whose 16-byte chunk 2 ks + (r >> 1) the swizzle
 // stores at chunk (2 ks + (r >> 1)) ^ (row % 8).
+template <int HD>
 __device__ __forceinline__ void load_frags(uint32_t (&f)[4][4],
                                            const bf16* tile) {
   const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
   const uint8_t* base = reinterpret_cast<const uint8_t*>(tile);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < kSteps<HD>; ++ks)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = 16 * ((threadIdx.x >> 5) & 3) + gr + 8 * (r & 1);
@@ -104,16 +115,18 @@ __device__ __forceinline__ void load_frags(uint32_t (&f)[4][4],
 }
 
 // Rows gr and gr + 8 of the warp's 16 rows of an accumulator to row `r0`
-// (and r0 + 8) of a (rows, 64) bf16 matrix, rounded once.
+// (and r0 + 8) of a (rows, HD) bf16 matrix, rounded once: its first HD / 8
+// n8 tiles (the columns past HD, zero, are not stored).
+template <int HD>
 __device__ __forceinline__ void store_rows_bf16(bf16* out,
                                                 const float (&acc)[32],
                                                 size_t r0) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    bf16* o = out + (r0 + 8 * h) * kHD + 2 * t;
+    bf16* o = out + (r0 + 8 * h) * HD + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(o + 8 * j) =
           pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
@@ -141,7 +154,7 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
 __device__ __forceinline__ void load_owned(bf16* dst, const CUtensorMap* map,
                                            int row, uint64_t* bar) {
   tma_load(dst, map, 0, row, bar);
-  tma_load(dst + kBN * kHD, map, 0, row + kBN, bar);
+  tma_load(dst + kBN * kRow, map, 0, row + kBN, bar);
 }
 
 // The two consumer warpgroups take turns at issuing their products: named
@@ -216,6 +229,7 @@ __device__ __forceinline__ void dkdv_softmax(uint32_t (&pf)[4][4],
 // blockIdx.y, streaming every query tile.  Warpgroups 0-1 consume (64 keys
 // each), warpgroup 2 produces.  D comes from the dQ kernel, launched
 // first.
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
@@ -230,8 +244,8 @@ attention_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   bf16* sK = reinterpret_cast<bf16*>(base);
   bf16* sV = reinterpret_cast<bf16*>(base + 2 * kTileBytes);
   bf16* sQ = reinterpret_cast<bf16*>(base + 4 * kTileBytes);
-  bf16* sdO = sQ + kStages * kBN * kHD;
-  float* sL = reinterpret_cast<float*>(sdO + kStages * kBN * kHD);
+  bf16* sdO = sQ + kStages * kBN * kRow;
+  float* sL = reinterpret_cast<float*>(sdO + kStages * kBN * kRow);
   float* sD = sL + kStages * kBN;
   uint64_t* full = reinterpret_cast<uint64_t*>(sD + kStages * kBN);
   uint64_t* empty = full + kStages;
@@ -255,8 +269,8 @@ attention_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
         const int q = row0 + it * kBN;
         mbar_expect_tx(&full[st], 2 * kTileBytes + 2 * kVecBytes);
-        tma_load(sQ + st * kBN * kHD, &tm_q, 0, q, &full[st]);
-        tma_load(sdO + st * kBN * kHD, &tm_do, 0, q, &full[st]);
+        tma_load(sQ + st * kBN * kRow, &tm_q, 0, q, &full[st]);
+        tma_load(sdO + st * kBN * kRow, &tm_do, 0, q, &full[st]);
         bulk_load(sL + st * kBN, lse + q, kVecBytes, &full[st]);
         bulk_load(sD + st * kBN, D + q, kVecBytes, &full[st]);
       }
@@ -270,20 +284,20 @@ attention_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // so that no product is issued under a condition.
     consumer_regs();
     const int wg = warp >> 2, t = threadIdx.x & 3;
-    const bf16* k = sK + wg * kBN * kHD;
-    const bf16* v = sV + wg * kBN * kHD;
+    const bf16* k = sK + wg * kBN * kRow;
+    const bf16* v = sV + wg * kBN * kRow;
     const float c = scale * kLog2e;
     float acc_v[32], acc_k[32], s[32], dp[32];  // sums start at tile 0
     uint32_t pf[4][4], dsf[4][4], kf[4][4], vf[4][4];
     mbar_wait(kvbar, 0);
-    load_frags(kf, k);  // the warpgroup's keys, A of S^T and dP^T
-    load_frags(vf, v);
+    load_frags<HD>(kf, k);  // the warpgroup's keys, A of S^T and dP^T
+    load_frags<HD>(vf, v);
     if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
     mbar_wait(&full[0], 0);
     turn_wait(wg);
     wgmma_fence();
-    wgmma_rs_hd(s, kf, sQ);    // S^T = K Q^T
-    wgmma_rs_hd(dp, vf, sdO);  // dP^T = V dO^T
+    wgmma_rs_hd<HD>(s, kf, sQ);    // S^T = K Q^T
+    wgmma_rs_hd<HD>(dp, vf, sdO);  // dP^T = V dO^T
     wgmma_commit();
     turn_pass(wg);
 
@@ -297,10 +311,10 @@ attention_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       turn_wait(wg);
       wgmma_fence();
       // dV += P^T dO, dK += dS^T Q
-      wgmma_rs_tile(acc_v, pf, sdO + st * kBN * kHD, it > 0);
-      wgmma_rs_tile(acc_k, dsf, sQ + st * kBN * kHD, it > 0);
-      wgmma_rs_hd(s, kf, sQ + nst * kBN * kHD);
-      wgmma_rs_hd(dp, vf, sdO + nst * kBN * kHD);
+      wgmma_rs_tile(acc_v, pf, sdO + st * kBN * kRow, it > 0);
+      wgmma_rs_tile(acc_k, dsf, sQ + st * kBN * kRow, it > 0);
+      wgmma_rs_hd<HD>(s, kf, sQ + nst * kBN * kRow);
+      wgmma_rs_hd<HD>(dp, vf, sdO + nst * kBN * kRow);
       wgmma_commit();
       turn_pass(wg);
     }
@@ -311,8 +325,8 @@ attention_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                  sD + st * kBN + 2 * t, c, scale);
     turn_wait(wg);
     wgmma_fence();
-    wgmma_rs_tile(acc_v, pf, sdO + st * kBN * kHD);
-    wgmma_rs_tile(acc_k, dsf, sQ + st * kBN * kHD);
+    wgmma_rs_tile(acc_v, pf, sdO + st * kBN * kRow);
+    wgmma_rs_tile(acc_k, dsf, sQ + st * kBN * kRow);
     wgmma_commit();
     if (wg == 0) turn_pass(wg);  // the last turn is warpgroup 1's
     wgmma_wait();
@@ -320,8 +334,8 @@ attention_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     const size_t r0 = (size_t)row0 + k0 + wg * 64 + (warp & 3) * 16 +
                       ((threadIdx.x & 31) >> 2);
-    store_rows_bf16(dv, acc_v, r0);
-    store_rows_bf16(dk, acc_k, r0);
+    store_rows_bf16<HD>(dv, acc_v, r0);
+    store_rows_bf16<HD>(dk, acc_k, r0);
   }
 }
 
@@ -367,6 +381,7 @@ __device__ __forceinline__ void dq_softmax(uint32_t (&dsf)[4][4],
 // place of P, which moves dq and dk by about half the bf16-vs-f32 gap); it
 // goes to global memory for the dK/dV kernel.  Warpgroups 0-1 consume (64
 // rows each), warpgroup 2 produces.
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -380,8 +395,8 @@ attention_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   bf16* sQ = reinterpret_cast<bf16*>(base);
   bf16* sdO = reinterpret_cast<bf16*>(base + 2 * kTileBytes);
   bf16* sK = reinterpret_cast<bf16*>(base + 4 * kTileBytes);
-  bf16* sV = sK + kStages * kBN * kHD;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kBN * kHD);
+  bf16* sV = sK + kStages * kBN * kRow;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kBN * kRow);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
 
@@ -403,8 +418,8 @@ attention_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
         const int key = row0 + (it % tiles) * kBN;
         mbar_expect_tx(&full[st], 2 * kTileBytes);
-        tma_load(sK + st * kBN * kHD, &tm_k, 0, key, &full[st]);
-        tma_load(sV + st * kBN * kHD, &tm_v, 0, key, &full[st]);
+        tma_load(sK + st * kBN * kRow, &tm_k, 0, key, &full[st]);
+        tma_load(sV + st * kBN * kRow, &tm_v, 0, key, &full[st]);
       }
     }
   } else {
@@ -422,16 +437,16 @@ attention_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     float acc[32], s[32], dp[32];  // the sum starts at tile 0
     uint32_t dsf[4][4], qf[4][4], dof[4][4];
     mbar_wait(qbar, 0);
-    load_frags(qf, sQ + wg * kBN * kHD);  // the warpgroup's rows, A of S
-    load_frags(dof, sdO + wg * kBN * kHD);  // and of dP
+    load_frags<HD>(qf, sQ + wg * kBN * kRow);  // the warpgroup's rows, A
+    load_frags<HD>(dof, sdO + wg * kBN * kRow);  // of S and of dP
 
     float dsum[2] = {0.0f, 0.0f};
     for (int it = 0; it < tiles; ++it) {
       const int st = it % kStages;
       mbar_wait(&full[st], (it / kStages) & 1);
       wgmma_fence();
-      wgmma_rs_hd(s, qf, sK + st * kBN * kHD);
-      wgmma_rs_hd(dp, dof, sV + st * kBN * kHD);
+      wgmma_rs_hd<HD>(s, qf, sK + st * kBN * kRow);
+      wgmma_rs_hd<HD>(dp, dof, sV + st * kBN * kRow);
       wgmma_commit();
       wgmma_wait();
       release(empty, st);
@@ -454,8 +469,9 @@ attention_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&full[n0 % kStages], (n0 / kStages) & 1);
     turn_wait(wg);
     wgmma_fence();
-    wgmma_rs_hd(s, qf, sK + (n0 % kStages) * kBN * kHD);  // S = Q K^T
-    wgmma_rs_hd(dp, dof, sV + (n0 % kStages) * kBN * kHD);  // dP = dO V^T
+    // S = Q K^T, dP = dO V^T
+    wgmma_rs_hd<HD>(s, qf, sK + (n0 % kStages) * kBN * kRow);
+    wgmma_rs_hd<HD>(dp, dof, sV + (n0 % kStages) * kBN * kRow);
     wgmma_commit();
     turn_pass(wg);
 
@@ -467,9 +483,9 @@ attention_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(&full[nst], ((i + 1) / kStages) & 1);
       turn_wait(wg);
       wgmma_fence();
-      wgmma_rs_tile(acc, dsf, sK + st * kBN * kHD, it > 0);  // dQ += dS K
-      wgmma_rs_hd(s, qf, sK + nst * kBN * kHD);
-      wgmma_rs_hd(dp, dof, sV + nst * kBN * kHD);
+      wgmma_rs_tile(acc, dsf, sK + st * kBN * kRow, it > 0);  // dQ += dS K
+      wgmma_rs_hd<HD>(s, qf, sK + nst * kBN * kRow);
+      wgmma_rs_hd<HD>(dp, dof, sV + nst * kBN * kRow);
       wgmma_commit();
       turn_pass(wg);
     }
@@ -479,24 +495,55 @@ attention_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     dq_softmax(dsf, s, dp, l2, ds, c, scale);
     turn_wait(wg);
     wgmma_fence();
-    wgmma_rs_tile(acc, dsf, sK + st * kBN * kHD);
+    wgmma_rs_tile(acc, dsf, sK + st * kBN * kRow);
     wgmma_commit();
     if (wg == 0) turn_pass(wg);  // the last turn is warpgroup 1's
     wgmma_wait();
     release(empty, st);
-    store_rows_bf16(dq, acc, r0);
+    store_rows_bf16<HD>(dq, acc, r0);
   }
+}
+
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, void* dq, void* dk, void* dv, void* D,
+               int G, int T, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, G * T, HD, kBN) ||
+      !tensor_map(&tk, k, G * T, HD, kBN) ||
+      !tensor_map(&tv, v, G * T, HD, kBN) ||
+      !tensor_map(&tdo, dout, G * T, HD, kBN))
+    return (int)cudaErrorInvalidValue;
+  auto dkdv = attention_bwd_dkdv_sm90_kernel<HD>;
+  auto dqk = attention_bwd_dq_sm90_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  const float* lf = static_cast<const float*>(lse);
+  float* Df = static_cast<float*>(D);
+  dim3 grid(T / kBM, G);
+  dqk<<<grid, kThreads, kDqSmem, stream>>>(tq, tk, tv, tdo, lf, Df,
+                                           static_cast<bf16*>(dq), T, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkdv<<<grid, kThreads, kDkdvSmem, stream>>>(
+      tq, tk, tv, tdo, lf, Df, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), T, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// True if attention_bwd_bf16_sm90 takes (T, hd): hd 64, T a multiple of
-// 128 (the forward's gate, attention_fwd_bf16_sm90_supported).
+// True if attention_bwd_bf16_sm90 takes (T, hd): hd 40 or 64, T a
+// multiple of 128 (the forward's gate, attention_fwd_bf16_sm90_supported).
 extern "C" int attention_bwd_bf16_sm90_supported(int T, int hd) {
-  return hd == kHD && T > 0 && T % kBM == 0;
+  return (hd == 40 || hd == 64) && T > 0 && T % kBM == 0;
 }
 
-// q, k, v, dout, dq, dk, dv: (G, T, 64) bf16 contiguous, 16-byte aligned;
+// q, k, v, dout, dq, dk, dv: (G, T, hd) bf16 contiguous, 16-byte aligned;
 // lse (G, T) f32 from the forward, 16-byte aligned; D: (G, T) f32 scratch.
 // Launches the dQ kernel (which also writes D), then the dK/dV kernel.
 // Returns cudaErrorInvalidValue for a shape without support or a tensor
@@ -505,31 +552,12 @@ extern "C" int attention_bwd_bf16_sm90(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, void* dq, void* dk,
                                        void* dv, void* D, int G, int T,
-                                       float scale, void* stream) {
-  if (!attention_bwd_bf16_sm90_supported(T, kHD) || G <= 0)
+                                       int hd, float scale, void* stream) {
+  if (!attention_bwd_bf16_sm90_supported(T, hd) || G <= 0)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv, tdo;
-  if (!tensor_map(&tq, q, G * T, kBN) || !tensor_map(&tk, k, G * T, kBN) ||
-      !tensor_map(&tv, v, G * T, kBN) || !tensor_map(&tdo, dout, G * T, kBN))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dkdv_sm90_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_dq_sm90_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDqSmem);
-  if (err != cudaSuccess) return (int)err;
-  const float* lf = static_cast<const float*>(lse);
-  float* Df = static_cast<float*>(D);
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(T / kBM, G);
-  attention_bwd_dq_sm90_kernel<<<grid, kThreads, kDqSmem, st>>>(
-      tq, tk, tv, tdo, lf, Df, static_cast<bf16*>(dq), T, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkdv_sm90_kernel<<<grid, kThreads, kDkdvSmem, st>>>(
-      tq, tk, tv, tdo, lf, Df, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), T, scale);
-  return (int)cudaGetLastError();
+  return hd == 40 ? launch_bwd<40>(q, k, v, dout, lse, dq, dk, dv, D, G, T,
+                                   scale, st)
+                  : launch_bwd<64>(q, k, v, dout, lse, dq, dk, dv, D, G, T,
+                                   scale, st);
 }

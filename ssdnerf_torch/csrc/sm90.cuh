@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the bf16 attention kernels of
 // attention_fwd_sm90.cu and attention_bwd_sm90.cu: mbarriers, TMA loads,
 // wgmma shared-memory descriptors and products, and the TMA maps of the
-// (rows, 64) bf16 matrices they stream.
+// (rows, hd) bf16 matrices they stream (hd 40 or 64).  Shared memory holds
+// a token as one 128-byte swizzled row of 64 columns whatever the head
+// dim: TMA fills the columns past hd with zeros, so the products over the
+// head dim are exact and the zero columns of a result are never stored.
 //
 // Accumulator element e of a thread of a m64n64 product (lane = 4 gr + t
 // of warp w of the warpgroup): row 16 w + gr + 8 ((e >> 1) & 1), column
@@ -21,7 +24,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHD = 64;  // head dim: one 128-byte swizzled row a token
+// columns of a shared-memory row: one 128-byte swizzled row a token
+constexpr int kRow = 64;
+
+// k16 steps of a product over the head dim: its columns rounded up to 16
+// (the zero-filled ones past it included)
+template <int HD>
+constexpr int kSteps = (HD + 15) / 16;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -212,15 +221,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (rows, 64) bf16 matrix at `ptr` as a TMA map with boxes of
-// `box_rows` rows of 128 bytes, 128-byte swizzled.
-inline bool tensor_map(CUtensorMap* map, const void* ptr, int rows,
+// The (rows, hd) bf16 matrix at `ptr` (hd a multiple of 8 up to 64, so
+// that a row is a multiple of 16 bytes, as TMA needs) as a TMA map with
+// boxes of `box_rows` shared-memory rows of 128 bytes, 128-byte swizzled;
+// a box is 64 columns wide whatever hd, the columns past hd zero-filled.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int hd,
                        int box_rows) {
   EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {kHD, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {kHD * sizeof(bf16)};
-  const cuuint32_t box[2] = {kHD, (cuuint32_t)box_rows};
+  if (fn == nullptr || hd <= 0 || hd > kRow || hd % 8 != 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)hd, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {hd * sizeof(bf16)};
+  const cuuint32_t box[2] = {kRow, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
             const_cast<void*>(ptr), dims, strides, box, elem,

@@ -38,6 +38,10 @@ _SIGNATURES = {
     'attention_fwd_bf16': [_P] * 6 + [_I, _I, _I, _F, _P],
     'attention_bwd_bf16': [_P] * 10 + [_I, _I, _I, _F, _P],
     'attention_smem_bytes': [_I, _I, _I, _P],
+    'attention_fwd_bf16_sm90': [_P] * 6 + [_I, _I, _I, _F, _P],
+    'attention_bwd_bf16_sm90': [_P] * 9 + [_I, _I, _I, _F, _P],
+    'attention_fwd_bf16_sm90_supported': [_I, _I],
+    'attention_bwd_bf16_sm90_supported': [_I, _I],
 }
 
 

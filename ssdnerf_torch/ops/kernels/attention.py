@@ -15,14 +15,18 @@ Pallas kernel's row term rowsum(p * dp) with the f32 softmax p (the f32
 output ``o32`` holds bf16(p) v, so its rowsum(do * o32) would differ).
 They run at every attention level of the shipped UNets (head dims 32, 64
 and 128 of the 128^2 configs; 40 and 80 of the tiled config's 16x48, 8x24
-and 4x12 levels) and of the grouped UNet of the tests (16): ``HEAD_DIMS``;
-the bf16 kernels compute hd 40 padded to 48 in shared memory.  At hd 64 and
-T a multiple of 128 (the 32^2 level) the bf16 forward and backward are
-``wgmma`` + TMA kernels (``csrc/attention_fwd_sm90.cu``,
-``csrc/attention_bwd_sm90.cu``).  A CUDA call at any other head dim
-raises.  Under autograd a CUDA call goes through
-:class:`_AttentionFn`, whose forward also keeps each row's log-sum-exp and
-the f32 output and whose backward is the backward kernel.
+and 4x12 levels) and of the grouped UNet of the tests (16): ``HEAD_DIMS``.
+At hd 40 or 64 and T a multiple of 128 (the flagship's 32^2 level, T =
+1024 at hd 64; the tiled config's 16x48 level, T = 768 at hd 40) the bf16
+forward and backward are ``wgmma`` + TMA kernels
+(``csrc/attention_fwd_sm90.cu``, ``csrc/attention_bwd_sm90.cu``; hd 40
+computed as 64 columns in shared memory, the columns past 40 zero-filled
+by TMA), as :func:`sm90_supported` asks the library; the other bf16 shapes
+run ``csrc/attention.cu``'s ``mma.sync`` kernels (hd 40 padded to 48 in
+shared memory).  A CUDA call at any other head dim raises.  Under autograd
+a CUDA call goes through :class:`_AttentionFn`, whose forward also keeps
+each row's log-sum-exp and the f32 output and whose backward is the
+backward kernel.
 """
 import ctypes
 
@@ -94,14 +98,25 @@ def _check(name, q, *others):
 def smem_bytes(T, hd, dtype):
     """The dynamic shared memory (bytes) of ``csrc/attention.cu``'s
     forward, dQ and dK/dV kernels at (T, hd) for operands of ``dtype``, as
-    the library computes it for their launches (the ``wgmma`` kernels of
-    hd 64 bf16 at T a multiple of 128 are not these)."""
+    the library computes it for their launches (the bf16 ``wgmma``
+    kernels, where :func:`sm90_supported`, are not these)."""
     out = (ctypes.c_int * 3)()
     err = _build.library().attention_smem_bytes(
         T, hd, int(dtype == torch.bfloat16), out)
     if err:
         raise ValueError(f'attention_smem_bytes: no kernel at hd {hd}')
     return dict(forward=out[0], dq=out[1], dkdv=out[2])
+
+
+def sm90_supported(T, hd, backward=False):
+    """True if the bf16 forward (or, with ``backward``, the backward) at
+    (T, hd) runs the ``wgmma`` + TMA kernels of
+    ``csrc/attention_fwd_sm90.cu`` (``csrc/attention_bwd_sm90.cu``): the
+    library's own dispatch gate, ``attention_*_bf16_sm90_supported``.
+    Builds the library."""
+    name = ('attention_bwd_bf16_sm90_supported' if backward
+            else 'attention_fwd_bf16_sm90_supported')
+    return bool(getattr(_build.library(), name)(T, hd))
 
 
 def _count(wrapper, dtype):
@@ -138,7 +153,8 @@ def attention_backward(q, k, v, o32, lse, do, scale):
     from :func:`attention_forward`.  CPU tensors take the plain version
     (which recomputes the forward); CUDA tensors launch the backward
     kernels of ``csrc/attention.cu`` (or raise), which for bf16 operands
-    at hd 64 and T a multiple of 128 are the ``wgmma`` kernels of
+    at hd 40 or 64 and T a multiple of 128 (``sm90_supported(T, hd,
+    backward=True)``) are the ``wgmma`` kernels of
     ``csrc/attention_bwd_sm90.cu``."""
     if q.device.type == 'cpu':
         return attention_backward_plain(q, k, v, do, scale)

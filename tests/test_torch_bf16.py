@@ -98,16 +98,18 @@ def _near(port, jax_bf16, f32, what):
 
 
 # ------------------------------------------------------------- attention
-@pytest.mark.parametrize('hd', [32, 64])
+@pytest.mark.parametrize('hd', [32, 64, 40])
 def test_attention_bf16_plain_matches_vmem_attention(hd):
     """The plain bf16 forward and backward vs ``vmem_attention`` in
-    interpret mode with bf16 operands (G=2, T=512; hd 32, and hd 64, the
-    head dim of the wgmma kernels): within one bf16 ulp of each output's
-    largest entry, and within half of JAX's own bf16-vs-f32 gap (relative
-    L2)."""
+    interpret mode with bf16 operands (G=2; T=512 at hd 32, and at hd 64,
+    the flagship's head dim of the wgmma kernels; T=768 at hd 40, the
+    tiled config's shape of the wgmma kernels): within one bf16 ulp of
+    each output's largest entry, and within half of JAX's own bf16-vs-f32
+    gap (relative L2)."""
     rng = np.random.RandomState(70)
-    q, k, v = (_bf16_values(rng, 2, 512, hd, scale=1.5) for _ in range(3))
-    g = _bf16_values(rng, 2, 512, hd)
+    T = 768 if hd == 40 else 512
+    q, k, v = (_bf16_values(rng, 2, T, hd, scale=1.5) for _ in range(3))
+    g = _bf16_values(rng, 2, T, hd)
     scale = 1.0 / np.sqrt(hd)
 
     def jax_run(dtype):

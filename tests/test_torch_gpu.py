@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from ssdnerf_torch.models.decoders.triplane import TriPlaneDecoder
+from ssdnerf_torch.ops.kernels import _build
 from ssdnerf_torch.ops.kernels import attention as k_attn
 from ssdnerf_torch.ops.kernels import decode as k_dec
 from ssdnerf_torch.ops.kernels import march as k_march
@@ -210,11 +211,12 @@ def test_attention_kernels_hold_f64(cuda_device, T, hd):
 
 @pytest.mark.parametrize('T,hd,dtype', [
     (1024, 64, torch.float32), (100, 128, torch.float32),
-    (1024, 64, torch.bfloat16), (512, 64, torch.bfloat16)])
+    (1024, 64, torch.bfloat16), (512, 64, torch.bfloat16),
+    (768, 40, torch.bfloat16)])
 def test_attention_backward_is_deterministic(cuda_device, T, hd, dtype):
     """No atomics: two backward runs on the same inputs give bitwise equal
     dq, dk, dv (the bf16 cases run the wgmma kernels of
-    attention_bwd_sm90.cu)."""
+    attention_bwd_sm90.cu, at hd 64 and at the tiled level's hd 40)."""
     g = torch.Generator().manual_seed(23)
     q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
                    .to(dtype) for _ in range(4))
@@ -233,13 +235,16 @@ def _bf16_ulps(got, ref):
     return ((got.float() - ref.float()).abs().max() / ulp).item()
 
 
-# the UNet levels of the flagship (32^2, 16^2, 8^2) and ragged lengths;
-# (1024, 64), (768, 64) and (512, 64) take the wgmma kernels
-# (attention_fwd_sm90.cu, attention_bwd_sm90.cu), the others attention.cu's
-# mma.sync kernels
-SM90_SHAPES = [(1024, 64), (768, 64), (512, 64)]
+# the UNet levels of the flagship (32^2, 16^2, 8^2), of the tiled config
+# (16x48, 8x24, 4x12) and ragged lengths; hd 64 and hd 40 at T a multiple
+# of 128 take the wgmma kernels (attention_fwd_sm90.cu, with 192-row CTAs
+# at T = 768; attention_bwd_sm90.cu), the others attention.cu's mma.sync
+# kernels
+SM90_SHAPES = [(1024, 64), (768, 64), (512, 64), (768, 40), (256, 40)]
 BF16_SHAPES = SM90_SHAPES + [(256, 128), (64, 128), (100, 32), (1000, 64),
-                             (100, 40)] + TILED_SHAPES
+                             (100, 40)] + [
+    s for s in TILED_SHAPES if s not in SM90_SHAPES]
+DISPATCH_SHAPES = SM90_SHAPES + [(256, 128), (1000, 64), (100, 40)]
 
 
 @pytest.mark.parametrize('T,hd', BF16_SHAPES)
@@ -305,26 +310,51 @@ def test_attention_bf16_forward_lse_and_o32(cuda_device, T, hd):
     assert torch.equal(o, o32.bfloat16())
 
 
-@pytest.mark.parametrize('T,hd', SM90_SHAPES + [(256, 128), (1000, 64),
-                                               (768, 40)])
+def _kernel_names(run):
+    """The names of the kernels that ``run()`` launches, from a
+    torch.profiler trace, as one string."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return ' '.join(e.key for e in prof.key_averages())
+
+
+@pytest.mark.parametrize('T,hd', DISPATCH_SHAPES)
+def test_attention_bf16_forward_dispatch(cuda_device, T, hd):
+    """The kernel a bf16 forward launches, by its name in a torch.profiler
+    trace: the wgmma kernel of attention_fwd_sm90.cu at hd 40 or 64 and T
+    a multiple of 128 (the library's gate agrees), attention.cu's mma.sync
+    one elsewhere."""
+    g = torch.Generator().manual_seed(30)
+    q, k, v = (torch.randn((32, T, hd), generator=g).to(cuda_device)
+               .bfloat16() for _ in range(3))
+    names = _kernel_names(lambda: k_attn.attention_forward(
+        q, k, v, 1.0 / math.sqrt(hd), with_lse=True))
+    sm90 = (T, hd) in SM90_SHAPES
+    assert k_attn.sm90_supported(T, hd) == sm90
+    assert ('attention_fwd_sm90_kernel' in names) == sm90, names
+    assert ('attention_fwd_bf16_kernel' in names) != sm90, names
+
+
+@pytest.mark.parametrize('T,hd', DISPATCH_SHAPES)
 def test_attention_bf16_backward_dispatch(cuda_device, T, hd):
     """The kernels a bf16 backward launches, by their names in a
     torch.profiler trace: the wgmma dK/dV and dQ kernels of
-    attention_bwd_sm90.cu at hd 64 and T a multiple of 128, attention.cu's
-    mma.sync ones elsewhere; the dQ kernels form the row terms, so the f32
-    path's row-term kernel does not run."""
-    from torch.profiler import ProfilerActivity, profile
+    attention_bwd_sm90.cu at hd 40 or 64 and T a multiple of 128 (the
+    library's gate agrees), attention.cu's mma.sync ones elsewhere; the dQ
+    kernels form the row terms, so the f32 path's row-term kernel does not
+    run."""
     g = torch.Generator().manual_seed(28)
     q, k, v, do = (torch.randn((32, T, hd), generator=g).to(cuda_device)
                    .bfloat16() for _ in range(4))
     scale = 1.0 / math.sqrt(hd)
     _, lse, o32 = k_attn.attention_forward(q, k, v, scale, with_lse=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        k_attn.attention_backward(q, k, v, o32, lse, do, scale)
-        torch.cuda.synchronize()
-    names = ' '.join(e.key for e in prof.key_averages())
+    names = _kernel_names(lambda: k_attn.attention_backward(
+        q, k, v, o32, lse, do, scale))
     sm90 = (T, hd) in SM90_SHAPES
+    assert k_attn.sm90_supported(T, hd, backward=True) == sm90
     for kernel in ('attention_bwd_dkdv_sm90_kernel',
                    'attention_bwd_dq_sm90_kernel'):
         assert (kernel in names) == sm90, (kernel, names)
@@ -332,6 +362,61 @@ def test_attention_bf16_backward_dispatch(cuda_device, T, hd):
                    'attention_bwd_dq_bf16_kernel'):
         assert (kernel in names) != sm90, (kernel, names)
     assert 'attention_bwd_dot_kernel' not in names
+
+
+def _carved(shape, dtype, device, margin=64):
+    """A tensor of ``shape`` carved out of a NaN-filled buffer with
+    ``margin`` elements (a multiple of 16 bytes) before and after it:
+    (buffer, tensor)."""
+    n = math.prod(shape)
+    buf = torch.full((n + 2 * margin,), float('nan'), dtype=dtype,
+                     device=device)
+    return buf, buf[margin:margin + n].view(shape)
+
+
+@pytest.mark.parametrize('T,hd', [(768, 40), (256, 40), (1024, 64)])
+def test_attention_sm90_stores_stay_in_bounds(cuda_device, T, hd):
+    """The wgmma entries launched directly (attention_fwd_bf16_sm90,
+    attention_bwd_bf16_sm90), every output (o, o32, lse, dq, dk, dv and the
+    row terms D) carved out of a NaN-filled buffer: the margins before and
+    after each stay NaN (no store passes the tensor's last row), and each
+    output holds its plain version to the bounds of
+    test_attention_bf16_kernels_match_plain.  A store past column hd of a
+    row would land in the next row's first columns, after that row's own
+    store in the same warp, and put the zero of a padded column there,
+    which the comparison with the plain version fails."""
+    G, dev = 8, cuda_device
+    g = torch.Generator().manual_seed(31)
+    q, k, v, do = (torch.randn((G, T, hd), generator=g).to(dev).bfloat16()
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(hd)
+    bf, f32 = torch.bfloat16, torch.float32
+    (bo, o), (bo32, o32), (blse, lse) = (
+        _carved((G, T, hd), bf, dev), _carved((G, T, hd), f32, dev),
+        _carved((G, T), f32, dev))
+    _build.launch('attention_fwd_bf16_sm90', dev, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), o32.data_ptr(),
+                  lse.data_ptr(), G, T, hd, scale)
+    grads = [_carved((G, T, hd), bf, dev) for _ in range(3)]
+    bD, D = _carved((G, T), f32, dev)
+    _build.launch('attention_bwd_bf16_sm90', dev, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  *(t.data_ptr() for _, t in grads), D.data_ptr(), G, T, hd,
+                  scale)
+    torch.cuda.synchronize()
+    for buf, t in [(bo, o), (bo32, o32), (blse, lse), (bD, D)] + grads:
+        assert torch.isnan(buf[:64]).all() and torch.isnan(buf[-64:]).all()
+        assert torch.isfinite(t).all()
+    s = k_attn._scores(q, k, scale)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=0,
+                               atol=2e-5)
+    assert _bf16_ulps(o, k_attn.attention_plain(q, k, v, scale)) <= 1.0
+    assert torch.equal(o, o32.bfloat16())
+    ref = k_attn.attention_backward_plain(q, k, v, do, scale)
+    for (_, a), b in zip(grads, ref):
+        assert _bf16_ulps(a, b) <= 2.0
+        assert ((a.float() - b.float()).abs().mean()
+                / b.float().abs().max()).item() <= 1e-5
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
