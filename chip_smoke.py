@@ -202,11 +202,8 @@ from ssdnerf_torch.ops.kernels import (  # noqa: E402
 from ssdnerf_torch.ops.kernels import attention as k_attn  # noqa: E402
 from ssdnerf_torch.ops.kernels import decode as k_dec  # noqa: E402
 from ssdnerf_torch.ops.kernels import march as k_march  # noqa: E402
-from ssdnerf_torch.ops import (  # noqa: E402
-    get_cam_rays, near_far_from_aabb, packbits, t_at_step)
+from ssdnerf_torch.ops import get_cam_rays, near_far_from_aabb  # noqa
 from ssdnerf_torch.ops import packing as ops_packing  # noqa: E402
-from ssdnerf_torch.ops.packing import (  # noqa: E402
-    band_keys_and_payload, banded_windows, pack_groups_banded)
 from ssdnerf_torch.models.autodecoders import base as ad_base  # noqa: E402
 from ssdnerf_torch.models.autodecoders import (  # noqa: E402
     diffusion_nerf as ad_dn)
@@ -217,14 +214,15 @@ from ssdnerf_torch.models.autodecoders.multiscene import (  # noqa: E402
 from ssdnerf_torch.models.autodecoders.base import adam_init  # noqa: E402
 from ssdnerf_torch.models.decoders import renderer as dec_renderer  # noqa
 from ssdnerf_torch.models.decoders.renderer import (  # noqa: E402
-    GROUP_RAYS, density_jitter, dt_bounds, march_samples, slot_samples,
-    volume_render)
+    GROUP_RAYS, density_jitter, volume_render)
 from ssdnerf_torch.models.decoders.triplane import (  # noqa: E402
     TriPlaneDecoder)
 from ssdnerf_torch.runner.hooks import Hook, build_hooks  # noqa: E402
 from ssdnerf_torch.runner.loop import Runner  # noqa: E402
 from ssdnerf_torch.runner.optim import build_optimizers  # noqa: E402
 from ssdnerf_torch.tools import march_scalar_probe  # noqa: E402
+from ssdnerf_torch.tools.decode_profile import (  # noqa: E402
+    BALL_VIEWS, ball_bitfield, ball_layouts, look_at_pose, look_at_views)
 from ssdnerf_torch.tools.march_scalar_probe import median_ms  # noqa: E402
 
 CONFIG = ROOT / 'configs' / 'paper_cfgs' / 'ssdnerf_cars_uncond.py'
@@ -359,21 +357,6 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def look_at_pose(cam_pos):
-    """OpenCV-style camera-to-world pose (x right, y down, z forward)
-    looking at the origin with +y up, as tests/synthetic.py builds it."""
-    cam_pos = np.asarray(cam_pos, np.float32)
-    forward = -cam_pos / np.linalg.norm(cam_pos)
-    right = np.cross(forward, np.array([0.0, 1.0, 0.0], np.float32))
-    right /= np.linalg.norm(right)
-    pose = np.eye(4, dtype=np.float32)
-    pose[:3, 0] = right
-    pose[:3, 1] = np.cross(forward, right)
-    pose[:3, 2] = forward
-    pose[:3, 3] = cam_pos
-    return pose
-
-
 def orbit_cameras(num_scenes, num_views, device):
     """Orbit poses at radius 1.3 looking at the origin, SRN-cars
     intrinsics: (S, V, 4, 4) and (S, V, 4)."""
@@ -422,69 +405,6 @@ def decode_products(C, hidden):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def look_at_views(num_scenes, angles_deg, device, radius=2.55,
-                  height=0.6):
-    """Look-at poses around the origin at ``radius`` (SRN-cars
-    intrinsics): (S, V, 4, 4) and (S, V, 4)."""
-    a = np.radians(angles_deg)
-    poses = np.stack([look_at_pose([radius * math.cos(t), height,
-                                    radius * math.sin(t)]) for t in a])
-    poses = torch.from_numpy(poses).expand(num_scenes, -1, -1, -1)
-    intr = torch.tensor(SRN_INTRINSICS).expand(num_scenes, len(a), 4)
-    return poses.contiguous().to(device), intr.contiguous().to(device)
-
-
-# four views around the ball whose every 128-slot tile of the band layout
-# fits its plane windows (the banded guard holds; 135 and 180 degrees it
-# does not)
-BALL_VIEWS = (45, 90, 225, 270)
-
-
-def ball_bitfield(num_scenes, grid, device):
-    """Occupancy of a ball of radius 0.35 grid (the JAX package's banded
-    test scene, tests/test_packing.py:_camera_scene)."""
-    c = torch.arange(grid) - grid / 2 + 0.5
-    occ = (c[:, None, None] ** 2 + c[None, :, None] ** 2
-           + c[None, None, :] ** 2) < (0.35 * grid) ** 2
-    return packbits(occ.reshape(1, -1).float().expand(num_scenes, -1)
-                    .contiguous(), 0.5).to(device)
-
-
-def ball_layouts(dec, num_scenes, grid, res, device):
-    """The packed layouts of a render of the ball from BALL_VIEWS at
-    128x128, as ``volume_render`` builds them for ``banded_decode``: the
-    ray layout's slots (positions, ray ids, t, dt, validity, segment
-    starts) and the band layout's (positions, ray ids, validity, tile
-    windows and the guard)."""
-    poses, intr = look_at_views(num_scenes, BALL_VIEWS, device)
-    rays_o, rays_d = get_cam_rays(poses, intr, 128, 128)
-    rays_o = rays_o.reshape(num_scenes, -1, 3)
-    rays_d = rays_d.reshape(num_scenes, -1, 3)
-    bitfield = ball_bitfield(num_scenes, grid, device)
-    dt_min, dt_max = dt_bounds(dec.max_steps, grid)
-    with torch.no_grad():
-        t0, dtg, cstep, cvalid = march_samples(dec, rays_o, rays_d,
-                                               bitfield, grid)
-        ts = t_at_step(t0, cstep, dtg[:, None, None], dt_min, dt_max)
-        bandk, payload = band_keys_and_payload(rays_o, rays_d, ts, cvalid,
-                                               dec.bound, res)
-        ray_l, band_l, _, payload_b = pack_groups_banded(
-            cstep, cvalid, bandk, dec.pack_slots, GROUP_RAYS, payload)
-        win, ok = banded_windows(payload_b, res, k_dec.BAND_W, k_dec.TILE)
-        pstep, pvalid, prid, soffs = ray_l
-        pt, pdt, xyz, ray = slot_samples(rays_o, rays_d, t0, dtg, pstep,
-                                         prid, dt_min, dt_max, dec.bound)
-        _, _, xyz_b, ray_b = slot_samples(rays_o, rays_d, t0, dtg,
-                                          band_l[0], band_l[2], dt_min,
-                                          dt_max, dec.bound)
-    S, G, P = pt.shape
-    return dict(rays_d=rays_d, xyz=xyz.reshape(S, G * P, 3).contiguous(),
-                rid=ray, pt=pt, pdt=pdt, pvalid=pvalid,
-                soffs=soffs.to(torch.int32),
-                xyz_b=xyz_b.reshape(S, G * P, 3).contiguous(), rid_b=ray_b,
-                pvalid_b=band_l[1], win=win, ok=bool(ok))
 
 
 # ---------------------------------------------------------------- phases
@@ -926,7 +846,9 @@ def phase_kernels(dev):
 
     # the render variants' kernels on the packed layouts of a coherent
     # render: the ball from BALL_VIEWS, 4 x 128^2 rays a scene, P=512 (4096
-    # groups a scene).  Work and slot bytes are counted on valid slots.
+    # groups a scene).  Work and slot bytes are counted on valid slots;
+    # the fused and banded kernels run the base products on the tensor
+    # cores as the split forward does (csrc/decode_fwd.cuh).
     dec = TriPlaneDecoder(compact_steps=64, march_slots=128, pack_slots=512)
     lay = ball_layouts(dec, S, H, res, dev)
     check(lay['ok'], 'phase 2: the banded guard does not hold on the ball')
@@ -968,17 +890,21 @@ def phase_kernels(dev):
             f'(valid {n_valid}, P=512)',
             lambda: k_dec.triplane_decode_composite(*comp),
             lambda: k_dec.triplane_decode_composite_plain(*comp),
-            (1e-5, 5e-5, 1e-5), n_valid * (decode_flops(C, hidden) + 40),
+            (1e-5, 5e-5, 1e-5), n_valid * (decode_flops(C, hidden)
+                                           - decode_products(C, hidden)
+                                           + 40),
             nbytes(planes, params, dir_l, lay['soffs'], lay['pvalid'])
-            + n_valid * 24 + S * n_rays * 20)
+            + n_valid * 24 + S * n_rays * 20,
+            tensor_flops=3 * n_valid * decode_products(C, hidden))
     band = (planes, lay['xyz_b'], params, hidden, lay['rid_b'], dir_l,
             lay['win'])
     compare('decode_banded', f'decode banded S={S} slots={M_l} '
             f'(valid {n_valid}, P=512)',
             lambda: k_dec.triplane_decode_banded(*band),
             lambda: k_dec.triplane_decode_banded_plain(*band), 1e-5,
-            n_valid * decode_flops(C, hidden),
-            nbytes(planes, params, dir_l, lay['win']) + n_valid * 32)
+            n_valid * (decode_flops(C, hidden) - decode_products(C, hidden)),
+            nbytes(planes, params, dir_l, lay['win']) + n_valid * 32,
+            tensor_flops=3 * n_valid * decode_products(C, hidden))
     # the variants in bf16: per-ray sums (composite) and raw outputs
     # (banded), held as the bf16 decode forward
     comp_b = (planes_b, comp[1], params_b) + comp[3:]
@@ -986,9 +912,11 @@ def phase_kernels(dev):
             f'slots={M_l} (valid {n_valid}, P=512)',
             lambda: k_dec.triplane_decode_composite(*comp_b),
             lambda: k_dec.triplane_decode_composite_plain(*comp_b),
-            2.0 ** -8, n_valid * (decode_flops(C, hidden) + 40),
+            2.0 ** -8, n_valid * (decode_flops(C, hidden)
+                                  - decode_products(C, hidden) + 40),
             nbytes(planes_b, params, dir_l, lay['soffs'], lay['pvalid'])
             + n_valid * 24 + S * n_rays * 20, relative=True,
+            tensor_flops=n_valid * decode_products(C, hidden), passes=1,
             f32_plain=lambda: k_dec.triplane_decode_composite_plain(
                 planes_f, *comp_b[1:]))
     band_b = (planes_b, band[1], params_b) + band[3:]
@@ -996,9 +924,10 @@ def phase_kernels(dev):
             f'(valid {n_valid}, P=512)',
             lambda: k_dec.triplane_decode_banded(*band_b),
             lambda: k_dec.triplane_decode_banded_plain(*band_b), 2.0 ** -8,
-            n_valid * decode_flops(C, hidden),
+            n_valid * (decode_flops(C, hidden) - decode_products(C, hidden)),
             nbytes(planes_b, params, dir_l, lay['win']) + n_valid * 32,
-            relative=True,
+            relative=True, tensor_flops=n_valid * decode_products(C, hidden),
+            passes=1,
             f32_plain=lambda: k_dec.triplane_decode_banded_plain(
                 planes_f, *band_b[1:]))
     return results, lib_kernels

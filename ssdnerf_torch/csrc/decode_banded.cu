@@ -9,34 +9,37 @@
 // axis of the channels-last planes: x for planes xy and xz, y for plane yz)
 // lies outside [w, w + band_w) given weight 0.  Where the caller's guard
 // holds (every tap of every valid sample inside its tile's window), that is
-// exactly the full decode.  Outputs are raw sigma and rgb in the band
-// layout; the caller routes them back to the ray layout.
+// exactly the full decode.  It decodes every slot, valid or not, as the
+// TPU kernel does.  Outputs are raw sigma and rgb in the band layout; the
+// caller routes them back to the ray layout.
 //
 // The TPU kernel contracted hat-function matmuls against a band_w-row
 // slice of the transposed plane, halving its MXU work.  A 4-tap gather has
 // no hat contraction to window, so on Hopper the banding buys locality:
-// the 128 threads of a tile read a band_w x res strip of each plane, which
+// the threads of a tile read a band_w x res strip of each plane, which
 // stays in L1 through the read-only path, where the split decode's
-// scattered slots miss.  Staging the strip in shared memory does not fit
-// in f32: 64 u rows x 128 v rows x C=6 channels is 196 KB for one plane,
-// three planes 590 KB, against 227 KB a block; a staged (bf16, or narrower
-// v range) design is later work.
+// scattered slots miss.
 //
-// A bf16 instance reads bf16 planes (padded to 4-channel taps) and rounds
-// as the Pallas kernel does (triplane.cuh): the windowed hat it rounds is
-// the u axis's, the one the TPU kernel's window cuts.
-//
-// Bound on the H100: the decode's f32 FMAs (~1.5 k MACs a slot), as for
-// decode.cu.  One thread per slot, 256-thread blocks (two tiles), MLP
-// weights in shared memory.
+// What bounds it on the H100: the work of the split forward (decode.cu),
+// whose bottleneck it shares: the SFU's sigmoids and the elementwise
+// instructions of the heads, then the tap reads.  The first design here
+// (one thread a slot, the MLP as f32 FMA loops over weights in shared
+// memory, exact expf and division in SiLU) took 1.5-1.8x the split
+// forward's time on as many slots (PERF.md).  So the kernel is the split
+// forward's warp tiles (decode_fwd.cuh, kWindowed): persistent blocks, the
+// base product on the tensor cores, the heads from the accumulator
+// fragments by quad shuffles, SFU sigmoids.  A 32-sample warp tile lies
+// inside one band tile, so the window is one value a warp tile.  In f32 a
+// plane row is read as one run of two taps, or, where the window edge
+// falls between them, as the inside tap alone; in the bf16 mode
+// triplane.cuh's windowed taps (the windowed hat the bf16 mode rounds is
+// the u axis's, the one the TPU kernel's window cuts).
 
-#include "triplane.cuh"
+#include "decode_fwd.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <int C, bool kB>
+template <int C, int H, bool kB>
 __global__ void __launch_bounds__(kThreads)
 triplane_decode_banded_kernel(const PlaneT<kB>* __restrict__ planes,
                               const float* __restrict__ xyz,
@@ -45,51 +48,12 @@ triplane_decode_banded_kernel(const PlaneT<kB>* __restrict__ planes,
                               const float* __restrict__ params,
                               const int32_t* __restrict__ win,
                               float* __restrict__ sigma,
-                              float* __restrict__ rgb, int M, int n_rays,
-                              int res, int hidden, int tile, int band_w) {
-  constexpr int F = 3 * C;
-  extern __shared__ float w[];
-  const int n_params = hidden * F + 5 * hidden + 4;
-  for (int i = threadIdx.x; i < n_params; i += blockDim.x) w[i] = params[i];
-  __syncthreads();
-
-  const int s = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  const size_t si = (size_t)s * M + i;
-  const int wv = win[(size_t)s * (M / tile) + i / tile];
-  constexpr int CS = kB ? padded_channels<C>() : C;
-  float feat[F];
-  sample_features<C, true, kB>(planes + (size_t)s * 3 * res * res * CS,
-                               xyz[si * 3 + 0], xyz[si * 3 + 1],
-                               xyz[si * 3 + 2], res, feat, wv & 0xFF,
-                               wv >> 8, band_w);
-  float out[4];
-  mlp_forward<C, kB>(w, hidden, feat,
-                 dir_out + ((size_t)s * n_rays + rid[si]) * hidden, out);
-  sigma[si] = out[0];
-  rgb[si * 3 + 0] = out[1];
-  rgb[si * 3 + 1] = out[2];
-  rgb[si * 3 + 2] = out[3];
-}
-
-template <int C, bool kB>
-int launch(const void* planes, const void* xyz, const void* rid,
-           const void* dir_out, const void* params, const void* win,
-           void* sigma, void* rgb, int S, int M, int n_rays, int res,
-           int hidden, int tile, int band_w, cudaStream_t stream) {
-  const int smem = (hidden * 3 * C + 5 * hidden + 4) * (int)sizeof(float);
-  auto kernel = triplane_decode_banded_kernel<C, kB>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((M + kThreads - 1) / kThreads, S);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const PlaneT<kB>*>(planes), static_cast<const float*>(xyz),
-      static_cast<const int32_t*>(rid), static_cast<const float*>(dir_out),
-      static_cast<const float*>(params), static_cast<const int32_t*>(win),
-      static_cast<float*>(sigma), static_cast<float*>(rgb), M, n_rays, res,
-      hidden, tile, band_w);
-  return (int)cudaGetLastError();
+                              float* __restrict__ rgb, int S, int M,
+                              int n_rays, int res, int tile, int band_w) {
+  extern __shared__ uint4 smem[];
+  decode_forward<C, H, kB, true>(smem, planes, xyz, rid, dir_out, params,
+                                 win, sigma, rgb, S, M, n_rays, res, tile,
+                                 band_w);
 }
 
 }  // namespace
@@ -100,8 +64,8 @@ int launch(const void* planes, const void* xyz, const void* rid,
 // f32; params: the packed MLP block; win: (S, M / tile) int32 packed
 // window starts wx | (wy << 8) of each tile of `tile` slots.  Outputs
 // sigma: (S, M) f32; rgb: (S, M, 3) f32, raw.  M must be a multiple of
-// tile.  Returns cudaErrorInvalidValue for a channel count without an
-// instance.
+// tile, and tile of 32.  Returns cudaErrorInvalidValue for a (C, hidden)
+// without an instance (C in {4, 6, 8}, hidden in {32, 64, 128}).
 extern "C" int triplane_decode_banded(const void* planes, const void* xyz,
                                       const void* rid, const void* dir_out,
                                       const void* params, const void* win,
@@ -109,11 +73,17 @@ extern "C" int triplane_decode_banded(const void* planes, const void* xyz,
                                       int n_rays, int res, int C, int hidden,
                                       int tile, int band_w, int bf16,
                                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  auto run = [&](auto c, auto b) {
-    return launch<decltype(c)::value, decltype(b)::value>(
-        planes, xyz, rid, dir_out, params, win, sigma, rgb, S, M, n_rays,
-        res, hidden, tile, band_w, st);
-  };
-  return with_channels(C, bf16, run);
+  if (tile <= 0 || tile % 32 != 0 || M % tile != 0)
+    return (int)cudaErrorInvalidValue;
+  return with_shape(C, hidden, bf16, [&](auto shape) {
+    using Sh = decltype(shape);
+    return launch_persistent(
+        triplane_decode_banded_kernel<Sh::C, Sh::H, Sh::kB>,
+        FwdSmem<Sh::C, Sh::H>::kBytes, S * ((M + kTile - 1) / kTile), stream,
+        static_cast<const PlaneT<Sh::kB>*>(planes),
+        static_cast<const float*>(xyz), static_cast<const int32_t*>(rid),
+        static_cast<const float*>(dir_out), static_cast<const float*>(params),
+        static_cast<const int32_t*>(win), static_cast<float*>(sigma),
+        static_cast<float*>(rgb), S, M, n_rays, res, tile, band_w);
+  });
 }

@@ -1,7 +1,7 @@
 // Per-point triplane decode helpers shared by the decode kernels
-// (decode.cu, decode_composite.cu, decode_banded.cu): the bilinear taps of
-// the three channels-last planes and the decoder MLP, in f32 or in the bf16
-// operand mode (kB).
+// (decode_fwd.cuh, decode.cu): the bilinear taps of the three
+// channels-last planes, in f32 or in the bf16 operand mode (kB), and the
+// bf16 mode's features (the f32 ones are decode_fwd.cuh:load_features).
 //
 // The bf16 mode rounds where the Pallas kernels round
 // (ssdnerf_tpu/ops/pallas/decode.py:_sample_feats, _fwd_tail): planes are
@@ -61,10 +61,6 @@ __device__ __forceinline__ void load_tap_bf16(const __nv_bfloat16* p,
     v[c] = __uint_as_float(c & 1 ? w[c / 2] & 0xffff0000u : w[c / 2] << 16);
 }
 
-__device__ __forceinline__ float silu(float x) {
-  return x / (1.0f + expf(-x));
-}
-
 // The taps and the weight of the second tap of coordinate c along an axis
 // of res pixels.  The bf16 mode (kB) forms the pixel coordinate without a
 // fused multiply-add, as the plain version rounds each step, since its
@@ -88,7 +84,7 @@ __device__ __forceinline__ void plane_uv(int p, float x, float y, float z,
 }
 
 // The bf16 mode's features of plane p at one point (module comment):
-// feat[c * 3 + p], rounded to bf16.  kWindowed as sample_features.
+// feat[c * 3 + p], rounded to bf16.  kWindowed as sample_features_bf16.
 template <int C, bool kWindowed>
 __device__ __forceinline__ void sample_plane_bf16(
     const __nv_bfloat16* __restrict__ P, int u0, int u1, int v0, int v1,
@@ -117,97 +113,28 @@ __device__ __forceinline__ void sample_plane_bf16(
   }
 }
 
-// The 3C bilinear features of one point, column order c * 3 + p.
-// planes_s: one scene's (3, res, res, C) channels-last planes (CP channels
-// in bf16).  kWindowed: a tap whose u index lies outside the plane's
-// window [lo, lo + band_w) (lo = wx for planes xy and xz, wy for plane yz)
-// has weight 0 and is not read.
-template <int C, bool kWindowed = false, bool kB = false>
-__device__ __forceinline__ void sample_features(
-    const PlaneT<kB>* __restrict__ planes_s, float x, float y, float z,
+// The bf16 mode's 3C bilinear features of one point, column order c * 3 +
+// p, rounded to bf16.  planes_s: one scene's (3, res, res, CP)
+// channels-last bf16 planes.  kWindowed: a tap whose u index lies outside
+// the plane's window [lo, lo + band_w) (lo = wx for planes xy and xz, wy
+// for plane yz) has weight 0 and is not read.
+template <int C, bool kWindowed = false>
+__device__ __forceinline__ void sample_features_bf16(
+    const __nv_bfloat16* __restrict__ planes_s, float x, float y, float z,
     int res, float* feat, int wx = 0, int wy = 0, int band_w = 0) {
-  constexpr int CS = kB ? padded_channels<C>() : C;
+  constexpr int CP = padded_channels<C>();
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
     float cu, cv;
     plane_uv(p, x, y, z, cu, cv);
     int u0, u1, v0, v1;
     float wu, wv;
-    pixel<kB>(cu, res, u0, u1, wu);
-    pixel<kB>(cv, res, v0, v1, wv);
-    if constexpr (kB) {
-      sample_plane_bf16<C, kWindowed>(planes_s + (size_t)p * res * res * CS,
-                                      u0, u1, v0, v1, wu, wv, res, p, feat,
-                                      p < 2 ? wx : wy, band_w);
-    } else {
-      const float* P = planes_s + (size_t)p * res * res * C;
-      const float* p00 = P + ((size_t)v0 * res + u0) * C;
-      const float* p01 = P + ((size_t)v0 * res + u1) * C;
-      const float* p10 = P + ((size_t)v1 * res + u0) * C;
-      const float* p11 = P + ((size_t)v1 * res + u1) * C;
-      if (!kWindowed) {
-        const float au = 1.0f - wu, av = 1.0f - wv;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          feat[c * 3 + p] = av * (au * p00[c] + wu * p01[c]) +
-                            wv * (au * p10[c] + wu * p11[c]);
-        }
-      } else {
-        const int lo = p < 2 ? wx : wy;
-        const bool in0 = u0 >= lo && u0 < lo + band_w;
-        const bool in1 = u1 >= lo && u1 < lo + band_w;
-        const float au = in0 ? 1.0f - wu : 0.0f, av = 1.0f - wv;
-        const float bu = in1 ? wu : 0.0f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float t00 = in0 ? p00[c] : 0.0f, t10 = in0 ? p10[c] : 0.0f;
-          const float t01 = in1 ? p01[c] : 0.0f, t11 = in1 ? p11[c] : 0.0f;
-          feat[c * 3 + p] = av * (au * t00 + bu * t01) +
-                            wv * (au * t10 + bu * t11);
-        }
-      }
-    }
+    pixel<true>(cu, res, u0, u1, wu);
+    pixel<true>(cv, res, v0, v1, wv);
+    sample_plane_bf16<C, kWindowed>(planes_s + (size_t)p * res * res * CP,
+                                    u0, u1, v0, v1, wu, wv, res, p, feat,
+                                    p < 2 ? wx : wy, band_w);
   }
-}
-
-// The decoder MLP of one point from its 3C features: raw density out[0]
-// and, when dir (the ray's dir_out row) is not null, raw colour out[1..3].
-// w: the parameter block (see ops/kernels/decode.py:pack_params), in
-// shared memory: base weight (hidden, 3C), base bias, density weight,
-// colour weight (3, hidden), [density bias, colour bias (3)].  kB rounds
-// dir, SiLU(base) and SiLU(base + dir) to bf16 (the features come
-// rounded).
-template <int C, bool kB = false>
-__device__ __forceinline__ void mlp_forward(const float* w, int hidden,
-                                            const float* feat,
-                                            const float* dir, float* out) {
-  constexpr int F = 3 * C;
-  const float* wb = w;                    // (hidden, F)
-  const float* bb = wb + hidden * F;      // (hidden,)
-  const float* wd = bb + hidden;          // (hidden,)
-  const float* wc = wd + hidden;          // (3, hidden)
-  const float* bd_bc = wc + 3 * hidden;   // [bd, bc0, bc1, bc2]
-  const bool colour = dir != nullptr;
-  float sig = bd_bc[0];
-  float r = bd_bc[1], g = bd_bc[2], b = bd_bc[3];
-  for (int h = 0; h < hidden; ++h) {
-    float a = bb[h];
-#pragma unroll
-    for (int f = 0; f < F; ++f) a += wb[h * F + f] * feat[f];
-    const float bx = silu(a);
-    sig += wd[h] * (kB ? round_bf16(bx) : bx);
-    if (colour) {
-      const float c = silu(a + (kB ? round_bf16(dir[h]) : dir[h]));
-      const float cx = kB ? round_bf16(c) : c;
-      r += wc[h] * cx;
-      g += wc[hidden + h] * cx;
-      b += wc[2 * hidden + h] * cx;
-    }
-  }
-  out[0] = sig;
-  out[1] = r;
-  out[2] = g;
-  out[3] = b;
 }
 
 // fn(std::integral_constant<int, C>, std::integral_constant<bool, kB>) for

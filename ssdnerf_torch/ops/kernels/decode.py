@@ -5,7 +5,8 @@ and of its backward, and of the two forward-only variants of the packed
 render: ``triplane_decode_composite`` (decode fused with the packed alpha
 composite, ``csrc/decode_composite.cu``) and ``triplane_decode_banded``
 (decode of the band-sorted layout with per-tile plane windows,
-``csrc/decode_banded.cu``).
+``csrc/decode_banded.cu``); all three forwards run the warp tiles of
+``csrc/decode_fwd.cuh``.
 Per sample: bilinear features of the three planes (border clamp,
 ``align_corners=False``), in column order ``c * 3 + p`` (the order of the
 reference decoder and of the JAX XLA path, so ``base_net`` weights load
@@ -395,8 +396,9 @@ def triplane_decode_composite(planes, xyz, params, hidden, rid, dir_out, pt,
         weights_sum, depth (S, G * group_rays) and image (S, G *
         group_rays, 3) f32, the per-ray sums of ``composite_packed``.  CPU
         tensors take the plain version; CUDA tensors launch
-        ``csrc/decode_composite.cu`` (or raise).  Raises where autograd
-        would need a gradient of planes, params or dir_out.
+        ``csrc/decode_composite.cu`` (or raise, also for a hidden width
+        without an instance).  Raises where autograd would need a gradient
+        of planes, params or dir_out.
     """
     _forward_only('triplane_decode_composite', planes, params, dir_out)
     if planes.device.type == 'cpu':
@@ -418,6 +420,7 @@ def triplane_decode_composite(planes, xyz, params, hidden, rid, dir_out, pt,
                          '(S, G, P) with P a multiple of 8 up to 4096, xyz '
                          '(S, G * P, 3), soffs (S, G, group_rays) and '
                          'dir_out (S, G * group_rays, hidden)')
+    _check_hidden('triplane_decode_composite', hidden)
     dev = planes.device
     weights_sum = torch.empty((S, n_rays), dtype=torch.float32, device=dev)
     depth = torch.empty_like(weights_sum)
@@ -460,8 +463,9 @@ def triplane_decode_banded(planes, xyz, params, hidden, rid, dir_out, win):
         outside its tile's window (x window for planes xy and xz, y window
         for yz, BAND_W rows) given weight 0 -- the same values wherever the
         windows cover the taps.  CPU tensors take the plain version; CUDA
-        tensors launch ``csrc/decode_banded.cu`` (or raise).  Raises where
-        autograd would need a gradient of planes, params or dir_out.
+        tensors launch ``csrc/decode_banded.cu`` (or raise, also for a
+        hidden width without an instance).  Raises where autograd would
+        need a gradient of planes, params or dir_out.
     """
     _forward_only('triplane_decode_banded', planes, params, dir_out)
     if planes.device.type == 'cpu':
@@ -475,6 +479,7 @@ def triplane_decode_banded(planes, xyz, params, hidden, rid, dir_out, win):
     if M % TILE or win.shape != (S, M // TILE) or res < BAND_W:
         raise ValueError(f'triplane_decode_banded: needs M a multiple of '
                          f'{TILE}, win (S, M // {TILE}) and res >= {BAND_W}')
+    _check_hidden('triplane_decode_banded', hidden)
     sigma = torch.empty((S, M), dtype=torch.float32, device=planes.device)
     rgb = torch.empty((S, M, 3), dtype=torch.float32, device=planes.device)
     pk, bf16 = _kernel_planes(planes)

@@ -1,7 +1,8 @@
 """Where the decode kernels' time goes, on the card, without a profiler.
 
 ``ncu`` and ``nsys`` may be unavailable where the card is; this tool takes
-their place for ``csrc/decode.cu``:
+their place for the decode kernels (``csrc/decode.cu``,
+``csrc/decode_composite.cu``, ``csrc/decode_banded.cu``):
 
 * SASS counts: ``cuobjdump -sass`` of a build, and for each instance of
   the decode kernels the instructions of every innermost loop (a backward
@@ -25,11 +26,19 @@ to ``--out``.  It also holds the forward's time at the training shape and
 on 8 x 64^3 points of a density-only decode (uniform random, and in the
 density-grid update's order), and, for the package's
 own sources, the kernels' errors against the plain version in f32 and
-f64.
+f64.  On the packed layouts of ``chip_smoke.py`` phase 2 (a ball seen by 4
+look-at views of 128x128 in each of 8 scenes, P = 512) it times the split
+forward over every slot, the fused decode + composite and the banded
+decode, f32 and bf16, from ``--csrc``'s sources and, where those are
+another copy, from the package's own, in turns (``--csrc``'s, the
+package's, the package's, ``--csrc``'s), with ptxas's registers and
+spills of both builds.
 """
 import argparse
 import ctypes
+import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -38,11 +47,22 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from ..models.decoders.renderer import (GROUP_RAYS, dt_bounds,
+                                        march_samples, slot_samples)
+from ..models.decoders.triplane import TriPlaneDecoder
+from ..ops import get_cam_rays, packbits, t_at_step
 from ..ops.kernels import _build
+from ..ops.kernels import decode as k_dec
+from ..ops.packing import (band_keys_and_payload, banded_windows,
+                           pack_groups_banded)
 
-KERNELS = ('triplane_decode_kernel', 'triplane_decode_bwd_kernel')
+DECODE_SOURCES = ('decode.cu', 'decode_composite.cu', 'decode_banded.cu')
+KERNELS = ('triplane_decode_kernel', 'triplane_decode_bwd_kernel',
+           'triplane_decode_composite_kernel',
+           'triplane_decode_banded_kernel')
 RAGGED = dict(S=2, n_rays=25, K=40)   # 1000 samples a scene: a partial tile
 CLASSES = {'LDS': r'LDS', 'FFMA': r'FFMA', 'HMMA': r'HMMA',
            'RED/ATOM': r'(RED|ATOM)G?', 'LDG': r'LDG'}
@@ -137,8 +157,9 @@ def parse_sass(text):
     return out
 
 
-def _build_one(src_dir, name, edits):
-    """decode.cu of ``src_dir`` with ``edits`` applied, built alone into
+def _build_one(src_dir, name, edits, sources=('decode.cu',)):
+    """``sources`` of ``src_dir`` (those it has), decode.cu with ``edits``
+    applied, each compiled by its own nvcc, all at once, and linked into
     build/variants/<name>/; returns (library path, ptxas log) or None when
     an edit does not apply."""
     out = _build.BUILD_DIR.parent / 'variants' / name
@@ -146,7 +167,10 @@ def _build_one(src_dir, name, edits):
     out.mkdir(parents=True)
     for f in Path(src_dir).glob('*.cuh'):
         shutil.copy(f, out)
-    code = (Path(src_dir) / 'decode.cu').read_text()
+    srcs = [s for s in sources if (Path(src_dir) / s).exists()]
+    for s in srcs:
+        shutil.copy(Path(src_dir) / s, out)
+    code = (out / 'decode.cu').read_text()
     if edits:
         edits = next((e for e in edits if all(o in code for o, _ in e)),
                      None)
@@ -156,13 +180,26 @@ def _build_one(src_dir, name, edits):
             code = code.replace(old, new)
     (out / 'decode.cu').write_text(code)
     lib = out / 'libdecode.so'
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-shared',
-                           '-o', str(lib), str(out / 'decode.cu')],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f'nvcc failed for variant {name}:\n'
-                           f'{proc.stdout}{proc.stderr}')
-    return lib, proc.stdout + proc.stderr
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, '-c',
+                               '-o', str(out / f'{s}.o'), str(out / s)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s in srcs]
+    log = ''.join(p.communicate()[0] for p in procs)
+    if not any(p.returncode for p in procs):
+        link = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS[:2], '-shared', '-o',
+             str(lib), *(str(out / f'{s}.o') for s in srcs)],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+    if any(p.returncode for p in procs) or not lib.exists():
+        raise RuntimeError(f'nvcc failed for variant {name}:\n{log}')
+    return lib, log
+
+
+def _full_build(src_dir, name):
+    """All decode sources of ``src_dir`` in one library."""
+    return _build_one(src_dir, name, [], sources=DECODE_SOURCES)
 
 
 def training_inputs(device, seed=0, S=8, n_rays=4096, K=64):
@@ -268,7 +305,6 @@ def precision(inp):
     the wrappers of ops/kernels/decode.py) against the plain version in
     f32 and in f64, at the training shape: the forward's max |error|; the
     backward's max |error| / max |reference| for each gradient."""
-    from ..ops.kernels import decode as k_dec
     args = [inp[k] for k in ('planes', 'xyz', 'params')]
     h, rid, d, g = inp['hidden'], inp['rid'], inp['dir_out'], (
         inp['g_sigma'], inp['g_rgb'])
@@ -291,29 +327,206 @@ def precision(inp):
     return out
 
 
-def ptxas_lines(log):
-    """The ptxas lines of the decode kernels (usage follows the line that
-    names the function)."""
-    lines, keep = [], False
+# SRN-cars intrinsics (fx, fy, cx, cy) of a 128x128 view
+SRN_INTRINSICS = (131.25, 131.25, 64.0, 64.0)
+
+
+def look_at_pose(cam_pos):
+    """OpenCV-style camera-to-world pose (x right, y down, z forward)
+    looking at the origin with +y up, as tests/synthetic.py builds it."""
+    cam_pos = np.asarray(cam_pos, np.float32)
+    forward = -cam_pos / np.linalg.norm(cam_pos)
+    right = np.cross(forward, np.array([0.0, 1.0, 0.0], np.float32))
+    right /= np.linalg.norm(right)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 0] = right
+    pose[:3, 1] = np.cross(forward, right)
+    pose[:3, 2] = forward
+    pose[:3, 3] = cam_pos
+    return pose
+
+
+def look_at_views(num_scenes, angles_deg, device, radius=2.55,
+                  height=0.6):
+    """Look-at poses around the origin at ``radius`` (SRN-cars
+    intrinsics): (S, V, 4, 4) and (S, V, 4)."""
+    a = np.radians(angles_deg)
+    poses = np.stack([look_at_pose([radius * math.cos(t), height,
+                                    radius * math.sin(t)]) for t in a])
+    poses = torch.from_numpy(poses).expand(num_scenes, -1, -1, -1)
+    intr = torch.tensor(SRN_INTRINSICS).expand(num_scenes, len(a), 4)
+    return poses.contiguous().to(device), intr.contiguous().to(device)
+
+
+# four views around the ball whose every 128-slot tile of the band layout
+# fits its plane windows (the banded guard holds; 135 and 180 degrees it
+# does not)
+BALL_VIEWS = (45, 90, 225, 270)
+
+
+def ball_bitfield(num_scenes, grid, device):
+    """Occupancy of a ball of radius 0.35 grid (the JAX package's banded
+    test scene, tests/test_packing.py:_camera_scene)."""
+    c = torch.arange(grid) - grid / 2 + 0.5
+    occ = (c[:, None, None] ** 2 + c[None, :, None] ** 2
+           + c[None, None, :] ** 2) < (0.35 * grid) ** 2
+    return packbits(occ.reshape(1, -1).float().expand(num_scenes, -1)
+                    .contiguous(), 0.5).to(device)
+
+
+def ball_layouts(dec, num_scenes, grid, res, device):
+    """The packed layouts of a render of the ball from BALL_VIEWS at
+    128x128, as ``volume_render`` builds them for ``banded_decode``: the
+    ray layout's slots (positions, ray ids, t, dt, validity, segment
+    starts) and the band layout's (positions, ray ids, validity, tile
+    windows and the guard)."""
+    poses, intr = look_at_views(num_scenes, BALL_VIEWS, device)
+    rays_o, rays_d = get_cam_rays(poses, intr, 128, 128)
+    rays_o = rays_o.reshape(num_scenes, -1, 3)
+    rays_d = rays_d.reshape(num_scenes, -1, 3)
+    bitfield = ball_bitfield(num_scenes, grid, device)
+    dt_min, dt_max = dt_bounds(dec.max_steps, grid)
+    with torch.no_grad():
+        t0, dtg, cstep, cvalid = march_samples(dec, rays_o, rays_d,
+                                               bitfield, grid)
+        ts = t_at_step(t0, cstep, dtg[:, None, None], dt_min, dt_max)
+        bandk, payload = band_keys_and_payload(rays_o, rays_d, ts, cvalid,
+                                               dec.bound, res)
+        ray_l, band_l, _, payload_b = pack_groups_banded(
+            cstep, cvalid, bandk, dec.pack_slots, GROUP_RAYS, payload)
+        win, ok = banded_windows(payload_b, res, k_dec.BAND_W, k_dec.TILE)
+        pstep, pvalid, prid, soffs = ray_l
+        pt, pdt, xyz, ray = slot_samples(rays_o, rays_d, t0, dtg, pstep,
+                                         prid, dt_min, dt_max, dec.bound)
+        _, _, xyz_b, ray_b = slot_samples(rays_o, rays_d, t0, dtg,
+                                          band_l[0], band_l[2], dt_min,
+                                          dt_max, dec.bound)
+    S, G, P = pt.shape
+    return dict(rays_d=rays_d, xyz=xyz.reshape(S, G * P, 3).contiguous(),
+                rid=ray, pt=pt, pdt=pdt, pvalid=pvalid,
+                soffs=soffs.to(torch.int32),
+                xyz_b=xyz_b.reshape(S, G * P, 3).contiguous(), rid_b=ray_b,
+                pvalid_b=band_l[1], win=win, ok=bool(ok))
+
+
+def ball_inputs(device, seed=0):
+    """The operands of ``chip_smoke.py`` phase 2's ball rows: the layouts
+    of :func:`ball_layouts` for 8 scenes at the flagship width (64^3 grid,
+    3 x 6 x 128^2 planes, hidden 64, P = 512), seeded random planes, MLP
+    block and per-ray dir_out, with the bf16 mode's operands beside."""
+    S, grid, C, res, hidden = 8, 64, 6, 128, 64
+    dec = TriPlaneDecoder(compact_steps=64, march_slots=128, pack_slots=512)
+    lay = ball_layouts(dec, S, grid, res, device)
+    g = torch.Generator().manual_seed(seed)
+    planes = torch.randn((S, 3, res, res, C), generator=g).to(device)
+    params = (torch.randn(hidden * 3 * C + 5 * hidden + 4, generator=g)
+              * 0.2).to(device)
+    dir_out = (torch.randn((S, lay['rays_d'].shape[1], hidden),
+                           generator=g) * 0.3).to(device)
+    planes_b, _ = k_dec._kernel_planes(planes.bfloat16())
+    params_b = k_dec.round_weights(params, hidden, 3 * C).contiguous()
+    return dict(lay, planes=planes, params=params, planes_b=planes_b,
+                params_b=params_b, dir_out=dir_out, S=S, res=res, C=C,
+                hidden=hidden)
+
+
+def render_calls(lib, inp):
+    """{row: call} of library ``lib``'s split forward over every slot of
+    the ray layout, fused decode + composite and banded decode on
+    :func:`ball_inputs`, each in f32 and in the bf16 mode."""
+    fwd = _entry(lib, 'triplane_decode')
+    comp = _entry(lib, 'triplane_decode_composite')
+    band = _entry(lib, 'triplane_decode_banded')
+    S, G, P = inp['pt'].shape
+    M, n_rays = G * P, inp['dir_out'].shape[1]
+    dev = inp['pt'].device
+    sigma = torch.empty((S, M), device=dev)
+    rgb = torch.empty((S, M, 3), device=dev)
+    ray = [torch.empty((S, n_rays), device=dev) for _ in range(2)]
+    image = torch.empty((S, n_rays, 3), device=dev)
+    ptr = lambda *k: [inp[x].data_ptr() for x in k]
+    calls = {}
+    for mode, bf16 in (('f32', 0), ('bf16', 1)):
+        planes, params = ((inp['planes'], inp['params']) if not bf16 else
+                          (inp['planes_b'], inp['params_b']))
+        common = (inp['res'], inp['C'], inp['hidden'])
+        calls[f'forward_{mode}'] = functools.partial(
+            fwd, planes.data_ptr(), *ptr('xyz', 'rid', 'dir_out'),
+            params.data_ptr(), sigma.data_ptr(), rgb.data_ptr(), S, M,
+            n_rays, *common, bf16)
+        calls[f'composite_{mode}'] = functools.partial(
+            comp, planes.data_ptr(), *ptr('xyz', 'rid', 'dir_out'),
+            params.data_ptr(), *ptr('pt', 'pdt', 'pvalid', 'soffs'),
+            ray[0].data_ptr(), ray[1].data_ptr(), image.data_ptr(), S, G, P,
+            GROUP_RAYS, *common, bf16, 1.002, 0.001, 1e-4)
+        calls[f'banded_{mode}'] = functools.partial(
+            band, planes.data_ptr(), *ptr('xyz_b', 'rid_b', 'dir_out'),
+            params.data_ptr(), inp['win'].data_ptr(), sigma.data_ptr(),
+            rgb.data_ptr(), S, M, n_rays, inp['res'], inp['C'],
+            inp['hidden'], k_dec.TILE, k_dec.BAND_W, bf16)
+    return calls
+
+
+def time_render(libs, inp, rounds=2):
+    """{row: {name: [device ms, ...]}} of :func:`render_calls` for each
+    library of ``libs`` ({name: path}), in turns: the names in order, then
+    reversed, ``rounds`` times."""
+    calls = {n: render_calls(lib, inp) for n, lib in libs.items()}
+    order = list(libs) + list(libs)[::-1]
+    out = {row: {n: [] for n in libs} for row in calls[order[0]]}
+    for _ in range(rounds):
+        for n in order:
+            for row, call in calls[n].items():
+                out[row][n].append(_device_ms(call))
+    return out
+
+
+def ptxas_usage(log):
+    """{kernel: {'registers', 'spill_stores', 'spill_loads'}} of the
+    decode kernels in a ``ptxas -v`` log (usage follows the line that
+    names the function; names are the mangled ones)."""
+    out, cur = {}, None
     for line in log.splitlines():
-        if 'Compiling entry function' in line or 'Function properties' in line:
-            keep = any(k in line for k in KERNELS)
-        if keep and ('registers' in line or 'spill' in line
-                     or 'Compiling' in line):
-            lines.append(line.strip())
-    return lines
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = m.group(1) if any(k in m.group(1) for k in KERNELS) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out.setdefault(cur, {})['registers'] = int(m.group(1))
+    return out
+
+
+def _medians(times):
+    """{row: {name: median}} of :func:`time_render`'s lists."""
+    return {row: {n: statistics.median(v) for n, v in by.items()}
+            for row, by in times.items()}
 
 
 def run(csrc, rounds=2):
-    """SASS counts and ptxas lines of ``csrc``'s decode.cu, the
+    """SASS counts and ptxas usage of ``csrc``'s decode kernels, the
     backward's time with each variant, in turns (base, variants...,
-    repeated ``rounds`` times), and, when ``csrc`` is the package's own
-    sources, the kernels' errors (:func:`precision`)."""
-    names = ['base'] + list(VARIANTS)
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(
-            lambda n: _build_one(csrc, n, [] if n == 'base'
-                                 else VARIANTS[n]), names)))
+    repeated ``rounds`` times), the ball rows of :func:`time_render` for
+    ``csrc``'s build and, where ``csrc`` is another copy, the package's
+    own, and, when ``csrc`` is the package's own sources, the kernels'
+    errors (:func:`precision`)."""
+    same = Path(csrc).resolve() == _build.CSRC.resolve()
+    jobs = {'base': lambda: _full_build(csrc, 'base')}
+    jobs.update({n: functools.partial(_build_one, csrc, n, e)
+                 for n, e in VARIANTS.items()})
+    if not same:
+        jobs['tree'] = lambda: _full_build(_build.CSRC, 'tree')
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(lambda f: f(), jobs.values())))
+    tree = built.pop('tree', None)
     inp = training_inputs('cuda')
     dens = density_inputs(inp)
     grid = density_inputs(inp, ordered=True)
@@ -328,18 +541,22 @@ def run(csrc, rounds=2):
         fwd['density_grid_order'].append(
             time_forward(built['base'][0], grid, colour=False))
     base_lib, base_log = built['base']
-    same = Path(csrc).resolve() == _build.CSRC.resolve()
+    libs = {'csrc': base_lib} if same else {'csrc': base_lib,
+                                            'tree': tree[0]}
+    render = time_render(libs, ball_inputs('cuda'), rounds)
     return dict(
         device=torch.cuda.get_device_name(0), csrc=str(csrc),
         precision=dict(
             training=precision(inp),
             ragged=precision(training_inputs('cuda', **RAGGED))) if same
         else None,
-        sass=sass_counts(base_lib), ptxas=ptxas_lines(base_log),
-        variant_ptxas={n: ptxas_lines(b[1]) for n, b in built.items()
+        sass=sass_counts(base_lib), ptxas=ptxas_usage(base_log),
+        tree_ptxas=None if same else ptxas_usage(tree[1]),
+        variant_ptxas={n: ptxas_usage(b[1]) for n, b in built.items()
                        if b is not None and n != 'base'},
         not_applicable=[n for n, b in built.items() if b is None],
-        backward_ms=times, forward_ms=fwd)
+        backward_ms=times, forward_ms=fwd, ball_ms=render,
+        ball_median_ms=_medians(render))
 
 
 def main():

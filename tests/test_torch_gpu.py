@@ -739,7 +739,8 @@ def test_kernels_raise_instead_of_falling_back(cuda_device):
                            [1:].view(2, 64, 64) for _ in range(3)), 0.1)
 
 
-def _packed_layout(device, S=2, R=4096, K=64, P=512, seed=17):
+def _packed_layout(device, S=2, R=4096, K=64, P=512, seed=17, C=6,
+                   hidden=64):
     """A truncating packed layout (16-ray groups, random valid counts) with
     per-slot positions, t and dt, planes, weights and dir_out."""
     from ssdnerf_torch.ops.packing import pack_groups
@@ -750,7 +751,7 @@ def _packed_layout(device, S=2, R=4096, K=64, P=512, seed=17):
     _, pvalid, prid, soffs = pack_groups(comp_step, comp_valid, P, 16)
     G = R // 16
     planes, _, params, _, dir_out, _, _ = _decode_operands(
-        'cpu', 6, 64, 8, R, True, S, seed)
+        'cpu', C, hidden, 8, R, True, S, seed)
     xyz = torch.rand((S, G * P, 3), generator=g) * 2 - 1
     pt = torch.cumsum(torch.rand((S, G, P), generator=g), -1) * 0.01 + 0.5
     pdt = torch.rand((S, G, P), generator=g) * 0.1 + 0.01
@@ -767,16 +768,28 @@ def test_decode_composite_kernel_matches_plain(cuda_device, dtype):
     path) on the card, on a truncating layout of 2 x 4096 rays, P=512:
     f32 weights_sum and image atol 1e-5, depth 5e-5 (f32 sums in another
     order); bf16 as ``_bf16_close``; one launch of the dtype's kernel."""
-    ops = _packed_layout(cuda_device)
+    got, ref = _composite_call(cuda_device, dtype, _packed_layout('cpu'))
+    assert ref[0].max() > 0.1 and (ref[0] == 0).any()
+    _assert_composite(got, ref, dtype)
+
+
+def _composite_call(device, dtype, ops, group_rays=16):
+    """The fused kernel's and its plain version's per-ray sums on the
+    :func:`_packed_layout`-ordered operands ``ops`` (bf16 operands for
+    ``dtype`` bfloat16); one launch of the dtype's kernel is checked."""
+    ops = [t.contiguous().to(device) for t in ops]
+    hidden = ops[4].shape[-1]
     if dtype == 'bfloat16':
-        ops[0], ops[2] = _as_bf16(ops[0], ops[2], 64)
-    args = ops[:2] + [ops[2], 64] + ops[3:] + [16, 0.001, 1e-4]
+        ops[0], ops[2] = _as_bf16(ops[0], ops[2], hidden)
+    args = ops[:2] + [ops[2], hidden] + ops[3:] + [group_rays, 0.001, 1e-4]
     attr = 'launches' if dtype == 'float32' else 'launches_bf16'
     before = getattr(k_dec.triplane_decode_composite, attr)
     got = k_dec.triplane_decode_composite(*args)
     assert getattr(k_dec.triplane_decode_composite, attr) == before + 1
-    ref = k_dec.triplane_decode_composite_plain(*args)
-    assert ref[0].max() > 0.1 and (ref[0] == 0).any()
+    return got, k_dec.triplane_decode_composite_plain(*args)
+
+
+def _assert_composite(got, ref, dtype):
     for a, b, atol in zip(got, ref, (1e-5, 5e-5, 1e-5)):
         if dtype == 'float32':
             torch.testing.assert_close(a, b, rtol=0, atol=atol)
@@ -785,15 +798,109 @@ def test_decode_composite_kernel_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('shift', [0, 64])
-def test_decode_banded_kernel_matches_plain(cuda_device, shift, dtype):
-    """The banded kernel vs its plain version on tile-coherent points
-    whose taps fit their windows (shift 0), and with every x window moved
-    off its taps (shift 64, those taps count zero): f32 atol 1e-5, bf16
-    as ``_bf16_close``."""
-    g = torch.Generator().manual_seed(18)
-    S, M, res = 2, 128 * 96, 128
-    n_tiles = M // 128
+@pytest.mark.parametrize('saturated', [False, True])
+def test_decode_composite_edge_layouts(cuda_device, dtype, saturated):
+    """The fused kernel on hand-made groups (P = 512, 16 rays): group 0
+    one ray over all 512 slots (its scan carried across 16 chunks), with
+    holes, the other 15 fully truncated (soffs == P); group 1 all invalid;
+    groups 2-3 segments of random lengths and valid counts.  Saturated:
+    the density bias at 100, so exp overflows and every tau reaches the
+    cap of 60.  Against the plain version as
+    ``test_decode_composite_kernel_matches_plain``; truncated rays and the
+    invalid group give exact zeros; saturated rays with a valid slot weigh
+    exactly 1."""
+    g = torch.Generator().manual_seed(27)
+    S, G, P, GR, hidden = 2, 4, 512, 16, 64
+    soffs = torch.full((S, G, GR), P, dtype=torch.int32)
+    soffs[:, 0, 0] = 0
+    soffs[:, 1] = torch.arange(GR, dtype=torch.int32) * 32
+    cuts = torch.sort(torch.randint(0, P // 8 + 1, (S, 2, GR - 1),
+                                    generator=g), -1).values * 8
+    soffs[:, 2:, 1:] = cuts.to(torch.int32)
+    soffs[:, 2:, 0] = 0
+    pvalid = torch.rand((S, G, P), generator=g) < 0.8
+    pvalid[:, 1] = False
+    # the ray of each slot: the last segment that starts at or before it
+    prid = (torch.arange(P)[None, None, :, None]
+            >= soffs[..., None, :].long()).sum(-1) - 1
+    rid = (prid + GR * torch.arange(G)[:, None]).reshape(
+        S, G * P).to(torch.int32)
+    planes, _, params, _, dir_out, _, _ = _decode_operands(
+        'cpu', 6, hidden, 8, G * GR, True, S, 28)
+    if saturated:
+        params[hidden * 18 + 5 * hidden] = 100.0
+    xyz = torch.rand((S, G * P, 3), generator=g) * 2 - 1
+    pt = torch.cumsum(torch.rand((S, G, P), generator=g), -1) * 0.01 + 0.5
+    pdt = torch.rand((S, G, P), generator=g) * 0.1 + 0.01
+    got, ref = _composite_call(cuda_device, dtype, [
+        planes, xyz, params, rid, dir_out, pt, pdt, pvalid, soffs])
+    _assert_composite(got, ref, dtype)
+    ws = got[0].reshape(S, G, GR).cpu()
+    img = got[2].reshape(S, G, GR, 3).cpu()
+    assert (ws[:, 0, 1:] == 0).all() and (img[:, 0, 1:] == 0).all()
+    assert (ws[:, 1] == 0).all() and (img[:, 1] == 0).all()
+    if saturated:
+        live = torch.zeros((S, G, GR)).scatter_add_(
+            2, prid, pvalid.float()) > 0
+        assert (ws[live] == 1).all() and (ws[~live] == 0).all()
+    else:
+        assert ws[:, 0, 0].min() > 0.1
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('C', [4, 6, 8])
+@pytest.mark.parametrize('hidden', [32, 64, 128])
+def test_decode_variant_instances_match_plain(cuda_device, C, hidden,
+                                              dtype):
+    """Every (C, hidden) instance of the fused and the banded kernel, in
+    both modes, vs the plain version: a truncating packed layout of 2 x
+    512 rays at P = 512, and 2 x 24 band tiles; tolerances as
+    ``test_decode_composite_kernel_matches_plain`` and
+    ``test_decode_banded_kernel_matches_plain``; one launch each."""
+    got, ref = _composite_call(cuda_device, dtype, _packed_layout(
+        'cpu', R=512, seed=29, C=C, hidden=hidden))
+    _assert_composite(got, ref, dtype)
+    got, ref, _ = _banded_call(cuda_device, dtype, *_banded_operands(
+        0, C, hidden, n_tiles=24, seed=32))
+    _assert_banded(got, ref, dtype)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('P', [8, 4096])
+def test_decode_composite_group_sizes(cuda_device, P, dtype):
+    """The smallest and the largest group the wrapper accepts (P = 8 and
+    4096 slots) launch and match the plain version at the widest instance
+    (C = 8, hidden 128, whose shared memory is largest: 135 KB at P =
+    4096); tolerances as ``test_decode_composite_kernel_matches_plain``."""
+    got, ref = _composite_call(cuda_device, dtype, _packed_layout(
+        'cpu', R=256, K=512 if P > 512 else 64, P=P, seed=33, C=8,
+        hidden=128))
+    assert ref[0].max() > 0.1
+    _assert_composite(got, ref, dtype)
+
+
+def test_decode_variants_without_instance_raise(cuda_device):
+    """Decoder width 48 has no instance of the fused or the banded kernel:
+    both wrappers raise; nothing runs a plain version."""
+    ops = _packed_layout(cuda_device, R=64, hidden=48)
+    with pytest.raises(ValueError, match='hidden 48'):
+        k_dec.triplane_decode_composite(*ops[:2], ops[2], 48, *ops[3:], 16,
+                                        0.001, 1e-4)
+    planes, xyz, params, rid, dir_out, win = (
+        t.to(cuda_device) for t in _banded_operands(hidden=48,
+                                                       n_tiles=2))
+    with pytest.raises(ValueError, match='hidden 48'):
+        k_dec.triplane_decode_banded(planes, xyz, params, 48, rid, dir_out,
+                                     win)
+
+
+def _banded_operands(shift=0, C=6, hidden=64, S=2, n_tiles=96,
+                     res=128, seed=18):
+    """Band-layout operands: tiles of 128 slots whose points lie inside
+    their tiles' windows (x and y windows of BAND_W rows starting at
+    multiples of 16), with every x window moved by ``shift`` rows."""
+    g = torch.Generator().manual_seed(seed)
+    M = 128 * n_tiles
     lox = torch.randint(0, 5, (S, n_tiles), generator=g) * 16
     loy = torch.randint(0, 5, (S, n_tiles), generator=g) * 16
 
@@ -806,28 +913,84 @@ def test_decode_banded_kernel_matches_plain(cuda_device, shift, dtype):
                        torch.rand((S, M), generator=g) * 2 - 1], -1)
     win = (((lox + shift) % 128) | (loy << 8)).to(torch.int32)
     planes, _, params, rid, dir_out, _, _ = _decode_operands(
-        'cpu', 6, 64, M, 100, False, S, 19)
+        'cpu', C, hidden, M, 100, False, S, seed + 1)
+    return planes, xyz, params, rid, dir_out, win
+
+
+def _banded_call(device, dtype, planes, xyz, params, rid, dir_out, win):
+    """The banded kernel's and its plain version's outputs on these
+    operands (bf16 operands for ``dtype`` bfloat16), and the plain full
+    decode; one launch of the dtype's kernel is checked."""
+    hidden = dir_out.shape[-1]
     if dtype == 'bfloat16':
-        planes, params = _as_bf16(planes, params, 64)
-    args = [t.contiguous().to(cuda_device) for t in
-            (planes, xyz, params)] + [64] + [
-        t.contiguous().to(cuda_device) for t in (rid, dir_out, win)]
+        planes, params = _as_bf16(planes, params, hidden)
+    args = [t.contiguous().to(device) for t in (planes, xyz, params)] + [
+        hidden] + [t.contiguous().to(device) for t in (rid, dir_out, win)]
     attr = 'launches' if dtype == 'float32' else 'launches_bf16'
     before = getattr(k_dec.triplane_decode_banded, attr)
     got = k_dec.triplane_decode_banded(*args)
     assert getattr(k_dec.triplane_decode_banded, attr) == before + 1
-    ref = k_dec.triplane_decode_banded_plain(*args)
-    full = k_dec.triplane_decode_plain(*args[:-1])
+    return (got, k_dec.triplane_decode_banded_plain(*args),
+            k_dec.triplane_decode_plain(*args[:-1]))
+
+
+def _assert_banded(got, ref, dtype):
     for a, b in zip(got, ref):
         if dtype == 'float32':
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
         else:
             _bf16_close(a, b)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shift', [0, 64])
+def test_decode_banded_kernel_matches_plain(cuda_device, shift, dtype):
+    """The banded kernel vs its plain version on tile-coherent points
+    whose taps fit their windows (shift 0), and with every x window moved
+    off its taps (shift 64, those taps count zero): f32 atol 1e-5, bf16
+    as ``_bf16_close``."""
+    got, ref, full = _banded_call(cuda_device, dtype,
+                                  *_banded_operands(shift))
+    _assert_banded(got, ref, dtype)
     if shift == 0:
-        if dtype == 'float32':
-            torch.testing.assert_close(got[0], full[0], rtol=0, atol=1e-5)
-        else:
-            _bf16_close(got[0], full[0])
+        _assert_banded(got[:1], full[:1], dtype)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('C', [4, 6, 8])
+def test_decode_banded_window_edges(cuda_device, C, dtype):
+    """Windows whose edge falls between the two taps of a plane row: each
+    slot's x and y lie, at random, just left of its window (u0 outside,
+    u1 inside), just inside its right edge (u0 inside, u1 outside),
+    inside, or outside, so the kernel reads a row as both taps, the
+    inside one alone, or nothing, at every 16-byte alignment of the row;
+    windows start anywhere in [1, res - BAND_W].  f32 atol 1e-5, bf16 as
+    ``_bf16_close``."""
+    g = torch.Generator().manual_seed(30 + C)
+    S, n_tiles, res, bw = 2, 64, 128, k_dec.BAND_W
+    M = 128 * n_tiles
+    lo = torch.randint(1, res - bw + 1, (2, S, n_tiles), generator=g)
+
+    def coord(lo_a):
+        lo_s = lo_a.repeat_interleave(128, 1).float()
+        case = torch.randint(0, 4, (S, M), generator=g)
+        frac = 0.05 + 0.9 * torch.rand((S, M), generator=g)
+        f = torch.where(case == 0, lo_s - 1 + frac,              # u0 out
+            torch.where(case == 1, lo_s + bw - 1 + frac,        # u1 out
+            torch.where(case == 2, lo_s + (bw - 1) * frac,      # inside
+                        (lo_s + bw + 1 + frac * 8) % res)))     # outside
+        return (f + 0.5) * (2.0 / res) - 1.0
+
+    xyz = torch.stack([coord(lo[0]), coord(lo[1]),
+                       torch.rand((S, M), generator=g) * 2 - 1], -1)
+    win = (lo[0] | (lo[1] << 8)).to(torch.int32)
+    planes, _, params, rid, dir_out, _, _ = _decode_operands(
+        'cpu', C, 64, M, 100, False, S, 31)
+    got, ref, full = _banded_call(cuda_device, dtype, planes, xyz, params,
+                                  rid, dir_out, win)
+    _assert_banded(got, ref, dtype)
+    # the cut taps changed the outputs: the window is not ignored
+    assert (ref[0] - full[0]).abs().max() > 1e-2
 
 
 def test_variant_kernels_raise(cuda_device):
