@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ssdnerf_torch/csrc into build/kernels/, then
-runs twelve phases, any failure of which exits non-zero:
+runs thirteen phases, any failure of which exits non-zero:
 
 1. device: a CUDA card is present; TF32 is switched off for matmuls and
    convolutions, so every plain f32 reference is full f32;
@@ -149,7 +149,18 @@ runs twelve phases, any failure of which exits non-zero:
    dumps); (d) one train step and 3 guided steps
    card vs CPU; (e) the flagship recons1v with ``image_cond`` (the UNet
    reads a conditioning view): one train step, 2 guided steps and a
-   ``val_optim`` step card vs CPU.
+   ``val_optim`` step card vs CPU;
+13. the options no shipped config sets, on the flagship config at full
+   width with ``cfg-options``-style overrides, each card vs CPU at phase
+   6's limits (cuts printed): (a) ``train_step`` with
+   ``density_partial_update``, ``log_grad_stats`` and a learnable scene
+   base; (b) a render of 8 x 4 x 128^2 rays with ``compact_steps=None``
+   and its gradients, against the ``compact_steps`` 64 render; (c) a
+   decoder outside the kernel's shape (``base_layers`` (18, 64, 64), the
+   SH concat), on torch ops; (d) ``bg_coords``; (e) two stage-1
+   iterations on the host bank and on the device bank; (f)
+   ``val_inverse_code`` with ``code_dropout`` and the raise of its
+   ``train_step``; with each part's wall, device ms and launches.
 
 Each phase's wall seconds are printed as it ends.  The line before the
 last is the card's name and power limit from nvidia-smi; the last line
@@ -202,7 +213,8 @@ from ssdnerf_torch.ops.kernels import (  # noqa: E402
 from ssdnerf_torch.ops.kernels import attention as k_attn  # noqa: E402
 from ssdnerf_torch.ops.kernels import decode as k_dec  # noqa: E402
 from ssdnerf_torch.ops.kernels import march as k_march  # noqa: E402
-from ssdnerf_torch.ops import get_cam_rays, near_far_from_aabb  # noqa
+from ssdnerf_torch.ops import (  # noqa: E402
+    get_cam_rays, near_far_from_aabb, sph_from_ray)
 from ssdnerf_torch.ops import packing as ops_packing  # noqa: E402
 from ssdnerf_torch.models.autodecoders import base as ad_base  # noqa: E402
 from ssdnerf_torch.models.autodecoders import (  # noqa: E402
@@ -3975,6 +3987,493 @@ def phase_tiled(dev, root, data, code, smi, max_rays):
     return train_launches, recons_launches, out
 
 
+# ------------------------------------------------------------ phase 13
+OPTIONS_RES = 128           # the views' side, as phase 5's
+OPTIONS_ESS = 2             # (a)'s inner steps: a full refresh, a partial
+OPTIONS_INVERSE_STEPS = 4   # (f)'s val_inverse_code steps (the config's 400)
+OPTIONS_KERNELS = ('march', 'decode_bf16', 'decode_bwd_bf16', 'attention',
+                   'attention_bwd', 'decode', 'decode_bwd')
+
+
+def options_model(over):
+    """The flagship model of :func:`make_model` with the dotted
+    ``cfg-options`` ``over`` applied to its config first; and the
+    config."""
+    cfg = Config.fromfile(str(CONFIG))
+    cfg.merge_from_dict(over)
+    return make_model(SEED, cfg), cfg
+
+
+def decoder_copy(decoder, **fields):
+    """A shallow copy of ``decoder`` (its parameters shared) with
+    ``fields`` set."""
+    dec = copy.copy(decoder)
+    for key, value in fields.items():
+        setattr(dec, key, value)
+    return dec
+
+
+def stat_errors(card, cpu):
+    """Per ``grad_*`` key |card - cpu| over the largest gradient RMS of
+    its prefix (diffusion, decoder, code): phase 6's rule of 1e-3 of the
+    largest entry, applied to the statistics."""
+    top = {}
+    for k, v in cpu.items():
+        if k.startswith('grad_rms/'):
+            p = k.split('/')[1].split('.')[0]
+            top[p] = max(top.get(p, 0.0), abs(v))
+    return {k: abs(card[k] - cpu[k]) / top[k.split('/')[1].split('.')[0]]
+            for k in cpu if k.startswith('grad_')}
+
+
+def render_rays(S, V, dev):
+    """The rays of ``V`` orbit views of OPTIONS_RES^2 a scene: (S, V *
+    OPTIONS_RES^2, 3) origins and directions."""
+    poses, intr = orbit_cameras(S, V, dev)
+    rays_o, rays_d = get_cam_rays(poses, intr, OPTIONS_RES, OPTIONS_RES)
+    return rays_o.reshape(S, -1, 3), rays_d.reshape(S, -1, 3)
+
+
+def render_grads(decoder, code, rays_o, rays_d, bitfield, grid_size):
+    """A render of ``decoder`` (the codes ``code`` a leaf) and the
+    gradients of a squared loss on its composited image w.r.t. the codes
+    and the decoder's parameters: (image, [code grad, parameter
+    grads])."""
+    leaf = code.detach().requires_grad_()
+    out = volume_render(decoder, leaf, rays_o, rays_d, bitfield, grid_size)
+    img = out['image'] + 1 - out['weights_sum'][..., None]
+    loss = ((img - 0.5) ** 2).mean()
+    return out['image'].detach(), list(torch.autograd.grad(
+        loss, [leaf] + list(decoder.parameters())))
+
+
+def compare_render(tag, card, cpu, tol_grad=1e-3):
+    """Phase 4's image limits (max 2e-2, mean 1e-3) and phase 6's gradient
+    limit (1e-3 of the largest entry) on (image, grads) pairs."""
+    (ci, cg), (pi, pg) = card, cpu
+    err = (ci.cpu() - pi).abs()
+    grad_err = max(((a.cpu() - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)).item() for a, b in zip(cg, pg))
+    log(f'phase 13 {tag} card vs cpu: image max {err.max().item():.2e} '
+        f'mean {err.mean().item():.2e}; gradients {grad_err:.2e} of their '
+        'largest entry')
+    check(err.max().item() <= 2e-2 and err.mean().item() <= 1e-3,
+          f'phase 13 {tag}: image card vs cpu')
+    check(grad_err <= tol_grad, f'phase 13 {tag}: gradients card vs cpu')
+    return dict(image_max=err.max().item(), image_mean=err.mean().item(),
+                grads=grad_err)
+
+
+def phase_options(dev, data, code, bitfield):
+    """Phase 13: the options no shipped config sets, on
+    configs/paper_cfgs/ssdnerf_cars_uncond.py at full width (3x6x128^2
+    codes, 64^3 grid, phase 5's 8 scenes and phase 3's codes and
+    bitfields, random seeded weights), each set by ``cfg-options``-style
+    overrides and held card vs CPU at phase 6's limits (the CPU runs cut
+    to 1 scene, as phase 6's; f32 decode there, where the plain versions
+    are the reference):
+
+    (a) ``DiffusionNeRF.train_step`` with ``density_partial_update``,
+        ``log_grad_stats`` and ``scene_base_size`` (1, 3, 6, 128, 128):
+        two steps of 8 scenes on the card (the second profiled), then card
+        vs CPU: losses, the code moment, the UNet's and the decoder's
+        gradients (the scene base's included), the bitfield's flipped
+        share <= 1e-3 and every ``grad_*`` key;
+    (b) a render of 8 x 4 x 128^2 rays with ``compact_steps=None``, forward
+        and gradients (profiled), its image against the ``compact_steps``
+        64 per-ray render (equal on rays of at most 64 valid samples), and
+        card vs CPU on one view;
+    (c) a decoder with ``base_layers`` (18, 64, 64) and ``dir_layers`` None
+        (torch ops on the card: no decode kernel may launch): a render of
+        8 x 128^2 rays and its gradients, and card vs CPU;
+    (d) ``bg_coords`` with ``bg_radius`` 4 on (b)'s rays vs the CPU's;
+    (e) two stage-1 iterations (stage1_cars_recons16v.py, its batch of 4
+        scenes, bank cut to 16 rows) on the host bank and on the device
+        bank: the same losses and bank rows;
+    (f) ``MultiSceneNeRF.val_inverse_code`` with ``code_dropout`` 0.1
+        (steps cut to 4) card vs CPU with the same draws and keep masks
+        (phase 6's quantities: the loss, and the code Adam's first moment,
+        the gradient, for the codes; the codes themselves are printed:
+        Adam's first steps move a code by about its rate whatever the
+        gradient's size, so a near-zero gradient summed in another order
+        moves its code by a share of a step), and the raise of its
+        ``train_step``.
+
+    Prints each part's wall, device ms and kernel launches.  Returns the
+    phase's launches (counts set to 0 just before it) and its record."""
+    cuts, out, walls, device_ms, part_launches = [], {}, {}, {}, {}
+    reset_launches()
+    t_start = time.perf_counter()
+    S = data['cond_imgs'].shape[0]
+    view = OPTIONS_RES ** 2
+
+    def part(tag, t0, before):
+        walls[tag] = time.perf_counter() - t0
+        now = launch_counts()
+        part_launches[tag] = {n: now[n] - before[n] for n in now
+                              if now[n] != before[n]}
+        log(f'phase 13 ({tag}) wall {walls[tag]:.1f} s; launches '
+            f'{part_launches[tag]}')
+
+    # (a) ------------------------------------------------------------
+    t0, before = time.perf_counter(), launch_counts()
+    ess = cut(cuts, 'train_cfg.extra_scene_step', 15, OPTIONS_ESS)
+    interval = cut(cuts, 'model.update_extra_interval', 16, 1)
+    code_size = tuple(Config.fromfile(str(CONFIG)).model.code_size)
+    model_cpu, cfg = options_model({
+        'model.decoder.scene_base_size': [1, *code_size],
+        'model.update_extra_interval': interval,
+        'train_cfg.extra_scene_step': ess,
+        'train_cfg.density_partial_update': True,
+        'train_cfg.log_grad_stats': True})
+    model = copy.deepcopy(model_cpu).to(dev)
+    H = model.grid_size
+    slots, pack = model.test_cfg['march_slots'], model.test_cfg['pack_slots']
+    base0 = model.decoder.scene_base.detach().clone()
+    code_ = model.code_activation.inverse(code, model.code_act)
+    batch = dict(code_=code_, opt=adam_init(code_),
+                 density_grid=torch.zeros((S, H ** 3), dtype=torch.float16,
+                                          device=dev),
+                 density_bitfield=torch.zeros((S, H ** 3 // 8),
+                                              dtype=torch.uint8, device=dev))
+    opts, scheds = build_optimizers(model, cfg.optimizer, cfg.lr_config)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    partial_calls = []
+    partial = ad_base.update_density_grid_partial
+    logs = {}
+
+    def step():
+        nonlocal batch
+        batch, res = model.train_step(batch, data, opts, scheds,
+                                      generator=gen)
+        logs.update(res)
+
+    with mock_attr(ad_base, 'update_density_grid_partial',
+                   lambda *a, **k: partial_calls.append(1) or partial(
+                       *a, **k)):
+        step()
+        wall_ms, dev_ms, parts, groups, _ = profile_step(step)
+    n_stats = 3 * (len(list(model.diffusion.parameters()))
+                   + len(list(model.decoder.parameters())) + 1)
+    stats = {k: v.item() for k, v in logs.items() if k.startswith('grad_')}
+    moved = (model.decoder.scene_base - base0).abs().max().item()
+    log(f'phase 13 (a) train step x{S} scenes: profiled wall {wall_ms:.1f} '
+        f'ms, device {dev_ms:.1f} ms; by part: ' + ', '.join(
+            f'{k} {v:.1f} ms' for k, v in parts.items()))
+    log(f'phase 13 (a) losses: ' + ' '.join(
+        f'{k}={logs[k].item():.5g}' for k in LOSS_KEYS)
+        + f'; {len(stats)} grad_* keys; partial refreshes '
+        f'{len(partial_calls)}; scene_base moved {moved:.3e}')
+    for k in LOSS_KEYS:
+        check(math.isfinite(logs[k].item()), f'phase 13 (a): {k}')
+    check(len(stats) == n_stats and all(map(math.isfinite, stats.values())),
+          'phase 13 (a): grad_* keys')
+    for k in ('grad_rms/decoder.params.scene_base', 'grad_rms/code.',
+              'grad_std/diffusion.params.out_conv.kernel'):
+        check(k in stats, f'phase 13 (a): {k} missing')
+    check(len(partial_calls) == 2, 'phase 13 (a): partial refreshes')
+    check(moved > 0, 'phase 13 (a): scene_base did not move')
+    device_ms['a_train_step'] = dev_ms
+    # card vs CPU, 1 scene (phase 6's cut)
+    tc = dict(model_cpu.train_cfg, n_inverse_rays=1024, n_decoder_rays=1024)
+    cut(cuts, '(a) card vs cpu: scenes, rays', (S, 4096), (1, 1024))
+    model_cpu.train_cfg = tc
+    d1 = {k: v[:1].cpu() for k, v in data.items()}
+    num_pixels = math.prod(d1['cond_imgs'].shape[1:4])
+    draws = model_cpu.train_draws(1, num_pixels,
+                                  torch.Generator().manual_seed(SEED + 51))
+    draws['t'] = torch.tensor([model_cpu.diffusion.num_timesteps // 2])
+    b1 = dict(code_=code_[:1].cpu(),
+              density_grid=torch.zeros((1, H ** 3), dtype=torch.float16),
+              density_bitfield=torch.zeros((1, H ** 3 // 8),
+                                           dtype=torch.uint8))
+    runs = {}
+    for tag, d in (('card', dev), ('cpu', 'cpu')):
+        m = copy.deepcopy(model_cpu).to(d)
+        o, s = build_optimizers(m, cfg.optimizer, cfg.lr_config)
+        bd = to_device(b1, d)
+        bd['opt'] = adam_init(bd['code_'])
+        with decode_dtype(m, 'float32'):
+            res, lg = m.train_step(bd, to_device(d1, d), o, s,
+                                   draws=to_device(draws, d))
+        runs[tag] = dict(logs={k: v.item() for k, v in lg.items()},
+                         code_m=res['opt'].m.cpu(),
+                         bits=res['density_bitfield'].cpu(),
+                         unet=module_grads(m.diffusion).cpu(),
+                         decoder=module_grads(m.decoder).cpu(),
+                         scene_base=m.decoder.scene_base.grad.cpu())
+        del m
+    card, cpu = runs['card'], runs['cpu']
+    errs = {k: abs(card['logs'][k] - cpu['logs'][k]) / abs(cpu['logs'][k])
+            for k in LOSS_KEYS}
+    errs.update({k: ((card[k] - cpu[k]).abs().max()
+                     / cpu[k].abs().max()).item()
+                 for k in ('code_m', 'unet', 'decoder', 'scene_base')})
+    flips = (np.unpackbits(card['bits'].numpy())
+             != np.unpackbits(cpu['bits'].numpy())).mean()
+    serr = stat_errors(card['logs'], cpu['logs'])
+    worst = max(serr, key=serr.get)
+    log(f'phase 13 (a) card vs cpu (f32 decode): ' + ' '.join(
+        f'{k} {v:.2e}' for k, v in errs.items())
+        + f'; bits flipped {flips:.2e}; grad_* keys equal '
+        f'{set(card["logs"]) == set(cpu["logs"])}, worst {worst} '
+        f'{serr[worst]:.2e}')
+    for k, v in errs.items():
+        check(v <= (1e-4 if k in LOSS_KEYS else 1e-3),
+              f'phase 13 (a) card vs cpu: {k}')
+    check(flips <= 1e-3, 'phase 13 (a) card vs cpu: bitfield')
+    check(set(card['logs']) == set(cpu['logs']),
+          'phase 13 (a): grad_* keys card vs cpu')
+    check(serr[worst] <= 1e-3, 'phase 13 (a) card vs cpu: grad_* values')
+    out['a'] = dict(device_ms=dev_ms, wall_ms=wall_ms, card_vs_cpu=errs,
+                    bits_flipped=flips, grad_stats_worst=serr[worst],
+                    grad_keys=len(stats))
+    del opts, batch
+    part('a', t0, before)
+
+    # (b) ------------------------------------------------------------
+    t0, before = time.perf_counter(), launch_counts()
+    rays_o, rays_d = render_rays(S, 4, dev)
+    dense = decoder_copy(model.decoder, compact_steps=None,
+                         march_slots=slots, pack_slots=pack)
+    res = {}
+
+    def run_dense():
+        res['img'], res['grads'] = render_grads(dense, code, rays_o, rays_d,
+                                                bitfield, H)
+
+    wall_ms, dev_ms, parts, _, _ = profile_step(run_dense, ranges=())
+    check(all(torch.isfinite(g).all().item() for g in res['grads'])
+          and torch.isfinite(res['img']).all().item(),
+          'phase 13 (b): not finite')
+    per_ray = decoder_copy(model.decoder, compact_steps=64,
+                           march_slots=slots, pack_slots=None)
+    with torch.no_grad():
+        img64 = volume_render(per_ray, code, rays_o, rays_d, bitfield,
+                              H)['image']
+        _, _, _, valid = dec_renderer.march_samples(
+            dense, rays_o, rays_d, bitfield, H)
+    n_valid = valid.sum(-1)
+    diff = (res['img'] - img64).abs().amax(-1)
+    few, many = diff[n_valid <= 64], diff[n_valid > 64]
+    log(f'phase 13 (b) dense render {S}x4x{OPTIONS_RES}^2 ({slots} march '
+        'slots): '
+        f'profiled wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms; vs the '
+        f'compact_steps 64 per-ray render: max |image diff| '
+        f'{few.max().item():.2e} on {few.numel()} rays of <= 64 valid '
+        f'samples, {many.max().item() if many.numel() else 0.0:.2e} (mean '
+        f'{many.mean().item() if many.numel() else 0.0:.2e}) on '
+        f'{many.numel()} rays of more')
+    check(few.max().item() <= 1e-5, 'phase 13 (b): dense vs 64 on rays of '
+          '<= 64 valid samples')
+    device_ms['b_dense_render'] = dev_ms
+    cut(cuts, '(b) card vs cpu: scenes x views', (S, 4), (1, 1))
+    o1, d1r = rays_o[:1, :view].cpu(), rays_d[:1, :view].cpu()
+    pair = {}
+    dec = decoder_copy(model_cpu.decoder, compact_steps=None,
+                       march_slots=slots, pack_slots=pack,
+                       compute_dtype='float32')
+    for tag, d in (('card', dev), ('cpu', 'cpu')):
+        pair[tag] = render_grads(copy.deepcopy(dec).to(d), code[:1].to(d),
+                                 o1.to(d), d1r.to(d), bitfield[:1].to(d), H)
+    out['b'] = dict(device_ms=dev_ms, wall_ms=wall_ms,
+                    vs_k64_few=few.max().item(),
+                    vs_k64_many=many.max().item() if many.numel() else 0.0,
+                    rays_over_64=many.numel(),
+                    card_vs_cpu=compare_render('(b)', pair['card'],
+                                               pair['cpu']))
+    del res, dense
+    part('b', t0, before)
+
+    # (c) ------------------------------------------------------------
+    t0, before = time.perf_counter(), launch_counts()
+    width = cfg.model.decoder.base_layers[-1]
+    fields = dict(cfg.model.decoder, base_layers=[3 * code_size[1], width,
+                                                  width],
+                  dir_layers=None, color_layers=[width + 16, 3])
+    fields.pop('scene_base_size', None)
+    free = ad_ms.build_decoder(fields)
+    free.init_weights(torch.Generator().manual_seed(SEED + 52))
+    check(not free.kernel_route, 'phase 13 (c): kernel route')
+    free_dev = copy.deepcopy(free).to(dev)
+    ro8, rd8 = rays_o[:, :view], rays_d[:, :view]
+    res = {}
+
+    def run_free():
+        res['img'], res['grads'] = render_grads(free_dev, code, ro8, rd8,
+                                                bitfield, H)
+
+    wall_ms, dev_ms, _, groups, _ = profile_step(run_free, ranges=())
+    now = launch_counts()
+    decodes = sum(now[n] - before[n] for n in now if n.startswith('decode'))
+    log(f'phase 13 (c) free-form decoder render {S}x{OPTIONS_RES}^2: '
+        f'base_layers {fields["base_layers"]}, dir_layers None; profiled wall '
+        f'{wall_ms:.1f} ms, device {dev_ms:.1f} ms; decode kernel launches '
+        f'{decodes}')
+    check(decodes == 0, 'phase 13 (c): a decode kernel launched')
+    check(torch.isfinite(res['img']).all().item(), 'phase 13 (c): image')
+    device_ms['c_free_form_render'] = dev_ms
+    cut(cuts, '(c) card vs cpu: scenes', S, 1)
+    pair = {}
+    for tag, d, dec in (('card', dev, free_dev), ('cpu', 'cpu', free)):
+        dec32 = decoder_copy(dec, compute_dtype='float32')
+        pair[tag] = render_grads(dec32, code[:1].to(d), o1.to(d), d1r.to(d),
+                                 bitfield[:1].to(d), H)
+    out['c'] = dict(device_ms=dev_ms, wall_ms=wall_ms,
+                    card_vs_cpu=compare_render('(c)', pair['card'],
+                                               pair['cpu']))
+    del res, free_dev
+    part('c', t0, before)
+
+    # (d) ------------------------------------------------------------
+    t0, before = time.perf_counter(), launch_counts()
+    bg = decoder_copy(model.decoder, bg_radius=4.0)
+    with torch.no_grad():
+        got = volume_render(bg, code, rays_o, rays_d, bitfield, H)
+        plain = volume_render(model.decoder, code, rays_o, rays_d, bitfield,
+                              H)
+    ref = sph_from_ray(rays_o.cpu(), rays_d.cpu(), 4.0)
+    err = (got['bg_coords'].cpu() - ref).abs().max().item()
+    log(f'phase 13 (d) bg_coords {tuple(got["bg_coords"].shape)}: card vs '
+        f'cpu max {err:.2e}; image unchanged '
+        f'{torch.equal(got["image"], plain["image"])}')
+    check(got['bg_coords'].shape == (S, rays_o.shape[1], 2) and err <= 1e-5,
+          'phase 13 (d): bg_coords')
+    check(torch.equal(got['image'], plain['image']), 'phase 13 (d): image')
+    out['d'] = dict(card_vs_cpu=err)
+    del model, model_cpu, got, plain
+    torch.cuda.empty_cache()
+    part('d', t0, before)
+
+    # (e) ------------------------------------------------------------
+    t0, before = time.perf_counter(), launch_counts()
+    s1 = init_model(str(STAGE1), 'cpu', SEED).train()
+    rows = cut(cuts, '(e) bank rows', 2458, 16)
+    s1.cache_size = rows
+    n = cut(cuts, '(e) scenes', S, min(S, 4))   # the config's batch
+    ids = list(range(n))
+    d4 = {k: v[:n] for k, v in data.items()}
+    draws = [s1.train_draws(n, math.prod(d4['cond_imgs'].shape[1:4]),
+                            torch.Generator(device=dev).manual_seed(
+                                SEED + 53 + it), dev) for it in range(2)]
+    runs = {}
+    for where in ('device', 'host'):
+        m = copy.deepcopy(s1).to(dev)
+        m.cache_device = where
+        bank = m.make_cache(dev)
+        o, s = build_optimizers(m, dict(decoder=dict(type='Adam', lr=1e-3)))
+        losses = []
+        for it in range(2):
+            rng = np.random.RandomState(0)
+            bank.ensure_init(ids, lambda k: m.get_init_code_np(
+                k, rng, m.init_code_np()))
+            res, lg = m.train_step(bank.load(ids), d4, o, s, draws=draws[it])
+            bank.save(ids, res['code_'], res['opt'], res['density_grid'],
+                      res['density_bitfield'])
+            losses.append(lg['loss'].item())
+        runs[where] = (type(bank).__name__, losses, bank.state_dict())
+        del m, bank
+    (dn, dl, dsd), (hn, hl, hsd) = runs['device'], runs['host']
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(hl, dl))
+    code_err = (np.abs(hsd['code_'] - dsd['code_']).max()
+                / np.abs(dsd['code_']).max())
+    flips = (np.unpackbits(hsd['density_bitfield'])
+             != np.unpackbits(dsd['density_bitfield'])).mean()
+    equal = all(np.array_equal(hsd[k], dsd[k]) for k in dsd)
+    log(f'phase 13 (e) stage-1 x2 iterations, {n} scenes, {dn} vs {hn}: '
+        f'losses {dl} / {hl} (rel {loss_err:.2e}); bank rows bit-equal '
+        f'{equal}; codes {code_err:.2e} of the largest, bits flipped '
+        f'{flips:.2e}; Adam steps {hsd["step"][:n].tolist()}')
+    check(hn == 'HostSceneCache' and dn == 'DeviceSceneCache',
+          'phase 13 (e): bank types')
+    check(loss_err <= 1e-4 and code_err <= 1e-3 and flips <= 1e-3,
+          'phase 13 (e): host vs device bank')
+    check(np.array_equal(hsd['step'], dsd['step'])
+          and np.array_equal(hsd['seen'], dsd['seen']),
+          'phase 13 (e): Adam steps, seen')
+    out['e'] = dict(losses_rel=loss_err, codes=float(code_err),
+                    bits_flipped=flips, bit_equal=equal)
+    part('e', t0, before)
+
+    # (f) ------------------------------------------------------------
+    t0, before = time.perf_counter(), launch_counts()
+    steps = cut(cuts, '(f) test_cfg.n_inverse_steps', 400,
+                OPTIONS_INVERSE_STEPS)
+    cfg_f = Config.fromfile(str(STAGE1))
+    cfg_f.merge_from_dict({'model.decoder.code_dropout': 0.1,
+                           'test_cfg.n_inverse_steps': steps})
+    drop = init_model(cfg_f, 'cpu', SEED)
+    d1 = {k: v[:1].cpu() for k, v in data.items()}
+    draws = drop.val_inverse_draws(1, math.prod(d1['cond_imgs'].shape[1:4]),
+                                   torch.Generator().manual_seed(SEED + 54))
+    share = 1 - draws['dropout'].float().mean().item()
+    runs = {}
+    made = ad_ms.inverse_code
+    for tag, d in (('card', dev), ('cpu', 'cpu')):
+        m = copy.deepcopy(drop).to(d)
+        kept = []      # the code Adam's state, which val_inverse_code drops
+
+        def keep(*args, **kwargs):
+            res = made(*args, **kwargs)
+            kept.append(res[1])
+            return res
+
+        with decode_dtype(m, 'float32'), mock_attr(ad_ms, 'inverse_code',
+                                                   keep):
+            c, g, b, aux = m.val_inverse_code(to_device(d1, d),
+                                              to_device(draws, d))
+        runs[tag] = (c.cpu(), b.cpu(), aux['loss'].item(), kept[0].m.cpu())
+    (cc, cb, cl, cm), (pc, pb, pl, pm) = runs['card'], runs['cpu']
+    code_err = ((cc - pc).abs().max() / pc.abs().max()).item()
+    m_err = ((cm - pm).abs().max() / pm.abs().max()).item()
+    flips = (np.unpackbits(cb.numpy()) != np.unpackbits(pb.numpy())).mean()
+    loss_err = abs(cl - pl) / abs(pl)
+    m = copy.deepcopy(drop).to(dev)
+    o, s = build_optimizers(m, dict(decoder=dict(type='Adam', lr=1e-3)))
+    b1 = dict(code_=torch.zeros((1,) + m.code_size, device=dev),
+              density_grid=torch.zeros((1, H ** 3), dtype=torch.float16,
+                                       device=dev),
+              density_bitfield=torch.zeros((1, H ** 3 // 8),
+                                           dtype=torch.uint8, device=dev))
+    b1['opt'] = adam_init(b1['code_'])
+    try:
+        m.train_step(b1, to_device(d1, dev), o, s,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    log(f'phase 13 (f) val_inverse_code, code_dropout 0.1 ({share:.3f} of '
+        f'the channels dropped), {steps} steps: card vs cpu code Adam '
+        f'moment {m_err:.2e} of the largest (codes {code_err:.2e}), loss '
+        f'rel {loss_err:.2e}, bits '
+        f'flipped {flips:.2e}; train_step raised: {raised}')
+    check(0.0 < share < 0.3, 'phase 13 (f): dropout share')
+    check(m_err <= 1e-3 and loss_err <= 1e-4 and flips <= 1e-3,
+          'phase 13 (f): val_inverse_code card vs cpu')
+    check(raised is not None and 'item 20' in raised,
+          'phase 13 (f): train_step with code_dropout did not raise')
+    out['f'] = dict(code_m=m_err, codes=code_err, loss_rel=loss_err,
+                    bits_flipped=flips)
+    del m, drop
+    part('f', t0, before)
+
+    launches = launch_counts()
+    wall = time.perf_counter() - t_start
+    log(f'phase 13 cuts: ' + '; '.join(cuts))
+    log(f'phase 13 device ms: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in device_ms.items())
+        + f'; walls: ' + ', '.join(f'({k}) {v:.1f} s'
+                                   for k, v in walls.items())
+        + f'; decode launches ' + str({n: launches[n] for n in launches
+                                       if n.startswith('decode')}))
+    for name in OPTIONS_KERNELS:
+        check(launches[name] > 0,
+              f'phase 13: kernel {name} was not launched')
+    out.update(cuts=cuts, walls_s=walls, device_ms=device_ms,
+               part_launches=part_launches, wall_s=wall)
+    return launches, out
+
+
 def main():
     walls = {}
 
@@ -4097,6 +4596,10 @@ def main():
         tiled_train_launches, tiled_launches, tiled_out = phase_tiled(
             dev, root, data, code, smi, evals['max_render_rays'])
         done(12)
+    # the options no shipped config sets, at the flagship's width
+    torch.cuda.empty_cache()
+    options_launches, options_out = phase_options(dev, data, code, bitfield)
+    done(13)
 
     # launches: the generation kernels' counts from the phase-3 slice, the
     # render variants' from the phase-3 variant renders, the probe's from
@@ -4135,6 +4638,7 @@ def main():
                        name],
                    tiled_train_launches=tiled_train_launches[name],
                    tiled_recons_launches=tiled_launches[name],
+                   options_launches=options_launches[name],
                    **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
@@ -4146,7 +4650,8 @@ def main():
                                  unet_forward_device_ms=precision_ms),
                     'recons': recons, 'eval': evals,
                     'train_cli': train_cli_out, 'stage1': stage1_out,
-                    'tiled': tiled_out, 'phase_walls_s': walls}))
+                    'tiled': tiled_out, 'options': options_out,
+                    'phase_walls_s': walls}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -100,14 +100,13 @@ def load_params(module, params):
             tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
 
 
-def dump_params(module, leaf=None):
-    """The Flax variables dict (``{'params': ...}``) of a module made of
-    Linear, Conv2d, Conv1d and GroupNorm layers: the inverse of
-    :func:`load_params`, float32 numpy copies.  ``leaf(parameter)`` gives
-    the tensor dumped in a parameter's place (an optimizer's moment of
-    it: optax keeps those in the parameters' tree)."""
-    leaf = leaf or (lambda p: p)
-    tree = {}
+def jax_leaves(module):
+    """(path, parameter, layout) of every parameter of a module made of
+    Linear, Conv2d, Conv1d and GroupNorm layers and bare parameters (the
+    decoder's ``scene_base``): ``path`` the tuple of keys under
+    ``'params'`` of the JAX package's tree, ``layout`` the map of the
+    parameter to the JAX leaf's layout (None: as it is)."""
+    out, in_layers = [], set()
     for name, layer in module.named_modules():
         if isinstance(layer, nn.Linear):
             leaves = {'kernel': (layer.weight, lambda t: t.T),
@@ -123,16 +122,47 @@ def dump_params(module, leaf=None):
                       'bias': (layer.bias, None)}
         else:
             continue
-        node = tree
-        for part in name.split('.'):
-            node = node.setdefault(part, {})
+        prefix = tuple(name.split('.')) if name else ()
         for k, (p, layout) in leaves.items():
-            if p is None:
-                continue
-            t = leaf(p)
-            t = layout(t) if layout else t
-            # a copy: a view would follow later in-place updates
-            node[k] = np.array(t.detach().float().cpu().numpy(), order='C')
+            if p is not None:
+                out.append((prefix + (k,), p, layout))
+                in_layers.add(id(p))
+    for name, p in module.named_parameters():
+        if id(p) not in in_layers:
+            out.append((tuple(name.split('.')), p, None))
+    return out
+
+
+def jax_param_names(module, tensors=None):
+    """{JAX path name: tensor} of a module's parameters, the names as the
+    JAX package's ``grad_stats_logvars`` writes them
+    (``params.base_net.dense_0.kernel``); ``tensors`` maps each parameter
+    to the tensor reported in its place (its gradient), by default the
+    parameter itself.  Layouts stay the port's: a transpose changes no
+    per-parameter statistic."""
+    pick = tensors or (lambda p: p)
+    return {'.'.join(('params',) + path): pick(p)
+            for path, p, _ in jax_leaves(module)}
+
+
+def dump_params(module, leaf=None):
+    """The Flax variables dict (``{'params': ...}``) of a module made of
+    Linear, Conv2d, Conv1d and GroupNorm layers and bare parameters: the
+    inverse of :func:`load_params`, float32 numpy copies.
+    ``leaf(parameter)`` gives the tensor dumped in a parameter's place (an
+    optimizer's moment of it: optax keeps those in the parameters'
+    tree)."""
+    leaf = leaf or (lambda p: p)
+    tree = {}
+    for path, p, layout in jax_leaves(module):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        t = leaf(p)
+        t = layout(t) if layout else t
+        # a copy: a view would follow later in-place updates
+        node[path[-1]] = np.array(t.detach().float().cpu().numpy(),
+                                  order='C')
     return {'params': tree}
 
 

@@ -11,8 +11,9 @@ import math
 
 import torch
 
-from ..decoders.renderer import (density_jitter, update_density_grid,
-                                 volume_render)
+from ..decoders.renderer import (density_jitter, partial_draws,
+                                 update_density_grid,
+                                 update_density_grid_partial, volume_render)
 
 
 # ------------------------------------------------------------------ Adam
@@ -83,6 +84,24 @@ def scene_lr(lr0, gamma, state):
     return lr0 * gamma ** state.step.float()
 
 
+# ------------------------------------------------------- gradient stats
+def grad_stats_logvars(prefix, grads):
+    """Per-parameter gradient RMS, std (the population std, as
+    ``jnp.std``) and mean (JAX ``base.py:grad_stats_logvars``), keyed
+    ``grad_rms/<prefix>.<name>`` etc. for ``grads`` {name: tensor}, the
+    names being the JAX package's parameter paths
+    (``convert.jax_param_names``; '' for an array without a path, as the
+    codes).  The values stay 0-dim tensors on the gradients' device."""
+    out = {}
+    for name, g in grads.items():
+        g = g.detach().float()
+        std, mean = torch.std_mean(g, correction=0)
+        out[f'grad_rms/{prefix}.{name}'] = torch.sqrt(torch.mean(g * g))
+        out[f'grad_std/{prefix}.{name}'] = std
+        out[f'grad_mean/{prefix}.{name}'] = mean
+    return out
+
+
 # ---------------------------------------------------------- ray sampling
 def ray_sample(cond_rays_o, cond_rays_d, cond_imgs, n_samples,
                sample_inds=None, generator=None):
@@ -138,15 +157,35 @@ def make_raybatch_indices(num_scenes, num_pixels, n_rays, num_steps,
 
 
 # --------------------------------------------------------- rendering loss
+def check_dropout_draws(decoder, dropout):
+    """A non-deterministic render of a decoder with ``code_dropout`` needs
+    its keep masks.  The JAX package draws them from a dropout key that
+    only ``inverse_code`` passes, so its other training renders raise
+    ``flax.errors.InvalidRngError``; the port raises at the same points
+    (ROADMAP section 3 item 20)."""
+    if decoder.code_dropout > 0 and dropout is None:
+        raise RuntimeError(
+            'code_dropout > 0 in a training render without keep masks: the '
+            'JAX package has no dropout key here and raises '
+            'InvalidRngError (ROADMAP section 3 item 20)')
+
+
 def rendering_loss(decoder, code, density_bitfield, target_rgbs, rays_o,
                    rays_d, grid_size, pixel_loss, reg_loss=None, bg_color=1.0,
                    dt_gamma=0.0, perturb=None, scale_num_ray=1.0,
-                   loss_coef=None):
-    """Pixel loss of a ray batch plus the code regulariser.
+                   loss_coef=None, deterministic=True, dropout=None):
+    """Pixel loss of a ray batch plus the code regulariser.  A
+    non-deterministic render (``deterministic`` False, JAX's training
+    renders) drops code channels with ``dropout``'s keep masks when the
+    decoder has ``code_dropout``, and raises without them
+    (:func:`check_dropout_draws`).
 
     Returns (loss, out_rgbs, loss_dict)."""
+    if not deterministic:
+        check_dropout_draws(decoder, dropout)
     out = volume_render(decoder, code, rays_o, rays_d, density_bitfield,
-                        grid_size, dt_gamma=dt_gamma, perturb=perturb)
+                        grid_size, dt_gamma=dt_gamma, perturb=perturb,
+                        dropout=None if deterministic else dropout)
     out_rgbs = out['image'] + bg_color * (1 - out['weights_sum'][..., None])
     scale = 1 - math.exp(-loss_coef * scale_num_ray) \
         if loss_coef is not None else 1.0
@@ -162,20 +201,35 @@ def rendering_loss(decoder, code, density_bitfield, target_rgbs, rays_o,
 
 # ------------------------------------------------------ inverse rendering
 def inverse_draws(num_scenes, num_pixels, n_rays, n_steps, update_interval,
-                  grid_size, bound, generator, device):
+                  grid_size, bound, generator, device, partial=False,
+                  dropout=None):
     """Every random draw of :func:`inverse_code`:
     ``ray_inds`` (n_steps, S, n_rays) or None, ``jitter``
-    (n_updates, H^3, 3) for the density refresh at steps 0, interval, ...,
-    and ``perturb`` (n_steps, S, n) start-t jitter of each render."""
+    (n_updates, H^3, 3) for the density refresh at steps 0, interval, ...
+    (with ``partial`` only step 0's, a full sweep), ``perturb`` (n_steps,
+    S, n) start-t jitter of each render; with ``partial`` the
+    :func:`partial_draws` of every later refresh (``partial``, a list);
+    with ``dropout`` = (p, code_size) the renders' code-dropout keep masks
+    (``dropout``, (n_steps, S, 3, C, 1, 1) bool, each kept with
+    probability 1 - p)."""
     n = min(n_rays, num_pixels)
     n_updates = -(-n_steps // update_interval)
-    return dict(
+    gen = dict(generator=generator, device=device)
+    draws = dict(
         ray_inds=make_raybatch_indices(num_scenes, num_pixels, n_rays,
-                                       n_steps, generator, device),
-        jitter=density_jitter(grid_size, bound, n_updates, generator,
-                              device),
-        perturb=torch.rand((n_steps, num_scenes, n), generator=generator,
-                           device=device))
+                                       n_steps, **gen),
+        jitter=density_jitter(grid_size, bound, 1 if partial else n_updates,
+                              **gen),
+        perturb=torch.rand((n_steps, num_scenes, n), **gen))
+    if partial:
+        draws['partial'] = [partial_draws(grid_size, bound, num_scenes, **gen)
+                            for _ in range(n_updates - 1)]
+    if dropout is not None:
+        p, code_size = dropout
+        draws['dropout'] = torch.rand(
+            (n_steps, num_scenes) + tuple(code_size[:2]) + (1, 1),
+            **gen) < 1.0 - p
+    return draws
 
 
 def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
@@ -184,12 +238,15 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
                  bg_color=1.0, dt_gamma=0.0, n_inverse_steps, n_inverse_rays,
                  loss_coef=None, optimizer_cfg=None, lr_scheduler_cfg=None,
                  prior_grad=None, density_thresh=0.01,
-                 update_extra_interval=16):
+                 update_extra_interval=16, partial_density_updates=False):
     """Optimise the raw codes by inverse volume rendering for
     ``n_inverse_steps`` Adam steps: every ``update_extra_interval`` steps
-    (step 0 included) the density grid is refreshed from the current codes;
-    each step renders a ray batch, and ``prior_grad`` (S, *code_size), the
-    diffusion prior's gradient, is added to every step's gradient.
+    (step 0 included) the density grid is refreshed from the current codes
+    (with ``partial_density_updates`` a full sweep at step 0, the partial
+    update later); each step renders a ray batch (dropping code channels
+    with the draws' keep masks when the decoder has ``code_dropout``), and
+    ``prior_grad`` (S, *code_size), the diffusion prior's gradient, is
+    added to every step's gradient.
     ``activate`` maps the raw codes to the decoder's (the code activation
     with the state the caller's step reads).  ``draws`` are
     :func:`inverse_draws`'.  ``lr_scheduler_cfg`` (an
@@ -202,15 +259,23 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
     lr, betas = code_adam_cfg(optimizer_cfg)
     gamma = lr_gamma(lr_scheduler_cfg)
     num_pixels = math.prod(cond_imgs.shape[1:4])
+    dropout = draws.get('dropout')
     aux = {}
     for i in range(n_inverse_steps):
         if i % update_extra_interval == 0:
+            u = i // update_extra_interval
             with torch.no_grad():
                 planes = decoder.planes(activate(code_))
-                density_grid, density_bitfield, _ = update_density_grid(
-                    decoder, planes, density_grid,
-                    draws['jitter'][i // update_extra_interval], grid_size,
-                    density_thresh=density_thresh)
+                if partial_density_updates and u > 0:
+                    density_grid, density_bitfield, _ = \
+                        update_density_grid_partial(
+                            decoder, planes, density_grid,
+                            draws['partial'][u - 1], grid_size,
+                            density_thresh=density_thresh)
+                else:
+                    density_grid, density_bitfield, _ = update_density_grid(
+                        decoder, planes, density_grid, draws['jitter'][u],
+                        grid_size, density_thresh=density_thresh)
         inds = draws['ray_inds']
         rays_o, rays_d, target = ray_sample(
             cond_rays_o, cond_rays_d, cond_imgs, n_inverse_rays,
@@ -220,7 +285,8 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
             decoder, activate(leaf), density_bitfield, target, rays_o,
             rays_d, grid_size, pixel_loss, reg_loss, bg_color, dt_gamma,
             perturb=draws['perturb'][i], scale_num_ray=num_pixels,
-            loss_coef=loss_coef)
+            loss_coef=loss_coef, deterministic=False,
+            dropout=dropout if dropout is None else dropout[i])
         grad, = torch.autograd.grad(loss, leaf)
         if prior_grad is not None:
             grad = grad + prior_grad

@@ -24,20 +24,36 @@ also reads the conditioning views (``concat_cond``): in training one view
 a scene, drawn; at test time all of them, in a drawn order a scene, one a
 UNet call.
 """
+import contextlib
 import copy
 import math
 
 import torch
 from torch.profiler import record_function
 
+from ...convert import jax_param_names
 from ..decoders.renderer import (density_jitter, get_density,
                                  update_density_grid)
 from ..architecture.unet import precision
 from ..diffusions.gaussian_diffusion import GaussianDiffusion
-from .base import (adam_init, adam_step, code_adam_cfg, inverse_code,
-                   inverse_draws, lr_gamma, make_raybatch_indices,
-                   random_subsets, ray_sample, rendering_loss, scene_lr)
+from .base import (adam_init, adam_step, check_dropout_draws, code_adam_cfg,
+                   grad_stats_logvars, inverse_code, lr_gamma,
+                   make_raybatch_indices, random_subsets, ray_sample,
+                   rendering_loss, scene_lr)
 from .multiscene import MultiSceneNeRF, psnr
+
+
+@contextlib.contextmanager
+def _requiring_grad(params):
+    """Parameters that require a gradient while open, as they were after."""
+    was = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        yield
+    finally:
+        for p, w in zip(params, was):
+            p.requires_grad_(w)
 
 
 class DiffusionNeRF(MultiSceneNeRF):
@@ -70,12 +86,6 @@ class DiffusionNeRF(MultiSceneNeRF):
         self.autocast_dtype = cfg.get('autocast_dtype')
         # the scale-norm factor stays put while True (ModelUpdaterHook)
         self.freeze_norm = False
-        for key in ('density_partial_update', 'log_grad_stats'):
-            if self.train_cfg.get(key):
-                raise NotImplementedError(f'train_cfg.{key} is not ported')
-        if self.test_cfg.get('density_partial_update'):
-            raise NotImplementedError('test_cfg.density_partial_update is '
-                                      'not ported')
 
     @property
     def ema_diffusion(self):
@@ -221,6 +231,12 @@ class DiffusionNeRF(MultiSceneNeRF):
         ``train_step.decoder``.  The scale-norm factor is updated unless
         ``freeze_norm``; the UNet's backward runs under its precision pin.
         The UNet drops (``dropout`` > 0) with the draws' keep masks.
+        ``train_cfg``'s ``density_partial_update`` makes the inner loop's
+        later density refreshes partial; ``log_grad_stats`` logs the
+        gradient statistics of the UNet, the decoder (even when frozen)
+        and the codes, as JAX does.  With renders, a decoder with
+        ``code_dropout`` raises before anything changes, where the JAX
+        package's decoder render raises.
 
         Args:
             scene_batch: dict(code_, opt, density_grid, density_bitfield),
@@ -254,6 +270,9 @@ class DiffusionNeRF(MultiSceneNeRF):
         renders = has_cond and not stage2
         num_pixels = math.prod(data['cond_imgs'].shape[1:4]) if renders \
             else None
+        if renders:
+            check_dropout_draws(self.train_decoder, None)
+        log_stats = tc.get('log_grad_stats', False)
         if draws is None:
             draws = self.train_draws(
                 S, num_pixels, generator, code_.device,
@@ -280,6 +299,11 @@ class DiffusionNeRF(MultiSceneNeRF):
             self.apply_grads(unet_params, g_diff, optimizers['diffusion'],
                              lr_schedulers.get('diffusion'))
             log_vars['loss_diffusion'] = loss_diff.detach()
+            if log_stats:
+                by_id = dict(zip(map(id, unet_params), g_diff))
+                log_vars.update(grad_stats_logvars(
+                    'diffusion', jax_param_names(
+                        self.diffusion.denoising, lambda p: by_id[id(p)])))
         self.code_act = new_state
         if not renders:
             return scene_batch, log_vars
@@ -308,7 +332,9 @@ class DiffusionNeRF(MultiSceneNeRF):
                     n_inverse_rays=tc.get('n_inverse_rays', 4096),
                     loss_coef=loss_coef, optimizer_cfg=tc.get('optimizer'),
                     prior_grad=prior_grad, density_thresh=density_thresh,
-                    update_extra_interval=self.update_extra_interval)
+                    update_extra_interval=self.update_extra_interval,
+                    partial_density_updates=tc.get('density_partial_update',
+                                                   False))
                 for k in ('pixel_loss', 'reg_loss'):
                     if k in aux:
                         log_vars[k] = aux[k]
@@ -324,18 +350,25 @@ class DiffusionNeRF(MultiSceneNeRF):
                 rays_o, rays_d, cond_imgs, tc.get('n_decoder_rays', 4096),
                 sample_inds=draws['ray_inds'])
             leaf = code_.detach().requires_grad_()
-            loss_dec, out_rgbs, loss_dict = rendering_loss(
-                decoder, activate(leaf), bitfield, target,
-                b_rays_o, b_rays_d, self.grid_size, self.pixel_loss,
-                self.reg_loss, self.bg_color, dt_gamma,
-                perturb=draws['perturb'], scale_num_ray=num_pixels,
-                loss_coef=loss_coef)
-            if self.freeze_decoder:
-                g_code, = torch.autograd.grad(loss_dec, leaf)
-            else:
-                dec_params = list(decoder.parameters())
-                g_code, *g_dec = torch.autograd.grad(loss_dec,
-                                                     [leaf] + dec_params)
+            dec_params = list(decoder.parameters())
+            # a frozen decoder's gradients are formed only for the stats
+            frozen = log_stats and self.freeze_decoder
+            with _requiring_grad(dec_params) if frozen \
+                    else contextlib.nullcontext():
+                loss_dec, out_rgbs, loss_dict = rendering_loss(
+                    decoder, activate(leaf), bitfield, target,
+                    b_rays_o, b_rays_d, self.grid_size, self.pixel_loss,
+                    self.reg_loss, self.bg_color, dt_gamma,
+                    perturb=draws['perturb'], scale_num_ray=num_pixels,
+                    loss_coef=loss_coef)
+                if self.freeze_decoder and not log_stats:
+                    g_code, = torch.autograd.grad(loss_dec, leaf)
+                else:
+                    g_code, *g_dec = torch.autograd.grad(
+                        loss_dec, [leaf] + dec_params)
+            if log_stats:
+                log_vars.update(self.grad_logs(decoder, g_dec, g_code))
+            if not self.freeze_decoder:
                 self.apply_grads(dec_params, g_dec, optimizers['decoder'],
                                  lr_schedulers.get('decoder'))
             code_, opt = adam_step(code_.detach(), g_code + prior_grad, opt,
@@ -413,7 +446,7 @@ class DiffusionNeRF(MultiSceneNeRF):
 
     def _optim_step_draws(self, S, num_pixels, generator, device):
         """One outer step of :meth:`val_optim`: the diffusion draws, then
-        ``inverse`` (:func:`inverse_draws` of ``extra_scene_step + 1``
+        ``inverse`` (:meth:`inverse_draws` of ``extra_scene_step + 1``
         steps) or, without extra scene steps, the decoder-rays step's
         density ``jitter`` (H^3, 3), ``ray_inds`` (S, n) or None and
         ``perturb`` (S, n)."""
@@ -421,10 +454,8 @@ class DiffusionNeRF(MultiSceneNeRF):
         d = self.diffusion_draws(S, generator, device)
         ess = tcfg.get('extra_scene_step', 0)
         if ess > 0:
-            d['inverse'] = inverse_draws(
-                S, num_pixels, tcfg.get('n_inverse_rays', 4096), ess + 1,
-                self.update_extra_interval, self.grid_size,
-                self.decoder.bound, generator, device)
+            d['inverse'] = self.inverse_draws(tcfg, S, num_pixels, ess + 1,
+                                              generator, device)
             return d
         n_dec = tcfg.get('n_decoder_rays', 4096)
         d.update(
@@ -589,7 +620,7 @@ class DiffusionNeRF(MultiSceneNeRF):
                 decoder, code, bitfield, target, b_o, b_d, self.grid_size,
                 self.pixel_loss, self.reg_loss, self.bg_color, dt_gamma,
                 perturb=gd['perturb'][i], scale_num_ray=target.shape[1],
-                loss_coef=tcfg.get('loss_coef'))
+                loss_coef=tcfg.get('loss_coef'), deterministic=False)
             return loss * S, dict(density_grid=grid,
                                   density_bitfield=bitfield, step=i + 1)
 
@@ -679,7 +710,9 @@ class DiffusionNeRF(MultiSceneNeRF):
                         optimizer_cfg=tcfg.get('optimizer'),
                         lr_scheduler_cfg=tcfg.get('lr_scheduler'),
                         prior_grad=prior_grad, density_thresh=density_thresh,
-                        update_extra_interval=self.update_extra_interval)
+                        update_extra_interval=self.update_extra_interval,
+                        partial_density_updates=tcfg.get(
+                            'density_partial_update', False))
                     continue
                 grid, bitfield, _ = update_density_grid(
                     decoder, decoder.planes(activate(code_)),
@@ -694,7 +727,8 @@ class DiffusionNeRF(MultiSceneNeRF):
                     decoder, activate(leaf), bitfield, target,
                     b_o, b_d, self.grid_size, self.pixel_loss, self.reg_loss,
                     self.bg_color, dt_gamma, perturb=d['perturb'],
-                    scale_num_ray=num_pixels, loss_coef=loss_coef)
+                    scale_num_ray=num_pixels, loss_coef=loss_coef,
+                    deterministic=False)
                 grad, = torch.autograd.grad(loss, leaf)
                 code_, opt = adam_step(code_.detach(), grad + prior_grad,
                                        opt, scene_lr(lr0, gamma, opt), betas)

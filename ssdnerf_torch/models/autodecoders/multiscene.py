@@ -1,8 +1,8 @@
 """Multi-scene NeRF: the stage-1 auto-decoder (port of
 ``ssdnerf_tpu/models/autodecoders/multiscene.py``): decoder (live and
-EMA), losses, code layout and activation with its state, the device scene
-bank, the stage-1 training step, test-time code optimisation and image
-rendering."""
+EMA), losses, code layout and activation with its state, the device and
+host scene banks, the stage-1 training step, test-time code optimisation
+and image rendering."""
 import copy
 import dataclasses
 import math
@@ -12,15 +12,16 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ...convert import jax_param_names
 from ...ops import get_cam_rays
 from ..code_activations import build_code_activation
 from ..decoders.renderer import (density_jitter, render_views,
                                  update_density_grid)
 from ..decoders.triplane import TriPlaneDecoder
 from ..losses import build_pixel_loss, build_reg_loss
-from .base import (SceneOptState, adam_init, adam_step, code_adam_cfg,
-                   inverse_code, inverse_draws, random_subsets, ray_sample,
-                   rendering_loss)
+from .base import (SceneOptState, adam_init, adam_step, check_dropout_draws,
+                   code_adam_cfg, grad_stats_logvars, inverse_code,
+                   inverse_draws, random_subsets, ray_sample, rendering_loss)
 
 
 def build_decoder(cfg):
@@ -28,6 +29,10 @@ def build_decoder(cfg):
     kind = cfg.pop('type', 'TriPlaneDecoder')
     if kind != 'TriPlaneDecoder':
         raise ValueError(f'unknown decoder type {kind}')
+    for k in ('base_layers', 'density_layers', 'color_layers', 'dir_layers',
+              'scene_base_size', 'scene_rand_dims'):
+        if cfg.get(k) is not None:
+            cfg[k] = tuple(cfg[k])
     return TriPlaneDecoder(**cfg)
 
 
@@ -191,6 +196,40 @@ class DeviceSceneCache:
         self.seen[li] = True
 
 
+class HostSceneCache(DeviceSceneCache):
+    """The scene bank in host memory (port of the JAX package's
+    ``SceneCache``, ``cache_device='host'``): the rows and dtypes of
+    :class:`DeviceSceneCache`, in pinned CPU tensors when a card is
+    present, with its interface.  :meth:`load` moves a batch's rows to
+    ``device`` (the model's) and :meth:`save` copies them back."""
+
+    def __init__(self, cache_size, code_size, grid_size, device='cpu',
+                 cache_16bit=False):
+        super().__init__(cache_size, code_size, grid_size, 'cpu',
+                         cache_16bit)
+        self.device = torch.device(device)
+        if torch.cuda.is_available():
+            for k in self.KEYS:
+                setattr(self, k, getattr(self, k).pin_memory())
+
+    def load(self, scene_ids, init_code_fn=None):
+        batch = super().load(scene_ids, init_code_fn)
+        move = lambda t: t.to(self.device, non_blocking=True)
+        opt = batch['opt']
+        return dict(code_=move(batch['code_']),
+                    opt=SceneOptState(m=move(opt.m), v=move(opt.v),
+                                      step=move(opt.step)),
+                    density_grid=move(batch['density_grid']),
+                    density_bitfield=move(batch['density_bitfield']))
+
+    def save(self, scene_ids, code_, opt, density_grid, density_bitfield):
+        host = lambda t: t.detach().to('cpu')
+        super().save(scene_ids, host(code_),
+                     SceneOptState(m=host(opt.m), v=host(opt.v),
+                                   step=host(opt.step)),
+                     host(density_grid), host(density_bitfield))
+
+
 class MultiSceneNeRF(nn.Module):
     """Holds the decoder, its EMA copy (``decoder_use_ema``), the losses,
     the config and the JAX state groups ``code_act`` (the code
@@ -198,8 +237,8 @@ class MultiSceneNeRF(nn.Module):
     ``init_code`` (the mean code of ``init_from_mean``, else None) as
     buffers; scene codes and density grids are passed in explicitly.
     Evaluation renders with the EMA decoder.  The scene bank stays on the
-    model's device (``cache_device`` 'auto' or 'device'); the JAX
-    package's host bank ('host') is not ported."""
+    model's device (``cache_device`` 'auto' or 'device') or in host memory
+    ('host')."""
 
     def __init__(self, cfg, train_cfg=None, test_cfg=None):
         super().__init__()
@@ -366,16 +405,16 @@ class MultiSceneNeRF(nn.Module):
             self.decoder_ema.load_state_dict(self.decoder.state_dict())
 
     def make_cache(self, device):
-        """The scene bank on ``device`` (f32, or 16-bit with
-        ``cache_16bit``).  JAX's 'auto' puts a bank over 6e9 bytes on the
-        host; the port keeps every bank on the card, where the 2458-scene
-        banks fit (10.1 GB f32, 5.7 GB 16-bit)."""
-        if self.cache_device == 'host':
-            raise NotImplementedError(
-                "cache_device='host' (the host SceneCache) is not ported: "
-                'ROADMAP section 1 item 4')
-        return DeviceSceneCache(self.cache_size, self.code_size,
-                                self.grid_size, device, self.cache_16bit)
+        """The scene bank for a model on ``device`` (f32, or 16-bit with
+        ``cache_16bit``): in host memory with ``cache_device='host'``
+        (:class:`HostSceneCache`), else on ``device``.  JAX's 'auto' puts
+        a bank over 6e9 bytes on the host; the port keeps every 'auto' bank
+        on the card, where the 2458-scene banks fit (10.1 GB f32, 5.7 GB
+        16-bit)."""
+        cls = HostSceneCache if self.cache_device == 'host' \
+            else DeviceSceneCache
+        return cls(self.cache_size, self.code_size, self.grid_size, device,
+                   self.cache_16bit)
 
     def get_init_code_np(self, num, rng, init_code=None):
         """Fresh raw codes on the host: without ``init_code``, uniform in
@@ -440,10 +479,23 @@ class MultiSceneNeRF(nn.Module):
                             max_render_rays=cfg.get('max_render_rays', -1))
 
     # ------------------------------------------------------------ training
+    def inverse_draws(self, cfg, num_scenes, num_pixels, n_steps,
+                      generator=None, device='cpu'):
+        """:func:`inverse_draws` of an :func:`inverse_code` of ``n_steps``
+        with ``cfg``'s rays and ``density_partial_update``, and the code
+        dropout's keep masks when the decoder has one."""
+        p = self.decoder.code_dropout
+        return inverse_draws(
+            num_scenes, num_pixels, cfg.get('n_inverse_rays', 4096), n_steps,
+            self.update_extra_interval, self.grid_size, self.decoder.bound,
+            generator, device,
+            partial=cfg.get('density_partial_update', False),
+            dropout=(p, self.code_size) if p > 0 else None)
+
     def train_draws(self, num_scenes, num_pixels, generator=None,
                     device='cpu'):
         """Every random draw of one stage-1 :meth:`train_step`, the draws of
-        its renders: the inner loop's ``inverse`` (:func:`inverse_draws`,
+        its renders: the inner loop's ``inverse`` (:meth:`inverse_draws`,
         None without ``extra_scene_step``), the density sweep's ``jitter``,
         the decoder step's ``ray_inds`` (None when a scene has no more
         pixels than the batch) and start-t ``perturb``."""
@@ -452,10 +504,8 @@ class MultiSceneNeRF(nn.Module):
         n_dec = tc.get('n_decoder_rays', 4096)
         ess = tc.get('extra_scene_step', 0)
         return dict(
-            inverse=inverse_draws(
-                S, num_pixels, tc.get('n_inverse_rays', 4096), ess,
-                self.update_extra_interval, self.grid_size,
-                self.decoder.bound, generator, device) if ess > 0 else None,
+            inverse=self.inverse_draws(tc, S, num_pixels, ess, generator,
+                                       device) if ess > 0 else None,
             jitter=density_jitter(self.grid_size, self.decoder.bound, 1,
                                   generator, device)[0],
             ray_inds=random_subsets(S, num_pixels, n_dec, generator, device)
@@ -470,6 +520,17 @@ class MultiSceneNeRF(nn.Module):
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
+
+    @staticmethod
+    def grad_logs(decoder, g_dec, g_code):
+        """``log_grad_stats``' log vars of a render loss's gradients: JAX's
+        ``grad_stats_logvars('decoder', g_dec)`` and ``('code',
+        g_code)``, ``g_dec`` in ``decoder.parameters()`` order."""
+        grads = dict(zip(map(id, decoder.parameters()), g_dec))
+        logs = grad_stats_logvars('decoder', jax_param_names(
+            decoder, lambda p: grads[id(p)]))
+        logs.update(grad_stats_logvars('code', {'': g_code}))
+        return logs
 
     def update_init_code(self, code):
         """The mean code's EMA (``mean_ema_momentum``) toward the batch's
@@ -492,9 +553,14 @@ class MultiSceneNeRF(nn.Module):
         ``lr_schedulers`` are keyed 'decoder'; ``draws`` are
         :meth:`train_draws`', drawn from ``generator`` when None.  The log
         vars are the render loss's parts, ``loss``, ``train_psnr`` and
-        ``code_rms``.
+        ``code_rms``, and with ``log_grad_stats`` the decoder's and the
+        codes' gradient statistics.  ``density_partial_update`` makes the
+        inner loop's later density refreshes partial.  A decoder with
+        ``code_dropout`` raises before anything changes, where the JAX
+        package's decoder render raises.
         """
         tc = self.train_cfg
+        check_dropout_draws(self.decoder, None)
         lr_schedulers = lr_schedulers or {}
         lr, betas = code_adam_cfg(tc.get('optimizer'))
         code_ = scene_batch['code_']
@@ -524,7 +590,9 @@ class MultiSceneNeRF(nn.Module):
                     n_inverse_rays=tc.get('n_inverse_rays', 4096),
                     loss_coef=loss_coef, optimizer_cfg=tc.get('optimizer'),
                     density_thresh=density_thresh,
-                    update_extra_interval=self.update_extra_interval)
+                    update_extra_interval=self.update_extra_interval,
+                    partial_density_updates=tc.get('density_partial_update',
+                                                   False))
 
         with record_function('train_step.decoder'):
             with torch.no_grad():
@@ -545,6 +613,8 @@ class MultiSceneNeRF(nn.Module):
                 loss_coef=loss_coef)
             dec_params = list(decoder.parameters())
             g_code, *g_dec = torch.autograd.grad(loss, [leaf] + dec_params)
+            grad_logs = self.grad_logs(decoder, g_dec, g_code) \
+                if tc.get('log_grad_stats', False) else {}
             self.apply_grads(dec_params, g_dec, optimizers['decoder'],
                              lr_schedulers.get('decoder'))
             code_, opt = adam_step(code_.detach(), g_code, opt, lr, betas)
@@ -554,6 +624,7 @@ class MultiSceneNeRF(nn.Module):
             code = self.code_activation(code_, new_state)
             self.update_init_code(code)
             log_vars = dict(loss_dict)
+            log_vars.update(grad_logs)
             log_vars.update(loss=loss.detach(),
                             train_psnr=psnr(out_rgbs.detach(), target),
                             code_rms=torch.sqrt(torch.mean(code ** 2)))
@@ -564,20 +635,21 @@ class MultiSceneNeRF(nn.Module):
     # ------------------------------------------------------ reconstruction
     def val_inverse_draws(self, num_scenes, num_pixels, generator=None,
                           device='cpu'):
-        """The draws of :meth:`val_inverse_code` (:func:`inverse_draws` of
+        """The draws of :meth:`val_inverse_code` (:meth:`inverse_draws` of
         ``test_cfg``'s ``n_inverse_steps``)."""
         tcfg = self.test_cfg
-        return inverse_draws(
-            num_scenes, num_pixels, tcfg.get('n_inverse_rays', 4096),
-            tcfg.get('n_inverse_steps', 1000), self.update_extra_interval,
-            self.grid_size, self.decoder.bound, generator, device)
+        return self.inverse_draws(tcfg, num_scenes, num_pixels,
+                                  tcfg.get('n_inverse_steps', 1000),
+                                  generator, device)
 
     def val_inverse_code(self, data, draws=None, generator=None):
         """Test-time optimisation of the codes of the conditioning views
         (JAX ``multiscene.py:605-638``), with the EMA decoder: from init
         codes of ``np.random.RandomState(0)`` (or the mean code), empty
-        f16 density grids and ``test_cfg``'s optimizer and ExponentialLR,
-        ``n_inverse_steps`` steps of :func:`inverse_code`.  ``draws`` are
+        f16 density grids and ``test_cfg``'s optimizer, ExponentialLR and
+        ``density_partial_update``, ``n_inverse_steps`` steps of
+        :func:`inverse_code` (with code dropout's keep masks, when the
+        decoder drops).  ``draws`` are
         :meth:`val_inverse_draws`', drawn from ``generator`` when None.
         Returns (code, density_grid, density_bitfield, aux)."""
         tcfg = self.test_cfg
@@ -607,6 +679,8 @@ class MultiSceneNeRF(nn.Module):
                 optimizer_cfg=tcfg.get('optimizer'),
                 lr_scheduler_cfg=tcfg.get('lr_scheduler'),
                 density_thresh=tcfg.get('density_thresh', 0.01),
-                update_extra_interval=self.update_extra_interval)
+                update_extra_interval=self.update_extra_interval,
+                partial_density_updates=tcfg.get('density_partial_update',
+                                                 False))
         with torch.no_grad():
             return self.code_activation(code_, state), grid, bitfield, aux

@@ -5,7 +5,13 @@ cross-ray packing -> decode kernel -> composite.  The packed render has two
 forward-only variants, chosen by decoder fields as in the JAX package: the
 decode fused with the composite (``fused_composite``), and the banded
 decode (``banded_decode``), which decodes a band-sorted copy of the packed
-layout where every tile's taps fit a plane window.
+layout where every tile's taps fit a plane window.  Without compaction
+(``compact_steps`` None) every march slot is decoded, per ray, as the JAX
+package's XLA path does; with ``compact_steps`` at least the march's slots
+the compaction keeps every valid slot, so the same samples are decoded
+(and packed where the kernel path packs, as JAX's does); a decoder outside
+the kernel's shape (``TriPlaneDecoder.kernel_route`` false) renders per
+ray as well, since JAX packs only on its kernel path.
 
 There is no backend switch: each kernel wrapper takes its plain version for
 CPU tensors and launches its kernel for CUDA tensors.  ``volume_render`` is
@@ -23,6 +29,7 @@ from ...ops.kernels.march import march_valid_mask
 from ...ops.marching import SQRT3
 from ...ops.packing import (band_keys_and_payload, banded_windows,
                             pack_groups_banded, route_back)
+from ...ops.ray_utils import sph_from_ray
 
 GROUP_RAYS = 16
 CHUNK = 1024   # slots of the JAX package's decode chunk, which the packed
@@ -40,7 +47,10 @@ def march_samples(decoder, rays_o, rays_d, density_bitfield, grid_size,
 
     Returns t0 (S, N) start t of each ray (perturbed), dt_gamma (S,),
     comp_step (S, N, K) f32 step indices and comp_valid (S, N, K) bool of
-    each ray's first K = ``decoder.compact_steps`` occupied samples."""
+    each ray's first K = ``decoder.compact_steps`` occupied samples (all of
+    them when K is at least the march's slots); with ``compact_steps``
+    None, the identity step indices of all K = march slots and the march's
+    mask (JAX ``renderer.py:262`` decodes every slot then)."""
     S = rays_o.shape[0]
     dev = rays_o.device
     bound = decoder.bound
@@ -72,7 +82,13 @@ def march_samples(decoder, rays_o, rays_d, density_bitfield, grid_size,
         valid = march_valid_mask(rays_o, rays_d, t0, fars, density_bitfield,
                                  dt_gamma, num_slots, grid_size, bound,
                                  max_steps)
-        comp_step, comp_valid = compact_samples(valid, decoder.compact_steps)
+        if decoder.compact_steps is not None:
+            comp_step, comp_valid = compact_samples(valid,
+                                                    decoder.compact_steps)
+        else:
+            comp_step = torch.arange(num_slots, dtype=torch.float32,
+                                     device=dev).expand(valid.shape)
+            comp_valid = valid
     return t0, dt_gamma, comp_step, comp_valid
 
 
@@ -101,14 +117,14 @@ def slot_samples(rays_o, rays_d, t0, dt_gamma, pstep, prid, dt_min, dt_max,
 def packed_branch(P, K, N):
     """The JAX package's condition for the cross-ray packed render
     (``_volume_render_fused``): 16-ray groups whose P-slot budgets tile the
-    1024-slot decode chunks."""
-    return (P is not None and P % 8 == 0 and K % 8 == 0
+    1024-slot decode chunks; never without compaction (K None)."""
+    return (P is not None and K is not None and P % 8 == 0 and K % 8 == 0
             and N % GROUP_RAYS == 0 and P <= CHUNK and CHUNK % P == 0
             and (N // GROUP_RAYS) * P % CHUNK == 0)
 
 
 def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
-                  dt_gamma=0.0, perturb=None, T_thresh=1e-4):
+                  dt_gamma=0.0, perturb=None, T_thresh=1e-4, dropout=None):
     """Render a batch of rays for a batch of scenes.
 
     Args:
@@ -123,15 +139,28 @@ def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
         perturb: (S, N) start-t jitter in [0, 1) (None: no jitter), applied
             as ``t0 = near + clamp(near * dt_gamma, dt_min, dt_max) *
             perturb``.
+        dropout: (S, 3, C, 1, 1) code-dropout keep masks of the render
+            (``TriPlaneDecoder.planes``), or None.
 
     Returns:
-        dict(weights_sum=(S, N), depth=(S, N), image=(S, N, 3)).
+        dict(weights_sum=(S, N), depth=(S, N), image=(S, N, 3)), and with
+        ``decoder.bg_radius`` > 0 ``bg_coords`` (S, N, 2), each ray's
+        (theta, phi) on the background sphere.
 
     The banded variant reads its exactness guard on the host once per
     render; ``volume_render.banded_engaged`` / ``.banded_declined`` count
     the renders the banded kernel decoded and those it left to the full
     decode because a tile's taps overflowed its window.
     """
+    out = _render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
+                  dt_gamma, perturb, T_thresh, dropout)
+    if decoder.bg_radius > 0:
+        out['bg_coords'] = sph_from_ray(rays_o, rays_d, decoder.bg_radius)
+    return out
+
+
+def _render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
+            dt_gamma, perturb, T_thresh, dropout):
     S, N = rays_o.shape[:2]
     dev = rays_o.device
     bound = decoder.bound
@@ -139,18 +168,20 @@ def volume_render(decoder, code, rays_o, rays_d, density_bitfield, grid_size,
     t0, dt_gamma, comp_step, comp_valid = march_samples(
         decoder, rays_o, rays_d, density_bitfield, grid_size, dt_gamma,
         perturb)
-    K = decoder.compact_steps
+    K = comp_step.shape[-1]
 
-    planes = decoder.planes(code)
+    planes = decoder.planes(code, dropout)
     dir_out = decoder.dir_out(rays_d)                         # (S, N, hidden)
     P = decoder.pack_slots
     GR = GROUP_RAYS
-    if packed_branch(P, K, N):
+    if decoder.kernel_route and packed_branch(
+            P, decoder.compact_steps, N):
         # cross-ray packing: 16-ray groups share P decode slots
         G = N // GR
         banded = (decoder.banded_decode and P % TILE == 0
                   and (G * (P // TILE)) % (CHUNK // TILE) == 0)
         fused = (decoder.fused_composite and not banded
+                 and decoder.sigma_activation == 'trunc_exp'
                  and P & (P - 1) == 0 and (CHUNK // P) * GR <= 128)
         with torch.no_grad():
             if banded:
@@ -233,11 +264,14 @@ def _voxel_centers(grid_size, bound, device):
     return (coords.float() - (H - 1) / 2.0) * (2.0 * bound / H)
 
 
-def _ema_and_pack(density_grid, tmp, decay, density_thresh):
-    """EMA-max merge + bitfield repack (threshold shared by the batch)."""
+def _ema_and_pack(density_grid, tmp, decay, density_thresh, tmp_valid=None):
+    """EMA-max merge + bitfield repack (threshold shared by the batch);
+    with ``tmp_valid`` only where it is true."""
     fmax = torch.finfo(density_grid.dtype).max
     tmp = torch.clamp(tmp, max=fmax).to(density_grid.dtype)
     valid = density_grid >= 0
+    if tmp_valid is not None:
+        valid = valid & tmp_valid
     density_grid = torch.where(
         valid, torch.maximum(density_grid * decay, tmp), density_grid)
     mean_density = torch.clamp(density_grid.float(), min=0).mean()
@@ -258,6 +292,63 @@ def update_density_grid(decoder, planes, density_grid, jitter, grid_size,
     xyz = _voxel_centers(grid_size, decoder.bound, planes.device) + jitter
     tmp, _ = decoder.decode(planes, xyz.expand(S, -1, 3).contiguous())
     return _ema_and_pack(density_grid, tmp, decay, density_thresh)
+
+
+def partial_draws(grid_size, bound, num_scenes, generator=None,
+                  device='cpu'):
+    """The draws of one :func:`update_density_grid_partial`, from
+    ``generator``: ``unif_idx`` (V/4,) int64 uniform voxels, ``occ_u`` (S,
+    V/4) uniforms in [0, 1) picking occupied voxels, and ``jitter`` (S,
+    V/2, 3) intra-voxel jitter in [-half_voxel, half_voxel)."""
+    V = grid_size ** 3
+    N = V // 4
+    half_voxel = bound / grid_size
+    gen = dict(generator=generator, device=device)
+    return dict(
+        unif_idx=torch.randint(0, V, (N,), **gen),
+        occ_u=torch.rand((num_scenes, N), **gen),
+        jitter=torch.rand((num_scenes, 2 * N, 3), **gen) * (2 * half_voxel)
+        - half_voxel)
+
+
+def occupied_voxels(density_grid, occ_u):
+    """Voxel indices (S, N) int64 drawn from each scene's occupied set
+    (``density_grid > 0``), with replacement: the ``floor(occ_u *
+    n_occ)``-th occupied voxel in linear order (0-based, ``n_occ`` at
+    least 1), and voxel V - 1 for an empty grid -- the picks of the JAX
+    package's two-level inverse-CDF lookup."""
+    V = density_grid.shape[-1]
+    cum = torch.cumsum((density_grid > 0).to(torch.int32), dim=-1)
+    n_occ = torch.clamp(cum[:, -1:], min=1)
+    u = torch.floor(occ_u * n_occ.to(torch.float32)).to(cum.dtype)
+    return torch.clamp(torch.searchsorted(cum, u.contiguous(), right=True),
+                       max=V - 1)
+
+
+@torch.no_grad()
+def update_density_grid_partial(decoder, planes, density_grid, draws,
+                                grid_size, density_thresh=0.01, decay=0.9):
+    """The stochastic partial occupancy update (JAX
+    ``renderer.py:update_density_grid_partial``): V/4 uniform voxels
+    shared by the scenes plus V/4 drawn from each scene's occupied set
+    (:func:`occupied_voxels`), decoded density-only with intra-voxel
+    jitter; their scatter-max (duplicates keep the largest) is merged by
+    the EMA-max rule only at the voxels decoded.  ``draws`` are
+    :func:`partial_draws`'.
+
+    Returns (density_grid, density_bitfield, mean_density)."""
+    H = grid_size
+    S = planes.shape[0]
+    unif = draws['unif_idx'].to(planes.device)
+    idx = torch.cat([unif.expand(S, -1),
+                     occupied_voxels(density_grid, draws['occ_u'])], dim=1)
+    coords = torch.stack([idx // (H * H), (idx // H) % H, idx % H], dim=-1)
+    xyz = (coords.float() - (H - 1) / 2.0) * (2.0 * decoder.bound / H) \
+        + draws['jitter']
+    sigmas, _ = decoder.decode(planes, xyz.contiguous())
+    tmp = torch.full(density_grid.shape, -1.0, device=planes.device)
+    tmp = tmp.scatter_reduce(1, idx, sigmas, 'amax')
+    return _ema_and_pack(density_grid, tmp, decay, density_thresh, tmp >= 0)
 
 
 @torch.no_grad()

@@ -5,11 +5,11 @@ from .marching import compact_samples, occupied_aabb, t_at_step
 from .morton import packbits, unpackbits
 from .packing import composite_packed, pack_groups
 from .ray_utils import (get_cam_rays, get_ray_directions, get_rays,
-                        near_far_from_aabb)
+                        near_far_from_aabb, sph_from_ray)
 from .sh import sh_encode
 
 __all__ = ['trunc_exp', 'composite_rays', 'compact_samples',
            'occupied_aabb', 't_at_step', 'packbits', 'unpackbits',
            'composite_packed', 'pack_groups', 'get_cam_rays',
            'get_ray_directions', 'get_rays', 'near_far_from_aabb',
-           'sh_encode']
+           'sh_encode', 'sph_from_ray']

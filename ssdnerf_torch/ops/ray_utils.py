@@ -54,3 +54,18 @@ def get_rays(directions, c2w, norm=False):
 def get_cam_rays(c2w, intrinsics, h, w):
     """World-space unit rays for a batch of cameras."""
     return get_rays(get_ray_directions(h, w, intrinsics), c2w, norm=True)
+
+
+def sph_from_ray(rays_o, rays_d, radius):
+    """Ray / background-sphere intersection -> (..., 2) (theta, phi) in
+    [-1, 1] (port of the JAX package's ``sph_from_ray``): the positive
+    root of ``|o + t d|^2 = r^2`` for origins inside the sphere and unit
+    directions."""
+    b = torch.sum(rays_o * rays_d, dim=-1)
+    c = torch.sum(rays_o * rays_o, dim=-1) - radius * radius
+    t = -b + torch.sqrt(torch.clamp(b * b - c, min=0.0))
+    p = rays_o + t[..., None] * rays_d
+    x, y, z = p.unbind(-1)
+    theta = torch.atan2(torch.sqrt(x * x + y * y), z) / torch.pi * 2.0 - 1.0
+    phi = torch.atan2(y, x) / torch.pi
+    return torch.stack([theta, phi], dim=-1)

@@ -24,13 +24,18 @@ def _taps(c, res):
 def sample_triplane(code, xyz, dtype=torch.float32):
     """code (S, 3, C, H, W), xyz (S, N, 3) in [-1, 1] -> (S, N, 3C) f32
     features, column ``c * 3 + p`` (the reference's feature order)."""
-    S, _, C, H, W = code.shape
+    return sample_planes(code.permute(0, 1, 3, 4, 2), xyz, dtype)
+
+
+def sample_planes(planes, xyz, dtype=torch.float32):
+    """:func:`sample_triplane` of channels-last planes (S, 3, H, W, C)."""
+    S, _, H, W, C = planes.shape
     N = xyz.shape[1]
 
     def r(t):
         return t.to(dtype).float()
 
-    planes = r(code.permute(0, 1, 3, 4, 2))              # (S, 3, H, W, C)
+    planes = r(planes)
     x, y, z = xyz.unbind(-1)
     feats = []
     for p, (cu, cv) in enumerate(((x, y), (x, z), (y, z))):

@@ -282,6 +282,23 @@ class ModelUpdaterHook(Hook):
                 self._apply(runner, cfg, f'applied at iter {it}')
 
 
+def host_scalars(log_vars):
+    """The 0-dim log vars as Python floats, in their order; the tensors of
+    a device come to the host in one copy (``log_grad_stats`` logs three
+    a parameter)."""
+    keys = [k for k, v in log_vars.items() if np.ndim(v) == 0]
+    by_device = {}
+    for k in keys:
+        if torch.is_tensor(log_vars[k]):
+            by_device.setdefault(log_vars[k].device, []).append(k)
+    out = {k: float(log_vars[k]) for k in keys
+           if not torch.is_tensor(log_vars[k])}
+    for ks in by_device.values():
+        vals = torch.stack([log_vars[k].detach().double() for k in ks])
+        out.update(zip(ks, vals.cpu().tolist()))
+    return {k: out[k] for k in keys}
+
+
 class SaveStatsHook(Hook):
     """Every ``interval`` iterations a line of ``stats_rank{r}.jsonl`` in
     the work dir: the last iteration's scalar log vars and ``iter`` (the
@@ -296,8 +313,7 @@ class SaveStatsHook(Hook):
             return
         path = os.path.join(runner.work_dir,
                             f'stats_rank{runner.rank}.jsonl')
-        stats = {k: float(v) for k, v in runner.last_log_vars.items()
-                 if np.ndim(v) == 0}
+        stats = host_scalars(runner.last_log_vars)
         stats['iter'] = runner.iteration
         stats['scene_id'] = [int(i) for i in runner.last_scene_ids]
         with open(path, 'a') as f:
@@ -343,9 +359,8 @@ class TextLoggerHook(Hook):
         it = runner.iteration
         ips = (it - self._it0) / max(now - self._t0, 1e-9)
         self._t0, self._it0 = now, it
-        vals = ', '.join(f'{k}: {float(v):.4g}'
-                         for k, v in runner.last_log_vars.items()
-                         if np.ndim(v) == 0)
+        vals = ', '.join(f'{k}: {v:.4g}' for k, v in
+                         host_scalars(runner.last_log_vars).items())
         runner.log_text(
             f'Iter [{it}/{runner.max_iters}] {ips:.2f} it/s  {vals}')
 
@@ -372,9 +387,8 @@ class TensorboardLoggerHook(Hook):
         if self.writer is None or not self.every_n_iters(runner,
                                                          self.interval):
             return
-        for k, v in runner.last_log_vars.items():
-            if np.ndim(v) == 0:
-                self.writer.add_scalar(k, float(v), runner.iteration)
+        for k, v in host_scalars(runner.last_log_vars).items():
+            self.writer.add_scalar(k, v, runner.iteration)
 
     def after_run(self, runner):
         if self.writer is not None:

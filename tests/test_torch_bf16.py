@@ -583,20 +583,6 @@ def test_unet_pins_precision(monkeypatch):
     assert len(seen) > 10 and set(seen) == {(False, False)}
 
 
-@pytest.mark.parametrize('section,key,value', [
-    ('train_cfg', 'density_partial_update', True),
-    ('train_cfg', 'log_grad_stats', True),
-    ('test_cfg', 'density_partial_update', True)])
-def test_unported_config_keys_raise(section, key, value):
-    """A config key the port does not read raises when set, instead of
-    being ignored."""
-    kwargs = dict(train_cfg={}, test_cfg={})
-    build_model(copy.deepcopy(TINY_MODEL_CFG), **kwargs)
-    kwargs[section] = {key: value}
-    with pytest.raises(NotImplementedError, match=key):
-        build_model(copy.deepcopy(TINY_MODEL_CFG), **kwargs)
-
-
 def test_bf16_config_and_flagship_build():
     """``configs/new_cfgs/ssdnerf_cars_uncond_bf16.py`` and its ``_base_``
     chain build in the port: a bf16 UNet with f32 parameters, into which

@@ -1431,3 +1431,167 @@ def test_stage1_step_launches_kernels_at_flagship_planes(cuda_device):
     for k in ('loss', 'pixel_loss', 'reg_loss', 'train_psnr', 'code_rms'):
         got, ref = float(logs['cuda'][k]), float(logs['cpu'][k])
         assert math.isfinite(got) and abs(got - ref) <= 1e-2 * abs(ref), k
+
+
+# ------------------------------------------ options no shipped config sets
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_partial_update_decode_matches_plain(cuda_device, dtype):
+    """The density-only decode at a partial sweep's scattered points (64^3
+    grid, 2 scenes, V/4 shared uniform voxels and V/4 drawn from each
+    scene's occupied set, jittered: M = 131,072 a scene) against the plain
+    version (f32 atol 1e-5, bf16 as ``_bf16_close``), and the whole
+    ``update_density_grid_partial`` on the card against the CPU with the
+    same draws: the same voxels change, within 1e-3 relative (one f16
+    ulp), the bitfields differ in at most 1e-3 of the bits."""
+    from ssdnerf_torch.models.decoders.renderer import (
+        occupied_voxels, partial_draws, update_density_grid_partial)
+    g = torch.Generator().manual_seed(30)
+    dec = _seeded_decoder(g, dtype, base_layers=(18, 64))
+    code = torch.randn((2, 3, 6, 128, 128), generator=g) * 0.5
+    H = 64
+    grid = (torch.rand((2, H ** 3), generator=g) * 2.0 * (
+        torch.rand((2, H ** 3), generator=g) < 0.3)).half()
+    draws = partial_draws(H, 1.0, 2, g)
+    idx = torch.cat([draws['unif_idx'].expand(2, -1),
+                     occupied_voxels(grid, draws['occ_u'])], 1)
+    coords = torch.stack([idx // (H * H), (idx // H) % H, idx % H], -1)
+    xyz = ((coords.float() - (H - 1) / 2) * (2.0 / H)
+           + draws['jitter']).contiguous()
+    planes = dec.planes(code)
+    params = dec.kernel_params().detach()
+    attr = 'launches' if dtype == 'float32' else 'launches_bf16'
+    ref, _ = k_dec.triplane_decode_plain(planes, xyz, params, 64)
+    before = getattr(k_dec.triplane_decode, attr)
+    got, none = k_dec.triplane_decode(planes.to(cuda_device),
+                                      xyz.to(cuda_device),
+                                      params.to(cuda_device), 64)
+    assert none is None
+    assert getattr(k_dec.triplane_decode, attr) == before + 1
+    if dtype == 'float32':
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
+    else:
+        _bf16_close(got, ref)
+
+    out = {}
+    for dev in ('cpu', cuda_device):
+        d = copy.deepcopy(dec).to(dev)
+        with torch.no_grad():
+            out[str(dev)] = update_density_grid_partial(
+                d, d.planes(code.to(dev)), grid.to(dev),
+                {k: v.to(dev) for k, v in draws.items()}, H, 0.05)
+    (gc, bc, _), (gg, bg, _) = out['cpu'], out['cuda']
+    assert torch.equal(gc != grid, gg.cpu() != grid)
+    torch.testing.assert_close(gg.cpu().float(), gc.float(), rtol=1e-3,
+                               atol=1e-5)
+    diff = (bg.cpu() ^ bc).to(torch.int64)
+    flipped = sum(((diff >> b) & 1).sum().item() for b in range(8))
+    assert flipped <= 1e-3 * diff.numel() * 8, flipped
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_dense_decode_layout_matches_plain(cuda_device, dtype):
+    """The decode and its backward on the dense layout of
+    ``compact_steps=None`` (256 consecutive samples a ray, 2,048 rays a
+    scene, 2 scenes): forward f32 atol 1e-5 and gradients 1e-5 of their
+    largest entry (f32 atomics), bf16 as ``_bf16_close`` (2 ulps for the
+    gradients); then a dense render (8,192 rays, 256 march slots) and its
+    gradients w.r.t. the codes and the decoder, card vs CPU in f32: image
+    atol 1e-4, gradients 1e-3 of their largest entry."""
+    from ssdnerf_torch.models.decoders.renderer import volume_render
+    N, K = 2048, 256
+    planes, xyz, params, rid, dir_out, g_s, g_c = _decode_operands(
+        cuda_device, 6, 64, N * K, N, True)
+    if dtype == 'bfloat16':
+        planes, params = _as_bf16(planes, params, 64)
+    ref = k_dec.triplane_decode_plain(planes, xyz, params, 64, rid, dir_out)
+    got = k_dec.triplane_decode(planes, xyz, params, 64, rid, dir_out)
+    gref = k_dec.triplane_decode_backward_plain(planes, xyz, params, 64, rid,
+                                                dir_out, g_s, g_c)
+    ggot = k_dec.triplane_decode_backward(planes, xyz, params, 64, rid,
+                                          dir_out, g_s, g_c)
+    for o, r in zip(got, ref):
+        if dtype == 'float32':
+            torch.testing.assert_close(o, r, rtol=0, atol=1e-5)
+        else:
+            _bf16_close(o, r)
+    for a, b in zip(ggot, gref):
+        if dtype == 'float32':
+            assert _max_rel_err(a, b) <= 1e-5
+        else:
+            _bf16_close(a, b, 2.0)
+    if dtype == 'bfloat16':
+        return
+
+    g = torch.Generator().manual_seed(31)
+    dec = _seeded_decoder(g, 'float32', base_layers=(18, 64),
+                          compact_steps=None)
+    with torch.no_grad():
+        dec.density_net.dense_0.bias -= 2.0
+    code = torch.randn((2, 3, 6, 128, 128), generator=g) * 0.5
+    o = torch.randn((2, 4096, 3), generator=g) * 0.2
+    o[..., 2] += 2.2
+    d = torch.nn.functional.normalize(
+        -o + torch.randn((2, 4096, 3), generator=g) * 0.3, dim=-1)
+    bits = torch.randint(0, 256, (2, 64 ** 3 // 8), generator=g,
+                         dtype=torch.uint8)
+    outs = {}
+    for dev in ('cpu', cuda_device):
+        m = copy.deepcopy(dec).to(dev)
+        leaf = code.to(dev).requires_grad_()
+        before = k_dec.triplane_decode_backward.launches
+        out = volume_render(m, leaf, o.to(dev), d.to(dev), bits.to(dev), 64,
+                            dt_gamma=0.004)
+        loss = ((out['image'] + 1 - out['weights_sum'][..., None]
+                 - 0.5) ** 2).mean()
+        grads = torch.autograd.grad(loss, [leaf] + list(m.parameters()))
+        if dev != 'cpu':
+            assert k_dec.triplane_decode_backward.launches == before + 1
+        outs[str(dev)] = [out['image'].detach().cpu()] + [
+            x.cpu() for x in grads]
+    torch.testing.assert_close(outs['cuda'][0], outs['cpu'][0], rtol=0,
+                               atol=1e-4)
+    for a, b in zip(outs['cuda'][1:], outs['cpu'][1:]):
+        assert _max_rel_err(a, b) <= 1e-3
+
+
+def test_decoder_route_follows_its_shape(cuda_device):
+    """A decoder outside the kernel's shape (a deeper base net, the SH
+    concat) renders on the card through torch ops and matches its CPU
+    render (image atol 1e-4, gradients 1e-3 of their largest entry),
+    launching no decode kernel; a decoder of the kernel's shape whose
+    width has no instance (48) raises on the card rather than taking that
+    route."""
+    from ssdnerf_torch.models.decoders.renderer import volume_render
+    g = torch.Generator().manual_seed(32)
+    dec = _seeded_decoder(g, 'float32', base_layers=(18, 64, 64),
+                          dir_layers=None, color_layers=(80, 3))
+    assert not dec.kernel_route
+    code = torch.randn((2, 3, 6, 32, 32), generator=g) * 0.5
+    o = torch.randn((2, 1024, 3), generator=g) * 0.2
+    o[..., 2] += 2.2
+    d = torch.nn.functional.normalize(
+        -o + torch.randn((2, 1024, 3), generator=g) * 0.3, dim=-1)
+    bits = torch.full((2, 64 ** 3 // 8), 255, dtype=torch.uint8)
+    outs = {}
+    for dev in ('cpu', cuda_device):
+        m = copy.deepcopy(dec).to(dev)
+        leaf = code.to(dev).requires_grad_()
+        before = (k_dec.triplane_decode.launches,
+                  k_dec.triplane_decode_backward.launches)
+        out = volume_render(m, leaf, o.to(dev), d.to(dev), bits.to(dev), 64)
+        grads = torch.autograd.grad(out['image'].square().mean(),
+                                    [leaf] + list(m.parameters()))
+        assert before == (k_dec.triplane_decode.launches,
+                          k_dec.triplane_decode_backward.launches)
+        outs[str(dev)] = [out['image'].detach().cpu()] + [
+            x.cpu() for x in grads]
+    torch.testing.assert_close(outs['cuda'][0], outs['cpu'][0], rtol=0,
+                               atol=1e-4)
+    for a, b in zip(outs['cuda'][1:], outs['cpu'][1:]):
+        assert _max_rel_err(a, b) <= 1e-3
+    narrow = _seeded_decoder(g, 'float32', base_layers=(18, 48),
+                             dir_layers=(16, 48)).to(cuda_device)
+    assert narrow.kernel_route
+    with pytest.raises(ValueError):
+        volume_render(narrow, code.to(cuda_device), o.to(cuda_device),
+                      d.to(cuda_device), bits.to(cuda_device), 64)

@@ -583,10 +583,10 @@ def test_unported_modes_raise(tmp_path):
     NotImplementedError, naming their ROADMAP item.  Stage 2 (no
     ``train_cfg.optimizer``), the filesystem cache (no bank, with
     ``num_file_writers``) and ``cache_device='host'`` were unported too:
-    the first two now build and step (stage 2 trains the UNet alone on the
-    batch's codes; the filesystem cache writes each scene's file and reads
-    it back at the scene's next iteration), the last raises naming item
-    4."""
+    they now build and step (stage 2 trains the UNet alone on the batch's
+    codes; the filesystem cache writes each scene's file and reads it back
+    at the scene's next iteration; the host bank keeps the rows the step
+    wrote in host memory)."""
     model, opts, scheds = _tiny_parts()
     bank = model.make_cache('cpu')
     with pytest.raises(NotImplementedError, match='item 6'):
@@ -594,11 +594,22 @@ def test_unported_modes_raise(tmp_path):
                world_size=2)
     with pytest.raises(NotImplementedError, match='item 6'):
         train_cli.main(['unread.py', '--multi-host'])
-    with pytest.raises(NotImplementedError, match='item 4'):
-        build_model(dict(copy.deepcopy(TINY_MODEL_CFG),
-                         cache_device='host')).make_cache('cpu')
 
     batch = make_batch(num_scenes=2, num_views=2, h=16, w=16)
+    model = build_model(dict(copy.deepcopy(TINY_MODEL_CFG),
+                             cache_device='host'),
+                        train_cfg=dict(TINY_TRAIN_CFG))
+    opts, scheds = build_optimizers(model, dict(
+        diffusion=dict(lr=1e-4), decoder=dict(lr=1e-3)))
+    host = model.make_cache('cpu')
+    assert type(host).__name__ == 'HostSceneCache'
+    runner = Runner(model, host, None, opts, scheds, str(tmp_path / 'h'), 1)
+    runner.train_iter(batch)
+    assert host.seen[:2].all() and not host.seen[2:].any()
+    assert host.step[:2].tolist() == [TINY_TRAIN_CFG['extra_scene_step']
+                                      + 1] * 2
+    assert host.code_[:2].abs().sum() > 0 and host.code_.device.type == 'cpu'
+
     code_dir = str(tmp_path / 'code')
     model = build_model(dict(copy.deepcopy(TINY_MODEL_CFG), cache_size=0,
                              num_file_writers=2),
