@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ssdnerf_torch/csrc into build/kernels/, then
-runs thirteen phases, any failure of which exits non-zero:
+runs fourteen phases, any failure of which exits non-zero:
 
 1. device: a CUDA card is present; TF32 is switched off for matmuls and
    convolutions, so every plain f32 reference is full f32;
@@ -160,7 +160,19 @@ runs thirteen phases, any failure of which exits non-zero:
    SH concat), on torch ops; (d) ``bg_coords``; (e) two stage-1
    iterations on the host bank and on the device bank; (f)
    ``val_inverse_code`` with ``code_dropout`` and the raise of its
-   ``train_step``; with each part's wall, device ms and launches.
+   ``train_step``; with each part's wall, device ms and launches;
+14. the viewer, the demos and the tools at flagship width (cuts printed):
+   (a) ``core/gui.py``'s ``SSDNeRFViewer`` on the seeded flagship model:
+   the camera from ``demo/camera_spiral``, ``generate`` (batch 1, 50 DDIM
+   steps) in f32 and under ``--fp16``, renders of the 512^2 view and the
+   128^2 drag preview (median wall, profiled device ms), orbit frames, a
+   scene file round trip and ``tools/convert_cache`` both ways (bitwise),
+   a mesh, a 128^2 view card vs CPU (phase 4's limits), the march, the
+   bf16 decode and both attention forwards launched; (b) the headless
+   viewer CLI (``ssdnerf_torch.demo.ssdnerf_gui.main``) and the
+   interpolation demo in process on a checkpoint of the seeded model; (c)
+   ``validate_3d_learning`` and ``validate_diffusion_learning`` at a cut
+   depth, their PSNRs and object fractions printed.
 
 Each phase's wall seconds are printed as it ends.  The line before the
 last is the card's name and power limit from nvidia-smi; the last line
@@ -202,7 +214,8 @@ from ssdnerf_torch.core.evaluation.feature_nets import (  # noqa: E402
 from ssdnerf_torch.core.evaluation.fid import FID, FIDKID  # noqa: E402
 from ssdnerf_torch.core.metrics import (  # noqa: E402
     eval_psnr, eval_ssim_skimage)
-from ssdnerf_torch.core.png import write_pngs  # noqa: E402
+from ssdnerf_torch.core.gui import SSDNeRFViewer  # noqa: E402
+from ssdnerf_torch.core.png import read_png, write_pngs  # noqa: E402
 from ssdnerf_torch.data import (  # noqa: E402
     DataLoader, ShapeNetSRN, build_dataset)
 from ssdnerf_torch.models.autodecoders import (  # noqa: E402
@@ -232,7 +245,13 @@ from ssdnerf_torch.models.decoders.triplane import (  # noqa: E402
 from ssdnerf_torch.runner.hooks import Hook, build_hooks  # noqa: E402
 from ssdnerf_torch.runner.loop import Runner  # noqa: E402
 from ssdnerf_torch.runner.optim import build_optimizers  # noqa: E402
-from ssdnerf_torch.tools import march_scalar_probe  # noqa: E402
+from ssdnerf_torch.demo import ssdnerf_gui  # noqa: E402
+from ssdnerf_torch.demo import (  # noqa: E402
+    interp_diffusion_nerf_ddim as interp_demo)
+from ssdnerf_torch.tools import (  # noqa: E402
+    convert_cache, march_scalar_probe, validate_3d_learning,
+    validate_diffusion_learning)
+from ssdnerf_torch.tools.inception_stat import inception_stats  # noqa
 from ssdnerf_torch.tools.decode_profile import (  # noqa: E402
     BALL_VIEWS, ball_bitfield, ball_layouts, look_at_pose, look_at_views)
 from ssdnerf_torch.tools.march_scalar_probe import median_ms  # noqa: E402
@@ -2200,34 +2219,37 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
     check(same, 'checkpoint round trip not bitwise')
     del back
 
-    # the real-image statistics (tools/inception_stat.py)
+    # the real-image statistics (ssdnerf_torch/tools/inception_stat.py),
+    # the extractor's time apart from the PNG reads
     cfg = Config.fromfile(str(CONFIG))
     cache = root / 'cars_test_cache.pkl'
     data_opts = [f'data.{k}.{f}={v}' for k in ('val_uncond', 'val_cond')
                  for f, v in (('data_prefix', data_dir),
                               ('cache_path', cache))]
+    extract = make_inception_extractor(None, device=dev)
+    spent = []
+
+    def timed_extract(imgs):
+        t = time.perf_counter()
+        feats = extract(imgs)
+        spent.append(time.perf_counter() - t)
+        return feats
+
     t0 = time.perf_counter()
     stats_set = build_dataset(dict(cfg.data.val_uncond,
                                    data_prefix=str(data_dir),
                                    cache_path=str(cache), load_imgs=True))
-    reals = np.concatenate([np.round(stats_set[i]['test_imgs'] * 255)
-                            .astype(np.uint8) for i in range(S)])
-    t1 = time.perf_counter()
-    extract = make_inception_extractor(None, device=dev)
-    feats = extract(reals)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    stats = inception_stats(stats_set, timed_extract, log=lambda m: None)
+    read_s = time.perf_counter() - t0 - sum(spent)
     pkl = root / 'inception_stats.pkl'
     with open(pkl, 'wb') as f:
-        pickle.dump(dict(mean=feats.mean(0),
-                         cov=np.cov(feats, rowvar=False),
-                         feats_np=feats), f)
-    out.update(png_read_per_s=len(reals) / (t1 - t0),
-               stats_inception_s=t2 - t1)
-    log(f'phase 9 statistics: {len(reals)} PNGs read in {t1 - t0:.2f} s '
-        f'({len(reals) / (t1 - t0):.0f} a second, '
+        pickle.dump(stats, f)
+    n = len(stats['feats_np'])
+    out.update(png_read_per_s=n / read_s, stats_inception_s=sum(spent))
+    log(f'phase 9 statistics (tools/inception_stat): {n} PNGs read in '
+        f'{read_s:.2f} s ({n / read_s:.0f} a second, '
         f'{stats_set.decode_threads} threads), Inception features '
-        f'{feats.shape} in {t2 - t1:.2f} s')
+        f'{stats["feats_np"].shape} in {sum(spent):.2f} s')
 
     runs = {}
     for name, config, key, n in (
@@ -4474,6 +4496,289 @@ def phase_options(dev, data, code, bitfield):
     return launches, out
 
 
+VIEWER_DRAG = 4             # the drag preview's 1/4 size (128^2 of 512^2)
+VIEWER_FRAMES = 8           # (a)'s orbit frames (the CLI's default 60)
+VIEWER_MESH_RES = 64        # (a)'s mesh grid (the viewer's default 256)
+VIEWER_CLI_FRAMES = 2       # (b)'s orbit frames through the CLI
+INTERP_SAMPLES = 10         # (b)'s interpolation stops: the demo's 10, one
+                            # batch of its default 10, where the f32 UNet
+                            # takes cuDNN's FFT convolutions ((a)'s UNet
+                            # line); so its DDIM steps are cut instead
+INTERP_DDIM_STEPS = 2       # (b)'s DDIM steps (the config's 50)
+VALIDATE_3D_ITERS = 6       # (c)'s iterations (the tool's 301)
+VALIDATE_DIFF_ITERS = 4     # (c)'s iterations (the tool's 800)
+VALIDATE_DIFF_STEPS = 2     # (c)'s DDIM steps of the 4 samples (20)
+SPIRAL = ROOT / 'demo' / 'camera_spiral'
+VIEWER_KERNELS = ('march', 'decode_bf16', 'attention', 'attention_bf16')
+# the sampling UNet's batches: the viewer's 1, the validators' 4 (like
+# the demo's default 10), phase 3's 8; profiled at 1 and 8 only (batch 4's
+# forward launches ~330,000 kernels, whose profile alone takes seconds)
+UNET_BATCHES = (1, 4, 8)
+UNET_PROFILED = (1, 8)
+
+
+def timed(fn):
+    """(fn(), wall seconds to a device synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def unet_batches(model, dev):
+    """One f32 forward of the sampling (EMA) UNet without autograd, as the
+    samplers call it, at each batch of UNET_BATCHES: the median of 3 walls
+    to a device synchronise after a warm-up, and at the batches of
+    UNET_PROFILED one profiled call's device ms by kernel group and its
+    longest kernel."""
+    unet = model.ema_diffusion.denoising
+    out = {}
+    for n in UNET_BATCHES:
+        x = torch.randn((n,) + model.code_diff_size, device=dev)
+        t = torch.full((n,), 500, device=dev)
+        with torch.no_grad():
+            run = lambda: unet(x, t)  # noqa: E731
+            run()
+            walls = [timed(run)[1] for _ in range(3)]
+            out[n] = dict(median_ms=statistics.median(walls) * 1e3)
+            line = (f'phase 14 (a) UNet forward, batch {n}: median '
+                    f'{out[n]["median_ms"]:.2f} ms')
+            if n in UNET_PROFILED:
+                _, dev_ms, _, groups, top = profile_step(run, ranges=())
+                name, (calls, ms) = top[0] if top else ('none', (0, 0.0))
+                out[n].update(device_ms=dev_ms, groups=groups, longest=dict(
+                    name=name, calls=calls, ms=ms))
+                line += (f', {dev_ms:.2f} device ms (' + ', '.join(
+                    f'{k} {v:.2f}' for k, v in sorted(
+                        groups.items(), key=lambda kv: -kv[1])[:3])
+                    + f'); longest kernel {name[:90]} x{calls} {ms:.2f} ms')
+        log(line)
+    return out
+
+
+def phase_viewer(model_cpu, dev, root):
+    """Phase 14 (a): the viewer (``core/gui.py``) at flagship width on the
+    seeded flagship model, as the interactive viewer serves it: the camera
+    from ``demo/camera_spiral`` (pose 64), ``generate(seed=0)`` (batch 1,
+    the config's 50 DDIM steps, the 8-sweep density rebuild) in f32 and
+    under ``--fp16`` (bf16 autocast), three renders each of the 512^2
+    view and of the 128^2 drag preview (median wall, one profiled), 8
+    orbit frames; then, outside the launch counts, the sampling UNet's
+    forward at the batches of UNET_BATCHES, a scene file's save / load
+    round trip (bitwise) and ``tools/convert_cache`` both ways on it
+    (bitwise), a mesh, and one 128^2 view on the card against the CPU (the
+    bf16 decode and the f32 one, phase 4's limits).  The launches of the
+    path from the generation to the orbit frames (counts set to 0 just
+    before, read just after) must include the march, the bf16 decode and
+    both attention forwards.  Returns (those launches, the record)."""
+    out = {}
+    log(f'phase 14 (a) cuts: orbit frames 60 -> {VIEWER_FRAMES}, mesh '
+        f'256^3 -> {VIEWER_MESH_RES}^3 (the host\'s marching tetrahedra, '
+        'phase 9: 4.3 s at 128^3)')
+    model = copy.deepcopy(model_cpu).to(dev)
+    viewer = SSDNeRFViewer(model)
+    viewer.load_camera_dir(str(SPIRAL), camera_id=64)
+    S = viewer.cam.H
+    reset_launches()
+    _, out['generate_s'] = timed(lambda: viewer.generate(seed=0))
+    code, grid, bitfield = (viewer.code, viewer.density_grid,
+                            viewer.density_bitfield)
+    model.autocast_dtype = 'bfloat16'
+    try:
+        fp16_code, out['generate_fp16_s'] = timed(
+            lambda: viewer.generate(seed=0).clone())
+    finally:
+        model.autocast_dtype = None
+    occ = np.unpackbits(bitfield.cpu().numpy()).mean()
+    out['fp16_code_rel_l2'] = l2(fp16_code, code)
+    log(f'phase 14 (a) generate(seed=0), 1 scene, '
+        f'{model.test_cfg["num_timesteps"]} DDIM steps: f32 '
+        f'{out["generate_s"]:.3f} s, fp16 {out["generate_fp16_s"]:.3f} s '
+        f'(codes rel l2 {out["fp16_code_rel_l2"]:.3e} from f32); occupancy '
+        f'{occ:.4f}')
+    check(code.shape == (1,) + model.code_size
+          and torch.isfinite(code).all().item()
+          and torch.isfinite(fp16_code).all().item(), 'viewer codes')
+    check(0.0 < occ < 1.0, 'viewer density grid empty or full')
+    viewer.set_scene(code, grid, bitfield)
+    for ds in (1, VIEWER_DRAG):
+        side = S // ds
+        walls = []
+        for _ in range(3):
+            img, dt = timed(lambda: viewer.render_view(downscale=ds))
+            walls.append(dt)
+        wall_ms, dev_ms, _, groups, _ = profile_step(
+            lambda: viewer.render_view(downscale=ds), ranges=(),
+            group_of=render_group)
+        bg = float((np.abs(img - 1).max(-1) < 1e-3).mean())
+        out[f'render_{side}'] = dict(
+            median_s=statistics.median(walls), walls_s=walls,
+            profiled_wall_ms=wall_ms, device_ms=dev_ms, groups=groups,
+            background_share=bg)
+        log(f'phase 14 (a) render_view {side}^2 ({side * side} rays): '
+            f'median {statistics.median(walls) * 1e3:.2f} ms of '
+            f'{[round(w * 1e3, 2) for w in walls]}; profiled '
+            f'{wall_ms:.2f} ms wall, {dev_ms:.3f} device ms: ' + ', '.join(
+                f'{k} {v:.3f}' for k, v in sorted(
+                    groups.items(), key=lambda kv: -kv[1])[:6])
+            + f'; background share {bg:.3f}')
+        check(img.shape == (side, side, 3) and np.isfinite(img).all(),
+              f'viewer image {side}^2')
+    frames, out['orbit_s'] = timed(
+        lambda: viewer.render_orbit_frames(num_frames=VIEWER_FRAMES))
+    launches = launch_counts()
+    log(f'phase 14 (a) {VIEWER_FRAMES} orbit frames of {S}^2 in '
+        f'{out["orbit_s"]:.3f} s; launches {launches}')
+    check(len(frames) == VIEWER_FRAMES and all(
+        f.shape == (S, S, 3) and f.dtype == np.uint8 for f in frames)
+        and not np.array_equal(frames[0], frames[VIEWER_FRAMES // 2]),
+        'orbit frames')
+    for name in VIEWER_KERNELS:
+        check(launches[name] > 0,
+              f'kernel {name} was not launched by the viewer')
+    out['unet_forward'] = unet_batches(model, dev)
+
+    # scene file round trip, then the cache converter both ways
+    scene = root / 'scene.npz'
+    viewer.save_scene_file(str(scene))
+    other = SSDNeRFViewer(model)
+    other.load_scene_file(str(scene))
+    same = all(torch.equal(getattr(other, k), getattr(viewer, k)) for k in (
+        'code', 'density_grid', 'density_bitfield'))
+    cache, pth, back = (root / d for d in ('cache', 'pth', 'back'))
+    cache.mkdir()
+    raw = dict(code_=model.code_activation.inverse(code, model.code_act)[0],
+               density_grid=grid[0], density_bitfield=bitfield[0])
+    raw = {k: v.cpu().numpy() for k, v in raw.items()}
+    np.savez(cache / 'scene.npz', **raw)
+    t0 = time.perf_counter()
+    convert_cache.main([str(cache), str(pth), '--to', 'pth'])
+    convert_cache.main([str(pth), str(back)])
+    out['convert_cache_s'] = time.perf_counter() - t0
+    with np.load(back / 'scene.npz') as d:
+        cache_same = all(np.array_equal(d[k], v) and d[k].dtype == v.dtype
+                         for k, v in raw.items())
+    log(f'phase 14 (a) scene file {scene.stat().st_size / 2 ** 20:.1f} MiB '
+        f'round trip bitwise {same}; convert_cache npz -> pth (Morton) -> '
+        f'npz in {out["convert_cache_s"]:.2f} s, bitwise {cache_same}')
+    check(same and cache_same, 'scene file / convert_cache round trip')
+
+    # a mesh; random weights leave no surface at the default threshold
+    # (10), so the threshold is the occupied grid's 99th percentile
+    g = grid.float().cpu().numpy()
+    thresh = float(np.quantile(g[g > 0], 0.99))
+    stl = root / 'scene.stl'
+    _, out['mesh_s'] = timed(lambda: viewer.export_mesh(
+        str(stl), resolution=VIEWER_MESH_RES, threshold=thresh))
+    tris = int.from_bytes(stl.read_bytes()[80:84], 'little')
+    out['mesh_triangles'] = tris
+    log(f'phase 14 (a) mesh at {VIEWER_MESH_RES}^3 (threshold {thresh:.4g})'
+        f': {tris} triangles in {out["mesh_s"]:.2f} s')
+    check(tris > 0 and stl.stat().st_size == 84 + 50 * tris, 'viewer mesh')
+
+    # one drag-preview view of the same scene on the card and the CPU
+    cpu = SSDNeRFViewer(model_cpu)
+    cpu.cam = copy.deepcopy(viewer.cam)
+    cpu.set_scene(code.cpu(), grid.cpu(), bitfield.cpu())
+    img = {}
+    for dt in ('float32', 'bfloat16'):
+        with decode_dtype(model, dt), decode_dtype(model_cpu, dt):
+            for tag, v in (('card', viewer), ('cpu', cpu)):
+                img[dt, tag] = torch.from_numpy(v.render_view(
+                    downscale=VIEWER_DRAG))
+    out['card_vs_cpu'] = {dt: (img[dt, 'card'] - img[dt, 'cpu']).abs().max(
+        ).item() for dt in ('float32', 'bfloat16')}
+    check(image_card_vs_cpu(f'phase 14 (a) {S // VIEWER_DRAG}^2 view', img),
+          'viewer view card vs cpu')
+    return launches, out
+
+
+def phase_viewer_cli(model_cpu, dev, root):
+    """Phase 14 (b): the headless viewer CLI and the interpolation demo in
+    this process on a checkpoint of the seeded flagship model (TF32 as a
+    fresh process has it): ``ssdnerf_torch.demo.ssdnerf_gui.main`` (the
+    camera from ``demo/camera_spiral``, ``generate``, orbit frames as PNGs)
+    and ``ssdnerf_torch.demo.interp_diffusion_nerf_ddim.main`` (spherical
+    interpolation at its default batch of 10, 2 poses of 128^2, on the
+    config with its DDIM steps cut); each one's wall, launches and PNGs
+    checked."""
+    out, cuts = {}, []
+    cfg = Config.fromfile(str(CONFIG))
+    cfg.test_cfg.num_timesteps = cut(cuts, 'interpolation DDIM steps',
+                                     cfg.test_cfg.num_timesteps,
+                                     INTERP_DDIM_STEPS)
+    interp_cfg = root / 'interp_cfg.py'
+    interp_cfg.write_text(''.join(f'{k} = {v!r}\n' for k, v in cfg.items()))
+    log(f'phase 14 (b) cuts: CLI orbit frames 60 -> {VIEWER_CLI_FRAMES}, '
+        + '; '.join(cuts))
+    ckpt = str(root / 'flagship_seed0.ckpt')
+    _, out['checkpoint_s'] = timed(lambda: save_checkpoint(ckpt, model_cpu))
+    frames, interp = root / 'frames', root / 'interp'
+    with fresh_process_tf32():
+        reset_launches()
+        viewer, out['cli_s'] = timed(lambda: ssdnerf_gui.main([
+            str(CONFIG), ckpt, '--device', str(dev), '--cameras',
+            str(SPIRAL), '--out-frames',
+            str(frames), '--num-frames', str(VIEWER_CLI_FRAMES)]))
+        out['cli_launches'] = launch_counts()
+        del viewer
+        reset_launches()
+        paths, out['interp_s'] = timed(lambda: interp_demo.main([
+            str(interp_cfg), ckpt, '--device', str(dev), '--viz-dir',
+            str(interp), '--cameras', str(SPIRAL), '--pose-ids', '0', '64',
+            '--num-samples', str(INTERP_SAMPLES)]))
+        out['interp_launches'] = launch_counts()
+    pngs = [read_png(str(f)) for f in sorted(frames.iterdir())]
+    views = [read_png(p) for p in paths]
+    log(f'phase 14 (b) checkpoint of the seeded flagship model written in '
+        f'{out["checkpoint_s"]:.2f} s; python -m '
+        f'ssdnerf_torch.demo.ssdnerf_gui {CONFIG.name} <ckpt> '
+        f'--cameras demo/camera_spiral --out-frames D --num-frames '
+        f'{VIEWER_CLI_FRAMES}: {out["cli_s"]:.2f} s, {len(pngs)} PNGs, '
+        f'launches {out["cli_launches"]}; interpolation demo '
+        f'{INTERP_SAMPLES} stops (one batch) x 2 poses: '
+        f'{out["interp_s"]:.2f} s, {len(views)} PNGs, launches '
+        f'{out["interp_launches"]}')
+    check(len(pngs) == VIEWER_CLI_FRAMES and all(
+        p.shape == (512, 512, 3) for p in pngs), 'CLI frames')
+    check(len(views) == 2 * INTERP_SAMPLES and all(
+        v.shape == (128, 128, 3) for v in views), 'interpolation PNGs')
+    for tag in ('cli', 'interp'):
+        for name in SERVING:
+            check(out[f'{tag}_launches'][name] > 0,
+                  f'kernel {name} was not launched by the {tag} run')
+    return out
+
+
+def phase_validators(dev):
+    """Phase 14 (c): the learning validators at a cut depth (printed, not
+    asserted): ``validate_3d_learning`` (stage 1 on 4 sphere scenes) and
+    ``validate_diffusion_learning`` (single stage on 8, then 4 samples)."""
+    log(f'phase 14 (c) cuts: validate_3d_learning 301 -> '
+        f'{VALIDATE_3D_ITERS} iterations, validate_diffusion_learning 800 '
+        f'-> {VALIDATE_DIFF_ITERS}, its samples\' DDIM steps 20 -> '
+        f'{VALIDATE_DIFF_STEPS}')
+    out = {}
+    t0 = time.perf_counter()
+    out['3d'] = validate_3d_learning.main(
+        VALIDATE_3D_ITERS, dev, log=lambda *m: log('phase 14 (c) 3d:', *m))
+    out['3d']['total_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['diffusion'] = validate_diffusion_learning.main(
+        VALIDATE_DIFF_ITERS, dev,
+        log=lambda *m: log('phase 14 (c) diffusion:', *m),
+        sample_steps=VALIDATE_DIFF_STEPS)
+    out['diffusion']['total_s'] = time.perf_counter() - t0
+    values = [out['3d']['train_psnr'], *out['3d']['heldout_psnr'],
+              out['diffusion']['train_code_rms'],
+              out['diffusion']['sample_code_rms']]
+    check(all(math.isfinite(v) for v in values), 'validators not finite')
+    log(f'phase 14 (c) walls: 3d {out["3d"]["total_s"]:.2f} s, diffusion '
+        f'{out["diffusion"]["total_s"]:.2f} s')
+    return out
+
+
 def main():
     walls = {}
 
@@ -4600,6 +4905,16 @@ def main():
     torch.cuda.empty_cache()
     options_launches, options_out = phase_options(dev, data, code, bitfield)
     done(13)
+    # the viewer, its CLI and the demo, the learning validators
+    del data
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        viewer_launches, viewer_out = phase_viewer(model_cpu, dev, Path(tmp))
+        torch.cuda.empty_cache()
+        viewer_out['cli'] = phase_viewer_cli(model_cpu, dev, Path(tmp))
+    torch.cuda.empty_cache()
+    viewer_out['validators'] = phase_validators(dev)
+    done(14)
 
     # launches: the generation kernels' counts from the phase-3 slice, the
     # render variants' from the phase-3 variant renders, the probe's from
@@ -4639,6 +4954,7 @@ def main():
                    tiled_train_launches=tiled_train_launches[name],
                    tiled_recons_launches=tiled_launches[name],
                    options_launches=options_launches[name],
+                   viewer_launches=viewer_launches[name],
                    **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
@@ -4651,6 +4967,7 @@ def main():
                     'recons': recons, 'eval': evals,
                     'train_cli': train_cli_out, 'stage1': stage1_out,
                     'tiled': tiled_out, 'options': options_out,
+                    'viewer': viewer_out,
                     'phase_walls_s': walls}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

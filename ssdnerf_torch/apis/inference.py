@@ -1,5 +1,6 @@
 """Inference API (port of ``init_model``, ``interp_noise`` and
-``interp_diffusion_nerf_ddim`` of ``ssdnerf_tpu/apis/inference.py``)."""
+``interp_diffusion_nerf_ddim`` of ``ssdnerf_tpu/apis/inference.py``), and
+``to_device`` for draws made on the host."""
 import torch
 
 from ..config import Config
@@ -72,3 +73,14 @@ def interp_diffusion_nerf_ddim(model, num_intermediate=3, batch_size=2,
                          for e in endpoints.to(device)])
     return model.val_uncond(noise.reshape((-1,) + model.code_size),
                             generator=generator, jitter=jitter)
+
+
+def to_device(tree, device):
+    """``tree`` (tensors in dicts and lists, None leaves) with every tensor
+    on ``device``: draws made by a CPU generator, so that a scene does not
+    depend on the device it is generated on."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

@@ -46,20 +46,21 @@ def collate(samples):
 
 
 class DataLoader:
-    """Iterates full shuffled batches of the rank-local scene shard
-    forever, in the order the JAX package's loader yields for the same
-    ``seed``, ``rank`` and ``world_size``: the shuffle draws from
-    ``np.random.RandomState(seed + rank)``, and an epoch whose first batch
-    shares a scene with the previous batch is reshuffled, up to 20 times
-    (``strict_disjoint`` raises instead of going on).  ``num_workers`` > 0
-    reads a batch's scenes on a thread pool (the config's
-    ``workers_per_gpu``); a prefetch thread keeps ``PREFETCH`` batches
-    ready, and an exception there is raised to the consumer."""
-
-    PREFETCH = 2
+    """Iterates full batches of the rank-local scene shard forever, in
+    the order the JAX package's loader yields for the same arguments:
+    each epoch is shuffled (``shuffle``) by ``np.random.RandomState(seed
+    + rank)``, and an epoch whose first batch shares a scene with the
+    previous batch is reshuffled, up to 20 times (``strict_disjoint``
+    raises instead of going on).  ``check_batch_disjoint`` is accepted
+    for the JAX loader's signature and, as there, ignored: the check is
+    always made.  ``num_workers`` > 0 reads a batch's
+    scenes on a thread pool (the config's ``workers_per_gpu``); a
+    prefetch thread keeps ``prefetch`` batches ready, and an exception
+    there is raised to the consumer."""
 
     def __init__(self, dataset, batch_size, rank=0, world_size=1,
-                 split_data=True, seed=0, strict_disjoint=False,
+                 split_data=True, shuffle=True, seed=0, prefetch=2,
+                 check_batch_disjoint=True, strict_disjoint=False,
                  num_workers=0):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -71,10 +72,11 @@ class DataLoader:
             self.indices = np.arange(split[rank], split[rank + 1])
         else:
             self.indices = np.arange(rank, n, world_size)
+        self.shuffle = shuffle
         self.rng = np.random.RandomState(seed + rank)
         self.strict_disjoint = strict_disjoint
         self._skip = 0
-        self._queue = queue.Queue(maxsize=self.PREFETCH)
+        self._queue = queue.Queue(maxsize=prefetch)
         self._thread = None
         self._stop = threading.Event()
 
@@ -89,7 +91,8 @@ class DataLoader:
 
     def _epoch_order(self):
         order = self.indices.copy()
-        self.rng.shuffle(order)
+        if self.shuffle:
+            self.rng.shuffle(order)
         return order
 
     def _batches(self):

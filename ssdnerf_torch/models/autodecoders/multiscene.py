@@ -455,10 +455,10 @@ class MultiSceneNeRF(nn.Module):
         return rays_o, rays_d, dt_gamma
 
     def render(self, code, density_bitfield, h, w, intrinsics, poses,
-               cfg=None):
+               cfg=None, decoder=None):
         """Images (S, V, h, w, 3) and depths (S, V, h, w) of every scene
-        from poses (S, V, 4, 4) and intrinsics (S, V, 4), with the EMA
-        decoder.
+        from poses (S, V, 4, 4) and intrinsics (S, V, 4), with ``decoder``,
+        by default the EMA decoder (JAX ``decoder_params``).
 
         ``cfg`` (default ``test_cfg``) may override the decoder's
         ``march_slots`` / ``pack_slots`` for the render, and its
@@ -466,7 +466,7 @@ class MultiSceneNeRF(nn.Module):
         many.
         """
         cfg = self.test_cfg if cfg is None else cfg
-        decoder = self.ema_decoder
+        decoder = self.ema_decoder if decoder is None else decoder
         over = {k: cfg[k] for k in ('march_slots', 'pack_slots') if k in cfg}
         if over:
             decoder = copy.copy(decoder)   # shares the parameters

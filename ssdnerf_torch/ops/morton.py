@@ -1,6 +1,8 @@
 """Density-bitfield packing in linear (x, y, z) voxel order (port of
 ``packbits`` / ``unpackbits`` of ``ssdnerf_tpu/ops/morton.py``): bit i of
-byte b is grid element ``8 * b + i``."""
+byte b is grid element ``8 * b + i``; and the Morton codes of the
+reference's voxel layout, which scene-cache files use
+(``tools/convert_cache.py``)."""
 import torch
 
 
@@ -33,3 +35,30 @@ def occupancy_table(bitfield, grid_size):
     lead = bitfield.shape[:-1]
     cols = bitfield.reshape(lead + (H, H, H // 8)).transpose(-3, -2)
     return cols.reshape(lead + (2 * H, 4 * H))
+
+
+def _expand_bits(v):
+    """Spread the low 10 bits of ``v`` (int64) two zero bits apart."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    return (v * 0x00000005) & 0x49249249
+
+
+def morton3d(coords):
+    """Morton (Z-order) indices of integer voxel coordinates (..., 3) in
+    [0, 1024) (port of ``morton3d`` of ``ssdnerf_tpu/ops/morton.py``):
+    x's bits at positions 3k, y's at 3k + 1, z's at 3k + 2.  Returns
+    (...,) int32."""
+    c = coords.to(torch.int64)
+    return (_expand_bits(c[..., 0]) | (_expand_bits(c[..., 1]) << 1)
+            | (_expand_bits(c[..., 2]) << 2)).to(torch.int32)
+
+
+def morton_grid_indices(grid_size):
+    """(H, H, H) int32 numpy array whose entry [x, y, z] is the Morton
+    index of voxel (x, y, z): the permutation between the linear (x, y,
+    z) layout and the reference's Morton layout."""
+    r = torch.arange(grid_size)
+    xyz = torch.stack(torch.meshgrid(r, r, r, indexing='ij'), dim=-1)
+    return morton3d(xyz).numpy()
