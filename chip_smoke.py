@@ -115,8 +115,9 @@ runs fourteen phases, any failure of which exits non-zero:
    kernels' launch counts (the CLI prints them); then in-process a resume
    of the same checkpoint whose reloaded state must equal the files bit
    for bit, trained to 12 with the launch counts set to 0 just before;
-   and 3 runner iterations of one scene on the card and on the CPU with
-   the same weights and replayed draws, in bf16 and in f32;
+   and 2 runner iterations of one scene on the card and on the CPU with
+   the same weights and replayed draws, in bf16 and in f32 (cut from 3,
+   printed);
 11. stage-1 and two-stage training through the CLI's entry on phase 10's
    ``cars_train`` at the stage-1 configs' full widths (cuts printed: bank
    16, short runs, no evaluation): (a) stage1_cars_recons16v.py, 12
@@ -172,7 +173,21 @@ runs fourteen phases, any failure of which exits non-zero:
    viewer CLI (``ssdnerf_torch.demo.ssdnerf_gui.main``) and the
    interpolation demo in process on a checkpoint of the seeded model; (c)
    ``validate_3d_learning`` and ``validate_diffusion_learning`` at a cut
-   depth, their PSNRs and object fractions printed.
+   depth, their PSNRs and object fractions printed;
+15. data parallelism (``ssdnerf_torch.parallel``; run after phase 12, on
+   its ``cars_train``; cuts printed): (a) two ranks on the one card (gloo
+   with CUDA tensors; NCCL refuses two ranks on one device), the
+   flagship config at full width, 2 train steps of phase 5's 8 scenes as
+   4 + 4 with draws sliced from one global draw, for 3 draw seeds, a
+   16-row bank, against one process on the 8 scenes and its own repeat
+   (losses 1e-4, codes and weights 1e-3 of the largest, the codes' Adam
+   moments 1e-3 in relative L2), the ranks' weights bitwise equal, each
+   rank's step walls, peak memory and launches; (b) the train CLI with ``--multi-host`` under a
+   torchrun environment of world size 1 (NCCL), 2 iterations; (c)
+   ``sharded_volume_render`` of 8 x 65,536 rays on the ranks of (a)
+   against the unsharded render; (d) ``python -m
+   ssdnerf_torch.parallel.dryrun 2`` at flagship width, after (b).  Every
+   subprocess runs under a timeout; a rank's failure fails the phase.
 
 Each phase's wall seconds are printed as it ends.  The line before the
 last is the card's name and power limit from nvidia-smi; the last line
@@ -180,9 +195,12 @@ is the result JSON.  Imports nothing of JAX.
 """
 import contextlib
 import copy
+import datetime
+import hashlib
 import io
 import json
 import math
+import os
 import pickle
 import re
 import statistics
@@ -201,7 +219,7 @@ sys.path.insert(0, str(ROOT))
 
 from ssdnerf_torch import Config, init_model  # noqa: E402
 from ssdnerf_torch import test as test_cli  # noqa: E402
-from ssdnerf_torch.train import main as train_main  # noqa: E402
+from ssdnerf_torch.train import free_port, main as train_main  # noqa
 from ssdnerf_torch.apis import eval_utils  # noqa: E402
 from ssdnerf_torch.apis.test import _save_scenes, evaluate_3d  # noqa: E402
 from ssdnerf_torch.apis.train import build_runner  # noqa: E402
@@ -236,7 +254,8 @@ from ssdnerf_torch.models.autodecoders import (  # noqa: E402
     multiscene as ad_ms)
 from ssdnerf_torch.models.autodecoders.multiscene import (  # noqa: E402
     DeviceSceneCache)
-from ssdnerf_torch.models.autodecoders.base import adam_init  # noqa: E402
+from ssdnerf_torch.models.autodecoders.base import (  # noqa: E402
+    adam_init, code_adam_cfg)
 from ssdnerf_torch.models.decoders import renderer as dec_renderer  # noqa
 from ssdnerf_torch.models.decoders.renderer import (  # noqa: E402
     GROUP_RAYS, density_jitter, volume_render)
@@ -245,6 +264,9 @@ from ssdnerf_torch.models.decoders.triplane import (  # noqa: E402
 from ssdnerf_torch.runner.hooks import Hook, build_hooks  # noqa: E402
 from ssdnerf_torch.runner.loop import Runner  # noqa: E402
 from ssdnerf_torch.runner.optim import build_optimizers  # noqa: E402
+from ssdnerf_torch.parallel import (  # noqa: E402
+    init_distributed, replicate, shard_scenes, shard_train_draws,
+    sharded_volume_render, shutdown)
 from ssdnerf_torch.demo import ssdnerf_gui  # noqa: E402
 from ssdnerf_torch.demo import (  # noqa: E402
     interp_diffusion_nerf_ddim as interp_demo)
@@ -2905,6 +2927,7 @@ class LogVarsHook(Hook):
 
 
 RUNNER_SEEDS = (SEED + 30,)  # of the replayed draws
+RUNNER_ITERS = 2            # of the runner card vs CPU (3 before phase 15)
 
 
 @contextlib.contextmanager
@@ -3069,8 +3092,9 @@ def card_vs_cpu_errors(card, cpu):
 
 
 def phase_runner_card_vs_cpu(model_cpu, cfg, root, dev, iters=3):
-    """3 runner iterations of one scene each (phase 6's size: 1 inner step,
-    1024 rays) with the flagship's EMA hook, on the card and on the CPU,
+    """``iters`` runner iterations of one scene each (phase 6's size: 1
+    inner step, 1024 rays) with the flagship's EMA hook, on the card and
+    on the CPU,
     from the same weights with the same replayed draws, for each of
     RUNNER_SEEDS' draws and each decode dtype (bf16 as shipped, and
     ``compute_dtype`` 'float32'): the CPU run records its bitfields; the
@@ -4779,6 +4803,446 @@ def phase_validators(dev):
     return out
 
 
+# ------------------------------------------------------------------ phase 15
+DP_RANKS = 2                # ranks of (a), (c) and (d), all on the one card
+DP_BANK = 16                # phase 15's bank: 8 rows a rank (flagship 2458)
+DP_STEPS = 2                # train steps of (a) a draw seed
+DP_SEEDS = 3                # draw seeds of (a), each from the same weights
+DP_DRYRUN_STEPS = 12        # steps of each half of (d) (the dryrun's 40)
+DP_RANK_TIMEOUT = 420       # s a rank process of (a) / (c) may take
+DP_CLI_TIMEOUT = 300        # s the CLI of (b) may take
+DP_DRYRUN_TIMEOUT = 300     # s the dryrun of (d) may take
+DP_RENDER_VIEWS = 4         # (c): 8 scenes x 4 views of 128^2 = 65,536 rays
+
+
+def dp_model(state, dev):
+    """The flagship model built on ``dev`` with the weights and buffers of
+    ``state`` (:func:`make_model`'s, from the parent), in eval mode as
+    :func:`make_model` leaves it, its bank cut to ``DP_BANK`` rows."""
+    from ssdnerf_torch.registry import build_model
+    cfg = Config.fromfile(str(CONFIG))
+    with torch.device('meta'):
+        model = build_model(cfg.model, train_cfg=cfg.get('train_cfg'),
+                            test_cfg=cfg.get('test_cfg'))
+    model = model.to_empty(device=dev).eval()
+    model.load_state_dict(state)
+    model.cache_size = DP_BANK
+    return model
+
+
+def dp_steps(model, cfg, job, draws, dev, rank=0, world=1):
+    """``DP_STEPS`` train steps (``draws``, the global draws of each) of
+    rank ``rank``'s share of the job's 8 scenes (``world`` 1: all of
+    them), from the job's weights, the global draws sliced to the rank,
+    the rows in ``model.make_cache``'s shard (ids ``offset`` + 0..3 on
+    each rank, the same rows in one process).  Returns the log vars of
+    each step, the walls, the rows' raw codes and their Adam moments, the
+    launches and the peak memory."""
+    model.load_state_dict(job['state'])
+    bank = model.make_cache(dev, rank, world)
+    opts, scheds = build_optimizers(model, cfg.optimizer, cfg.lr_config)
+    per = job['code_'].shape[0] // DP_RANKS
+    ids = ([bank.offset + i for i in range(per)] if world > 1 else
+           [r * (DP_BANK // DP_RANKS) + i for r in range(DP_RANKS)
+            for i in range(per)])
+    code_ = shard_scenes(job['code_'], rank, world)
+    bank.ensure_init(ids, lambda n: code_[:n].to(dev))
+    data = to_device(shard_scenes(job['data'], rank, world), dev)
+    logs, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for step_draws in draws:
+        t0 = time.perf_counter()
+        batch, out = model.train_step(
+            bank.load(ids), data, opts, scheds,
+            draws=to_device(shard_train_draws(step_draws, rank, world), dev))
+        bank.save(ids, batch['code_'], batch['opt'], batch['density_grid'],
+                  batch['density_bitfield'])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        logs.append({k: v.item() for k, v in out.items()})
+    rows = bank.load(ids)
+    return dict(logs=logs, walls=walls, code_=rows['code_'].float().cpu(),
+                m=rows['opt'].m.float().cpu(), v=rows['opt'].v.float().cpu(),
+                launches=launch_counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def dp_weights(model):
+    """The UNet's and the decoder's weights and buffers, on the host."""
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()
+            if k.startswith(('diffusion.', 'decoder.'))}
+
+
+def dp_rank(rank, port, job_path, out_path):
+    """One rank of phase 15 (a) and (c), in its own process on the card:
+    gloo (two ranks on one card; NCCL refuses them) with CUDA tensors,
+    60 s a collective.  (a) the weights broadcast from rank 0, then for
+    each draw seed :func:`dp_steps` on its 4 scenes from the job's
+    weights; (c) its half of the rays of ``sharded_volume_render``.
+    Writes its results to ``out_path``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda', 0)
+    group = init_distributed(dev, 'gloo', rank, DP_RANKS,
+                             init_method=f'tcp://localhost:{port}',
+                             timeout=datetime.timedelta(seconds=60))
+    try:
+        job = torch.load(job_path, weights_only=False)
+        cfg = Config.fromfile(str(CONFIG))
+        model = dp_model(job['state'], dev)
+        t0 = time.perf_counter()
+        replicate(model, group)
+        torch.cuda.synchronize()
+        replicate_s = time.perf_counter() - t0
+        model.group = group
+        out = dict(seeds=[])
+        for draws in job['draws']:
+            run = dp_steps(model, cfg, job, draws, dev, rank, DP_RANKS)
+            weights = dp_weights(model)
+            digest = hashlib.sha256()
+            for v in weights.values():
+                digest.update(v.contiguous().view(-1).view(torch.uint8)
+                              .numpy())
+            run['digest'] = digest.hexdigest()
+            if rank == 0 and not out['seeds']:
+                run['weights'] = weights
+            out['seeds'].append(run)
+            log(f'phase 15 (a) rank {rank} seed {len(out["seeds"]) - 1}: '
+                'step walls ' + ', '.join(f'{w:.3f} s' for w in run['walls'])
+                + f'; peak {run["peak_gib"]:.2f} GiB; launches '
+                f'{run["launches"]}')
+        log(f'phase 15 (a) rank {rank}: broadcast of the weights '
+            f'{replicate_s:.2f} s')
+        out['replicate_s'] = replicate_s
+        r = job['render']
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            img = sharded_volume_render(
+                model.ema_decoder, r['code'].to(dev), r['rays_o'].to(dev),
+                r['rays_d'].to(dev), r['bitfield'].to(dev), model.grid_size,
+                group)
+        torch.cuda.synchronize()
+        out['render_s'] = time.perf_counter() - t0
+        out['render_launches'] = launch_counts()
+        out['render'] = {k: v.cpu() for k, v in img.items()}
+        torch.save(out, out_path)
+    finally:
+        shutdown()
+
+
+def phase_dp_cli(root, max_rays, smi):
+    """(b): ``python -m ssdnerf_torch.train --multi-host`` in a subprocess
+    with a torchrun environment of world size 1 (NCCL), phase 10's config
+    on its ``cars_train`` for 2 iterations: it must report backend nccl
+    and log finite losses."""
+    cfg_path, cuts, _ = phase10_config(root, 'dp_nccl', max_rays,
+                                       evaluate=False)
+    work = root / 'dp_nccl'
+    env = dict(os.environ, RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+               MASTER_ADDR='localhost', MASTER_PORT=str(free_port()))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, '-m', 'ssdnerf_torch.train', str(cfg_path),
+         '--multi-host', '--max-iters', '2', '--seed', str(SEED),
+         '--work-dir', str(work), '--dist-timeout', '120'],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DP_CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        log(out.stdout[-4000:] + out.stderr[-4000:])
+    check(out.returncode == 0, 'phase 15 (b): the CLI failed')
+    check('rank 0/1: backend nccl' in out.stdout,
+          'phase 15 (b): the CLI did not join with NCCL')
+    stats = read_stats(work)
+    check(sorted(stats) == [1, 2], 'phase 15 (b): iterations')
+    for it, s in stats.items():
+        for k in LOSS_KEYS:
+            check(math.isfinite(s[k]), f'phase 15 (b): {k} at {it}')
+    timing = json.loads(re.findall(r'Timing: (\{.*\})', out.stdout)[-1])
+    launches = json.loads(re.findall(r'kernel launches: (\{.*\})',
+                                     out.stdout)[-1])
+    log(f'phase 15 (b) cuts: {"; ".join(cuts)}; --max-iters 2')
+    log(f'phase 15 (b) the CLI, --multi-host, world size 1, backend nccl '
+        f'({smi}): {wall:.1f} s wall; iterations {timing["iterations"]}, '
+        f'first {timing.get("first_iter_s", 0):.3f} s, peak '
+        f'{timing.get("peak_gib", 0):.2f} GiB; losses '
+        + ', '.join(f'{k} {stats[2][k]:.5g}' for k in LOSS_KEYS)
+        + f'; launches {launches}')
+    return dict(wall_s=wall, timing=timing, launches=launches,
+                losses={k: stats[2][k] for k in LOSS_KEYS})
+
+
+def start_dryrun():
+    """(d): ``python -m ssdnerf_torch.parallel.dryrun 2`` on the card
+    (gloo: both ranks on the one card), flagship widths, started in the
+    background; :func:`finish_dryrun` waits for it."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, '-m', 'ssdnerf_torch.parallel.dryrun',
+         str(DP_RANKS), '--device', 'cuda', '--backend', 'gloo', '--steps',
+         str(DP_DRYRUN_STEPS), '--timeout', '120'],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_dryrun(started, smi):
+    """The dryrun of :func:`start_dryrun`, waited for under a timeout (then
+    killed); it must end with its OK line."""
+    t0, proc = started
+    try:
+        stdout, stderr = proc.communicate(
+            timeout=max(1.0, DP_DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in stdout.splitlines() if ln.startswith('dryrun')]
+    for ln in lines:
+        log(f'phase 15 (d) {ln}')
+    if proc.returncode != 0:
+        log(stdout[-3000:] + stderr[-3000:])
+    check(proc.returncode == 0 and lines and 'OK' in lines[-1],
+          'phase 15 (d): the dryrun failed')
+    log(f'phase 15 (d) dryrun {DP_RANKS} ranks ({smi}): {wall:.1f} s wall, '
+        f'after (b) (cut: --steps {DP_DRYRUN_STEPS}, its default '
+        '40)')
+    return dict(wall_s=wall, lines=lines)
+
+
+def phase_dp(model_cpu, data, code, bitfield, dev, root, max_rays, smi):
+    """Phase 15, data parallelism (``ssdnerf_torch.parallel``):
+
+    (a) two ranks on the one card (gloo with CUDA tensors), the flagship
+        config at full width: ``DP_STEPS`` train steps of a global batch
+        of phase 5's 8 scenes as 4 + 4, bank ``DP_BANK`` rows (8 a rank),
+        draws sliced from one global draw, for each of ``DP_SEEDS`` draw
+        seeds from the same weights; against one process taking the same
+        steps on the 8 scenes, at phase 6's card limits (losses rel 1e-4;
+        codes and at seed 0 the UNet and decoder weights 1e-3 of each
+        one's largest entry), the codes' Adam moments within 1e-3 in
+        relative L2, the two ranks' weights bitwise equal; each rank's
+        step walls, peak memory and launches (seed 0's).  The moments
+        carry the code gradients' scale, which Adam's steps on the codes
+        largely hide (a rank's 1/N share lost or doubled moves them by
+        half or more); a few elements whose gradients are near zero carry
+        their largest errors, so their norm is held.  The codes' worst
+        elements are printed with their moments, and every error beside
+        the one process's distance from its own repeat (the card's
+        run-to-run spread);
+    (b) :func:`phase_dp_cli`;
+    (c) ``sharded_volume_render`` on the ranks of (a) (the EMA decoder)
+        against the unsharded render of the same 8 x 65,536 rays, at
+        phase 4's image limits (max abs 2e-2, mean abs 1e-3);
+    (d) the dryrun (:func:`start_dryrun`), after (b).
+
+    Returns (rank 0's launches of (a), the phase's record)."""
+    import multiprocessing
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(str(CONFIG))
+    log(f'phase 15 cuts: model.cache_size {cfg.model.cache_size} -> '
+        f'{DP_BANK} (8 a rank); {DP_STEPS} train steps a draw seed, '
+        f'{DP_SEEDS} seeds (the UNet and decoder weights compared at seed '
+        '0)')
+    # one process's model built as the ranks build theirs: the config's
+    # train_cfg and fields (earlier phases cut model_cpu's), its weights
+    state = model_cpu.state_dict()
+    model = dp_model(state, dev)
+    code_lr, _ = code_adam_cfg(model.train_cfg.get('optimizer'))
+    S = data['cond_imgs'].shape[0]
+    num_pixels = math.prod(data['cond_imgs'].shape[1:4])
+    draws = [[model.train_draws(
+        S, num_pixels, torch.Generator().manual_seed(
+            SEED + 15 + DP_STEPS * seed + i),
+        num_views=data['cond_imgs'].shape[1]) for i in range(DP_STEPS)]
+        for seed in range(DP_SEEDS)]
+    poses, intr = orbit_cameras(S, DP_RENDER_VIEWS, 'cpu')
+    rays_o, rays_d = get_cam_rays(poses, intr, 128, 128)
+    job = dict(state=state,
+               data={k: v.cpu() for k, v in data.items()},
+               code_=model_cpu.code_activation.inverse(
+                   code.cpu(), model_cpu.code_act),
+               draws=draws,
+               render=dict(code=code.cpu(), bitfield=bitfield.cpu(),
+                           rays_o=rays_o.reshape(S, -1, 3).contiguous(),
+                           rays_d=rays_d.reshape(S, -1, 3).contiguous()))
+
+    # one process: the same steps on the 8 scenes, each seed twice; the
+    # unsharded render
+    single, repeat = [], []
+    for seed_draws in draws:
+        single.append(dp_steps(model, cfg, job, seed_draws, dev))
+        if len(single) == 1:
+            single[-1]['weights'] = dp_weights(model)
+        repeat.append(dp_steps(model, cfg, job, seed_draws, dev))
+    r = job['render']
+    with torch.no_grad():
+        ref = volume_render(model.ema_decoder, r['code'].to(dev),
+                            r['rays_o'].to(dev), r['rays_d'].to(dev),
+                            r['bitfield'].to(dev), model.grid_size)
+    ref = {k: v.cpu() for k, v in ref.items()}
+    log(f'phase 15 (a) one process, 8 scenes: step walls '
+        + '; '.join(', '.join(f'{w:.3f} s' for w in run['walls'])
+                    for run in single)
+        + f'; peak {single[0]["peak_gib"]:.2f} GiB')
+    del model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        job_path = str(Path(tmp) / 'job.pt')
+        torch.save(job, job_path)
+        outs = [str(Path(tmp) / f'rank{r}.pt') for r in range(DP_RANKS)]
+        ctx = multiprocessing.get_context('spawn')
+        port = free_port()
+        procs = [ctx.Process(target=dp_rank, args=(r, port, job_path,
+                                                   outs[r]))
+                 for r in range(DP_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.time() + DP_RANK_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks_s = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * DP_RANKS,
+              f'phase 15 (a): rank exit codes {codes}')
+        res = [torch.load(o, weights_only=False) for o in outs]
+
+    # (a) the ranks against one process, and against each other
+    def rel_err(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    seeds, failed = [], []
+
+    def expect(cond, what):
+        """Every seed is read before a failure is raised."""
+        if not cond:
+            failed.append(what)
+
+    for seed, (ref_run, rep_run) in enumerate(zip(single, repeat)):
+        runs = [o['seeds'][seed] for o in res]
+        for i, ref_logs in enumerate(ref_run['logs']):
+            for k in ('loss_diffusion', 'loss_decoder', 'pixel_loss',
+                      'reg_loss', 'train_psnr'):
+                got = runs[0]['logs'][i][k]
+                err = abs(got - ref_logs[k]) / abs(ref_logs[k])
+                log(f'phase 15 (a) seed {seed} step {i} {k}: two ranks '
+                    f'{got:.6g}, one process {ref_logs[k]:.6g} (rel '
+                    f'{err:.2e}, tol 1e-4)')
+                expect(err <= 1e-4, f'{k} at seed {seed} step {i}')
+            expect(all(a == b or (a != a and b != b) for a, b in zip(
+                runs[0]['logs'][i].values(), runs[1]['logs'][i].values())),
+                f'the ranks logged different values at seed {seed}')
+        got = {k: torch.cat([run[k] for run in runs])
+               for k in ('code_', 'm', 'v')}
+        errs = {}
+        for k in got:
+            errs[k] = rel_err(got[k], ref_run[k])
+            errs['self_' + k] = rel_err(rep_run[k], ref_run[k])
+        for k in ('m', 'v'):
+            errs[k + '_l2'] = ((got[k] - ref_run[k]).norm()
+                               / ref_run[k].norm()).item()
+            errs['self_' + k + '_l2'] = ((rep_run[k] - ref_run[k]).norm()
+                                         / ref_run[k].norm()).item()
+        for mod in ('diffusion', 'decoder') if 'weights' in ref_run else ():
+            keys = [k for k in ref_run['weights']
+                    if k.startswith(mod + '.')]
+            errs[mod] = rel_err(
+                torch.cat([runs[0]['weights'][k].reshape(-1) for k in keys]),
+                torch.cat([ref_run['weights'][k].reshape(-1) for k in keys]))
+        # the codes' worst elements: their error (of the largest code and
+        # in code Adam steps), and the size of their gradients (Adam's
+        # moments) against the largest
+        diff = (got['code_'] - ref_run['code_']).abs().reshape(-1)
+        code_max = ref_run['code_'].abs().max()
+        m_abs = ref_run['m'].abs().reshape(-1)
+        v_sqrt = ref_run['v'].sqrt().reshape(-1)
+        worst = [dict(err=(diff[j] / code_max).item(),
+                      steps=(diff[j] / code_lr).item(),
+                      m=(m_abs[j] / m_abs.max()).item(),
+                      v_sqrt=(v_sqrt[j] / v_sqrt.max()).item())
+                 for j in torch.topk(diff, 3).indices.tolist()]
+        errs['codes_over_1e-4'] = int((diff > 1e-4 * code_max).sum())
+        same = runs[0]['digest'] == runs[1]['digest']
+        log(f'phase 15 (a) seed {seed} two ranks vs one process (tol 1e-3;'
+            f' the one process vs its repeat in brackets): codes '
+            f'{errs["code_"]:.2e} of the largest ({errs["self_code_"]:.2e};'
+            f' {errs["codes_over_1e-4"]} of {diff.numel()} elements over '
+            f'1e-4; the largest code {code_max.item():.4g}, the code Adam '
+            f'lr {code_lr:g}); code Adam moments, relative L2 m '
+            f'{errs["m_l2"]:.2e} ({errs["self_m_l2"]:.2e}) v '
+            f'{errs["v_l2"]:.2e} ({errs["self_v_l2"]:.2e}), largest element'
+            f' m {errs["m"]:.2e} ({errs["self_m"]:.2e}) v {errs["v"]:.2e} '
+            f'({errs["self_v"]:.2e}) of the largest'
+            + (f'; UNet weights {errs["diffusion"]:.2e}, decoder weights '
+               f'{errs["decoder"]:.2e} of the largest' if 'decoder' in errs
+               else '')
+            + '; the worst codes (error of the largest, in lr steps; |m|, '
+            'sqrt(v) of the largest): '
+            + ', '.join(f'{w["err"]:.2e}, {w["steps"]:.3f}; {w["m"]:.2e}, '
+                        f'{w["v_sqrt"]:.2e}' for w in worst)
+            + f'; the ranks\' weights bitwise equal: {same}')
+        for k in ('code_', 'm_l2', 'v_l2', 'diffusion', 'decoder'):
+            if k in errs:
+                expect(errs[k] <= 1e-3, f'{k} at seed {seed}')
+        expect(same, f'the ranks\' weights differ at seed {seed}')
+        seeds.append(dict(errs, worst=worst))
+    check(not failed, 'phase 15 (a): ' + '; '.join(failed))
+    for rank, out in enumerate(res):
+        for name in TRAIN:
+            check(out['seeds'][0]['launches'][name] > 0,
+                  f'phase 15 (a): rank {rank} launched no {name}')
+    log(f'phase 15 (a) ({smi}): rank processes {ranks_s:.1f} s wall; step '
+        'walls rank 0 ' + str([run['walls'] for run in res[0]['seeds']])
+        + ', rank 1 ' + str([run['walls'] for run in res[1]['seeds']])
+        + ', one process ' + str([run['walls'] for run in single])
+        + f'; peaks {[round(o["seeds"][0]["peak_gib"], 2) for o in res]} '
+        f'GiB (one process {single[0]["peak_gib"]:.2f})')
+
+    # (c) the sharded render on both ranks against the unsharded one
+    render_errs = {}
+    for k in ('image', 'depth', 'weights_sum'):
+        check(torch.equal(res[0]['render'][k], res[1]['render'][k]),
+              f'phase 15 (c): the ranks gathered different {k}')
+        diff = (res[0]['render'][k] - ref[k]).abs()
+        render_errs[k] = (diff.max().item(), diff.mean().item())
+    log(f'phase 15 (c) sharded render of {S} x {r["rays_o"].shape[1]} rays '
+        f'on {DP_RANKS} ranks vs unsharded: ' + ', '.join(
+            f'{k} max {m:.2e} mean {a:.2e}' for k, (m, a) in
+            render_errs.items())
+        + f' (image tol 2e-2 / 1e-3); {res[0]["render_s"]:.3f} s; launches '
+        f'rank 0 {res[0]["render_launches"]}')
+    m, a = render_errs['image']
+    check(m <= 2e-2 and a <= 1e-3, 'phase 15 (c): image')
+    for name in SERVING[:2]:
+        check(res[0]['render_launches'][name] > 0,
+              f'phase 15 (c): no {name} launch')
+
+    # (d) after (b): side by side, the CLI's peak (32.6 GiB) and the
+    # dryrun's two ranks have exceeded the card's 80 GB
+    cli = phase_dp_cli(root, max_rays, smi)
+    torch.cuda.empty_cache()
+    dryrun = finish_dryrun(start_dryrun(), smi)
+    return res[0]['seeds'][0]['launches'], dict(
+        single=[dict(walls=run['walls'], peak_gib=run['peak_gib'])
+                for run in single],
+        ranks=[dict(walls=[run['walls'] for run in o['seeds']],
+                    peak_gib=o['seeds'][0]['peak_gib'],
+                    launches=o['seeds'][0]['launches'],
+                    replicate_s=o['replicate_s'], render_s=o['render_s'],
+                    render_launches=o['render_launches']) for o in res],
+        ranks_wall_s=ranks_s, seeds=seeds,
+        render_errs=render_errs, cli=cli, dryrun=dryrun,
+        wall_s=time.perf_counter() - t_phase)
+
+
 def main():
     walls = {}
 
@@ -4882,8 +5346,10 @@ def main():
         torch.cuda.empty_cache()
         train_cli_out = phase_train_cli(dev, root, evals['max_render_rays'])
         torch.cuda.empty_cache()
+        log(f'phase 10 cut: runner iterations card vs cpu 3 -> '
+            f'{RUNNER_ITERS} (room for phase 15)')
         train_cli_out['card_vs_cpu'] = phase_runner_card_vs_cpu(
-            model_cpu, cfg, root, dev)
+            model_cpu, cfg, root, dev, iters=RUNNER_ITERS)
         done(10)
         # stage-1 and two-stage training through the CLI on phase 10's
         # cars_train, then the stage-1 step on the card and the CPU
@@ -4901,6 +5367,12 @@ def main():
         tiled_train_launches, tiled_launches, tiled_out = phase_tiled(
             dev, root, data, code, smi, evals['max_render_rays'])
         done(12)
+        # data parallelism: two ranks on the card, the CLI on NCCL (phase
+        # 10's cars_train), the sharded render, the dryrun
+        torch.cuda.empty_cache()
+        dp_launches, dp_out = phase_dp(model_cpu, data, code, bitfield, dev,
+                                       root, evals['max_render_rays'], smi)
+        done(15)
     # the options no shipped config sets, at the flagship's width
     torch.cuda.empty_cache()
     options_launches, options_out = phase_options(dev, data, code, bitfield)
@@ -4955,6 +5427,7 @@ def main():
                    tiled_recons_launches=tiled_launches[name],
                    options_launches=options_launches[name],
                    viewer_launches=viewer_launches[name],
+                   dp_launches=dp_launches[name],
                    **{k: kernels[name][k] for k in keys})
               for name in WRAPPERS]
     log(json.dumps({'kernels': report, 'slice_seconds': times,
@@ -4967,7 +5440,7 @@ def main():
                     'recons': recons, 'eval': evals,
                     'train_cli': train_cli_out, 'stage1': stage1_out,
                     'tiled': tiled_out, 'options': options_out,
-                    'viewer': viewer_out,
+                    'viewer': viewer_out, 'parallel': dp_out,
                     'phase_walls_s': walls}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

@@ -7,23 +7,25 @@ import os
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..data.builder import collate
 from .eval_utils import eval_and_viz
 
 
-def _val_batches(dataset, batch_size, max_num=None):
-    """(collated batch, number of padding scenes) of each batch; the last
-    batch is padded with copies of its last scene."""
+def _val_batches(dataset, batch_size, max_num=None, rank=0, world_size=1):
+    """(index, collated batch, number of padding scenes) of each of the
+    rank's batches: batch ``index`` is rank ``index % world_size``'s; the
+    last batch is padded with copies of its last scene."""
     n = len(dataset) if max_num is None else min(len(dataset), max_num)
-    for i in range(0, n, batch_size):
+    for index, i in enumerate(range(0, n, batch_size)):
+        if index % world_size != rank:
+            continue
         ids = list(range(i, min(i + batch_size, n)))
         pad = 0
         if len(ids) < batch_size:
             pad = batch_size - len(ids)
             ids = ids + [ids[-1]] * pad
-        yield collate([dataset[j] for j in ids]), pad
+        yield index, collate([dataset[j] for j in ids]), pad
 
 
 def _save_scenes(model, batch, code, grid, bitfield, num_valid, save_dir):
@@ -57,24 +59,38 @@ def _to_device(batch, dev):
 
 
 def evaluate_3d(model, dataset, batch_size=8, metrics=None, viz_dir=None,
-                max_num_scenes=None, seed=0, log_fn=print, draws_fn=None):
+                max_num_scenes=None, seed=0, log_fn=print, draws_fn=None,
+                group=None):
     """Evaluate ``model`` on ``dataset``; returns the scene-weighted means
     of each batch's log vars (``test_psnr``, ``test_ssim``, LPIPS,
     ``code_rms``); the metrics' summaries are the caller's.
 
     Each batch's ``val_step`` draws from one ``torch.Generator`` on the
     model's device seeded with ``seed``, unless ``draws_fn(index, data)``
-    gives the batch's draws (``DiffusionNeRF.val_draws``'s; the tests
-    replay the JAX package's key of each batch).  Under
-    ``torch.distributed`` the sums are gathered over the processes.
+    gives the draws of batch ``index`` (``DiffusionNeRF.val_draws``'s; the
+    tests replay the JAX package's key of each batch).
+
+    With a data-parallel ``group`` every rank takes part: batch ``index``
+    is evaluated by rank ``index % world_size`` (with no collective: the
+    models' validation steps are per scene), rank ``r``'s generator is
+    seeded with ``seed + r``, and at the end the log vars' sums
+    (:func:`allgather_weighted_sums`) and the features each rank fed to
+    ``metrics`` (:func:`allgather_fed_features`; the metrics keep them in
+    ``fake_feats``, as ``FID`` does) are gathered, so every
+    rank returns the same means and holds every batch's features in batch
+    order.  With ``draws_fn`` the result is then the one-process run's.
     """
     metrics = metrics or []
+    rank, world_size = (0, 1) if group is None else (group.rank,
+                                                     group.world_size)
     dev = next(model.parameters()).device
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev).manual_seed(seed + rank)
+    fed_before = [len(m.fake_feats) for m in metrics] if world_size > 1 \
+        else []
     sums, weights, total = {}, {}, 0
     lpips = None
-    for index, (batch, pad) in enumerate(_val_batches(
-            dataset, batch_size, max_num_scenes)):
+    for index, batch, pad in _val_batches(dataset, batch_size,
+                                          max_num_scenes, rank, world_size):
         data = _to_device(batch, dev)
         blob = batch.get('code')
         if isinstance(blob, dict):
@@ -124,23 +140,40 @@ def evaluate_3d(model, dataset, batch_size=8, metrics=None, viz_dir=None,
         log_fn(f'evaluate_3d: {total} scenes done; '
                + ', '.join(f'{k}={float(v):.4f}' for k, v in log_vars.items()))
 
-    sums, weights = allgather_weighted_sums(sums, weights)
+    for metric, start in zip(metrics, fed_before):
+        metric.fake_feats[start:] = allgather_fed_features(
+            metric.fake_feats[start:], group)
+    sums, weights = allgather_weighted_sums(sums, weights, group)
     return {k: sums[k] / max(weights[k], 1) for k in sums}
 
 
-def allgather_weighted_sums(sums, weights):
-    """The sums and weights of every process added up, under an initialised
-    ``torch.distributed`` with more than one process; else as given."""
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1 and sums:
-        keys = sorted(sums)
-        packed = torch.tensor([sums[k] for k in keys]
-                              + [float(weights[k]) for k in keys],
-                              dtype=torch.float64)
-        if dist.get_backend() == 'nccl':
-            packed = packed.cuda()
-        dist.all_reduce(packed)
-        agg = packed.cpu().tolist()
-        sums = {k: agg[i] for i, k in enumerate(keys)}
-        weights = {k: agg[len(keys) + i] for i, k in enumerate(keys)}
-    return sums, weights
+def allgather_weighted_sums(sums, weights, group=None):
+    """The sums and weights of every rank of ``group`` (a
+    ``parallel.Group``) added up, in f64, on every rank: the ranks' keys
+    gathered first (a rank that evaluated no batch has none), then one
+    all-reduce on the rank's device (which NCCL needs); as given without a
+    group or with one rank."""
+    if group is None or group.world_size == 1:
+        return sums, weights
+    keys = sorted(set().union(*group.all_gather_object(sorted(sums))))
+    if not keys:
+        return sums, weights
+    packed = torch.tensor([sums.get(k, 0.0) for k in keys]
+                          + [float(weights.get(k, 0)) for k in keys],
+                          dtype=torch.float64)
+    packed, = group.sum([packed])
+    agg = packed.cpu().tolist()
+    return ({k: agg[i] for i, k in enumerate(keys)},
+            {k: agg[len(keys) + i] for i, k in enumerate(keys)})
+
+
+def allgather_fed_features(feats, group=None):
+    """Every rank's ``feats`` (one array a batch, as :func:`evaluate_3d`
+    feeds a metric, rank ``r`` holding batches ``r, r + world_size,
+    ...``) on every rank, in batch order; as given without a group or with
+    one rank."""
+    if group is None or group.world_size == 1:
+        return feats
+    parts = group.all_gather_object(list(feats))
+    return [parts[i % group.world_size][i // group.world_size]
+            for i in range(sum(map(len, parts)))]

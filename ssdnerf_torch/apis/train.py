@@ -1,6 +1,11 @@
 """Training API (port of ``ssdnerf_tpu/apis/train.py``): build the model,
 its data loader, optimizers, scene bank and hooks from a config, then run
-the :class:`~ssdnerf_torch.runner.loop.Runner`."""
+the :class:`~ssdnerf_torch.runner.loop.Runner`.
+
+A data-parallel run (a ``parallel.Group``) gives each rank its loader's
+share of the scenes and the matching bank shard, the weights broadcast
+from rank 0; ``samples_per_gpu`` is each rank's batch, so the global
+batch is ``world_size`` times it."""
 import os
 
 import numpy as np
@@ -9,6 +14,7 @@ from ..core.checkpoint import (group_names, load_model_groups,
                                read_checkpoint)
 from ..core.evaluation import GenerativeEvalHook3D, build_metric
 from ..data.builder import DataLoader, build_dataset
+from ..parallel.sharding import replicate
 from ..registry import build_model
 from ..runner.hooks import (CheckpointHook, SaveStatsHook, TextLoggerHook,
                             build_hooks)
@@ -23,17 +29,18 @@ def build_model_from_cfg(cfg):
 
 
 def load_cache_from_dir(cache, cache_dir, scene_names):
-    """Fill the bank's rows from per-scene ``<scene>.npz`` files (the
-    config's ``train_cfg.cache_load_from``, the files ``SaveCacheHook``
-    writes); returns whether any was found."""
+    """Fill the rows of the bank's shard from per-scene ``<scene>.npz``
+    files (the config's ``train_cfg.cache_load_from``, the files
+    ``SaveCacheHook`` writes); returns whether any was found."""
     if cache_dir is None or not os.path.isdir(cache_dir):
         return False
     if not os.listdir(cache_dir):
         return False
     loaded = 0
     sd = cache.state_dict()
-    for li in range(cache.cache_size):
-        name = scene_names[li] if scene_names else f'{li:06d}'
+    for li in range(cache.local_size):
+        gid = cache.offset + li
+        name = scene_names[gid] if scene_names else f'{gid:06d}'
         path = os.path.join(cache_dir, name + '.npz')
         if not os.path.exists(path):
             continue
@@ -53,13 +60,16 @@ def load_cache_from_dir(cache, cache_dir, scene_names):
 
 
 def train_model(cfg, work_dir=None, resume_from=None, seed=0, rank=0,
-                world_size=1, max_iters=None, device='cuda', draws_fn=None):
+                world_size=1, max_iters=None, device='cuda', draws_fn=None,
+                group=None):
     """Train as the JAX package's ``train_model`` does, on ``device``
     (the card unless 'cpu' is asked for): :func:`build_runner`, then
     ``resume_from`` and the run to ``max_iters`` (default
-    ``total_iters``).  Returns the runner."""
+    ``total_iters``).  With ``group`` this process is one rank of a
+    data-parallel run (its rank and world size are the group's).  Returns
+    the runner."""
     runner = build_runner(cfg, work_dir, seed, rank, world_size, max_iters,
-                          device, draws_fn)
+                          device, draws_fn, group)
     try:
         if resume_from:
             runner.resume(resume_from)
@@ -70,7 +80,7 @@ def train_model(cfg, work_dir=None, resume_from=None, seed=0, rank=0,
 
 
 def build_runner(cfg, work_dir=None, seed=0, rank=0, world_size=1,
-                 max_iters=None, device='cuda', draws_fn=None):
+                 max_iters=None, device='cuda', draws_fn=None, group=None):
     """The runner of a config: the model's weights drawn as ``init_model``
     draws them from ``seed``, then the model groups of
     ``cfg.model.pretrained`` / ``cfg.load_from`` (JAX-format checkpoints:
@@ -83,7 +93,16 @@ def build_runner(cfg, work_dir=None, seed=0, rank=0, world_size=1,
     ``CheckpointHook`` (``checkpoint_config``), a ``TextLoggerHook`` and a
     ``SaveStatsHook`` (``log_config.interval``) and a
     ``GenerativeEvalHook3D`` an ``evaluation`` entry.  ``draws_fn`` goes
-    to the runner; the caller closes ``runner.data_loader``."""
+    to the runner; the caller closes ``runner.data_loader``.
+
+    With ``group`` (rank and world size are then the group's) the loader
+    iterates the rank's scenes, the bank holds the rank's shard of them,
+    the weights (loaded groups included) are rank 0's, and the model and
+    the runner reduce over the group; every rank evaluates its share of
+    the evaluation hook's dataset (in the JAX package rank 0 alone
+    evaluates, but its processes share no collective while training)."""
+    if group is not None:
+        rank, world_size = group.rank, group.world_size
     work_dir = work_dir or cfg.get('work_dir', './work_dir')
     model = init_model(cfg, device=device, seed=seed).train()
 
@@ -107,9 +126,11 @@ def build_runner(cfg, work_dir=None, seed=0, rank=0, world_size=1,
             names = [n for n in group_names(model) if n in state]
             load_model_groups(model, state, names)
             print(f'Loaded {len(names)} state groups from {path}')
+    model.group = group
+    replicate(model, group)
 
     stage2 = 'optimizer' not in model.train_cfg
-    cache = model.make_cache(device) \
+    cache = model.make_cache(device, rank, world_size) \
         if model.cache_size > 0 and not stage2 else None
     if cache is not None:
         cache_load_from = model.train_cfg.get('cache_load_from')
@@ -131,7 +152,7 @@ def build_runner(cfg, work_dir=None, seed=0, rank=0, world_size=1,
         if ev.pop('type') != 'GenerativeEvalHook3D':
             raise ValueError('evaluation entries are GenerativeEvalHook3D')
         data_key = ev.pop('data')
-        val_dataset = build_dataset(cfg.data[data_key]) if rank == 0 else None
+        val_dataset = build_dataset(cfg.data[data_key])
         metric_cfg = ev.pop('metrics', None)
         metrics = [build_metric(metric_cfg, device=device)] if metric_cfg \
             else []
@@ -143,5 +164,5 @@ def build_runner(cfg, work_dir=None, seed=0, rank=0, world_size=1,
         model, cache, loader, optimizers, schedulers, work_dir,
         max_iters=max_iters or cfg.get('total_iters', 1000000), hooks=hooks,
         scene_names=scene_names, rank=rank, world_size=world_size, seed=seed,
-        draws_fn=draws_fn)
+        draws_fn=draws_fn, group=group)
 

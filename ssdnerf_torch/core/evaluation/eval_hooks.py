@@ -2,7 +2,10 @@
 ``ssdnerf_tpu/core/evaluation/eval_hooks.py``): every ``interval``
 iterations ``evaluate_3d`` on a validation set, under the model's
 ``eval_mode`` (its ``test_cfg.override_cfg``), its metrics' summaries,
-the results logged with a ``val/`` prefix."""
+the results logged with a ``val/`` prefix.  In a data-parallel run every
+rank holds the dataset and evaluates its share of the batches
+(``evaluate_3d``'s ``group``), so each rank returns the same results and
+no rank waits on the others for a whole evaluation."""
 from ...runner.hooks import Hook
 
 
@@ -39,7 +42,7 @@ class GenerativeEvalHook3D(Hook):
             log_vars = evaluate_3d(
                 runner.model, self.dataset, batch_size=self.feed_batch_size,
                 metrics=self.metrics, viz_dir=self.viz_dir,
-                log_fn=runner.log_text)
+                log_fn=runner.log_text, group=runner.group)
             for m in self.metrics:
                 try:
                     m.summary()

@@ -85,19 +85,28 @@ def scene_lr(lr0, gamma, state):
 
 
 # ------------------------------------------------------- gradient stats
-def grad_stats_logvars(prefix, grads):
+def grad_stats_logvars(prefix, grads, group=None):
     """Per-parameter gradient RMS, std (the population std, as
     ``jnp.std``) and mean (JAX ``base.py:grad_stats_logvars``), keyed
     ``grad_rms/<prefix>.<name>`` etc. for ``grads`` {name: tensor}, the
     names being the JAX package's parameter paths
     (``convert.jax_param_names``; '' for an array without a path, as the
-    codes).  The values stay 0-dim tensors on the gradients' device."""
-    out = {}
-    for name, g in grads.items():
+    codes), each from its gradient's mean and mean square.  With a
+    data-parallel ``group`` (``grads`` each rank's share of a batch, as
+    the codes' are) the moments are the means over the ranks, one
+    all-reduce.  The values stay 0-dim tensors on the gradients' device."""
+    moments = []
+    for g in grads.values():
         g = g.detach().float()
-        std, mean = torch.std_mean(g, correction=0)
-        out[f'grad_rms/{prefix}.{name}'] = torch.sqrt(torch.mean(g * g))
-        out[f'grad_std/{prefix}.{name}'] = std
+        moments += [g.mean(), torch.mean(g * g)]
+    if group is not None:
+        moments = group.mean(moments)
+    out = {}
+    for i, name in enumerate(grads):
+        mean, ms = moments[2 * i], moments[2 * i + 1]
+        out[f'grad_rms/{prefix}.{name}'] = torch.sqrt(ms)
+        out[f'grad_std/{prefix}.{name}'] = torch.sqrt(torch.clamp(
+            ms - mean * mean, min=0))
         out[f'grad_mean/{prefix}.{name}'] = mean
     return out
 
@@ -238,7 +247,8 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
                  bg_color=1.0, dt_gamma=0.0, n_inverse_steps, n_inverse_rays,
                  loss_coef=None, optimizer_cfg=None, lr_scheduler_cfg=None,
                  prior_grad=None, density_thresh=0.01,
-                 update_extra_interval=16, partial_density_updates=False):
+                 update_extra_interval=16, partial_density_updates=False,
+                 group=None):
     """Optimise the raw codes by inverse volume rendering for
     ``n_inverse_steps`` Adam steps: every ``update_extra_interval`` steps
     (step 0 included) the density grid is refreshed from the current codes
@@ -251,7 +261,11 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
     with the state the caller's step reads).  ``draws`` are
     :func:`inverse_draws`'.  ``lr_scheduler_cfg`` (an
     ``ExponentialLR``) decays each scene's rate by its Adam step count
-    (:func:`scene_lr`).  The decoder gets no update.
+    (:func:`scene_lr`).  The decoder gets no update.  With a data-parallel
+    ``group`` the codes are the rank's share of the batch: the render
+    loss's gradient is scaled by the share (a batch-mean loss over every
+    rank's scenes, as the prior gradient is), and the density refreshes'
+    threshold is shared by every rank.
 
     Returns (code_, opt_state, density_grid, density_bitfield, aux) with
     the last step's losses in aux.
@@ -271,11 +285,12 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
                         update_density_grid_partial(
                             decoder, planes, density_grid,
                             draws['partial'][u - 1], grid_size,
-                            density_thresh=density_thresh)
+                            density_thresh=density_thresh, group=group)
                 else:
                     density_grid, density_bitfield, _ = update_density_grid(
                         decoder, planes, density_grid, draws['jitter'][u],
-                        grid_size, density_thresh=density_thresh)
+                        grid_size, density_thresh=density_thresh,
+                        group=group)
         inds = draws['ray_inds']
         rays_o, rays_d, target = ray_sample(
             cond_rays_o, cond_rays_d, cond_imgs, n_inverse_rays,
@@ -288,6 +303,8 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
             loss_coef=loss_coef, deterministic=False,
             dropout=dropout if dropout is None else dropout[i])
         grad, = torch.autograd.grad(loss, leaf)
+        if group is not None:
+            grad = grad * group.share
         if prior_grad is not None:
             grad = grad + prior_grad
         code_, opt_state = adam_step(code_.detach(), grad, opt_state,

@@ -40,7 +40,7 @@ from .base import (adam_init, adam_step, check_dropout_draws, code_adam_cfg,
                    grad_stats_logvars, inverse_code, lr_gamma,
                    make_raybatch_indices, random_subsets, ray_sample,
                    rendering_loss, scene_lr)
-from .multiscene import MultiSceneNeRF, psnr
+from .multiscene import MultiSceneNeRF
 
 
 @contextlib.contextmanager
@@ -230,6 +230,8 @@ class DiffusionNeRF(MultiSceneNeRF):
         ``train_step.diffusion``, ``train_step.inverse`` and
         ``train_step.decoder``.  The scale-norm factor is updated unless
         ``freeze_norm``; the UNet's backward runs under its precision pin.
+        With the model's ``group`` the batch is the rank's share of the
+        global batch (``MultiSceneNeRF``'s docstring).
         The UNet drops (``dropout`` > 0) with the draws' keep masks.
         ``train_cfg``'s ``density_partial_update`` makes the inner loop's
         later density refreshes partial; ``log_grad_stats`` logs the
@@ -264,7 +266,8 @@ class DiffusionNeRF(MultiSceneNeRF):
         else:
             code_ = scene_batch['code_']
             with torch.no_grad():
-                _, new_state = act(code_, old_state, update_stats=True)
+                _, new_state = act(code_, old_state, update_stats=True,
+                                   group=self.group)
         S = code_.shape[0]
         has_cond = 'cond_imgs' in data
         renders = has_cond and not stage2
@@ -290,24 +293,26 @@ class DiffusionNeRF(MultiSceneNeRF):
                 t=draws['t'], noise=draws['noise'],
                 update_norm=not self.freeze_norm,
                 dropout=draws.get('dropout'), concat_cond=concat_cond,
-                x_t_detach=tc.get('x_t_detach', False))
+                x_t_detach=tc.get('x_t_detach', False), group=self.group)
             unet_params = list(self.diffusion.parameters())
             with precision():
                 grads = torch.autograd.grad(
                     loss_diff, unet_params + ([] if stage2 else [leaf]))
-            g_diff = grads[:len(unet_params)]
-            self.apply_grads(unet_params, g_diff, optimizers['diffusion'],
-                             lr_schedulers.get('diffusion'))
+            g_diff = self.apply_grads(
+                unet_params, grads[:len(unet_params)],
+                optimizers['diffusion'], lr_schedulers.get('diffusion'))
             log_vars['loss_diffusion'] = loss_diff.detach()
+            grad_logs = {}
             if log_stats:
                 by_id = dict(zip(map(id, unet_params), g_diff))
-                log_vars.update(grad_stats_logvars(
-                    'diffusion', jax_param_names(
-                        self.diffusion.denoising, lambda p: by_id[id(p)])))
+                grad_logs = grad_stats_logvars('diffusion', jax_param_names(
+                    self.diffusion.denoising, lambda p: by_id[id(p)]))
         self.code_act = new_state
         if not renders:
+            log_vars = self.finish_logs(log_vars)
+            log_vars.update(grad_logs)
             return scene_batch, log_vars
-        prior_grad = grads[-1]
+        prior_grad = self.code_grad(grads[-1])
 
         cond_imgs = data['cond_imgs']
         rays_o, rays_d, dt_gamma = self.cond_rays(data, tc)
@@ -334,7 +339,8 @@ class DiffusionNeRF(MultiSceneNeRF):
                     prior_grad=prior_grad, density_thresh=density_thresh,
                     update_extra_interval=self.update_extra_interval,
                     partial_density_updates=tc.get('density_partial_update',
-                                                   False))
+                                                   False),
+                    group=self.group)
                 for k in ('pixel_loss', 'reg_loss'):
                     if k in aux:
                         log_vars[k] = aux[k]
@@ -345,7 +351,7 @@ class DiffusionNeRF(MultiSceneNeRF):
                 grid, bitfield, _ = update_density_grid(
                     decoder, decoder.planes(activate(code_)), grid,
                     draws['jitter'], self.grid_size,
-                    density_thresh=density_thresh)
+                    density_thresh=density_thresh, group=self.group)
             b_rays_o, b_rays_d, target = ray_sample(
                 rays_o, rays_d, cond_imgs, tc.get('n_decoder_rays', 4096),
                 sample_inds=draws['ray_inds'])
@@ -366,11 +372,15 @@ class DiffusionNeRF(MultiSceneNeRF):
                 else:
                     g_code, *g_dec = torch.autograd.grad(
                         loss_dec, [leaf] + dec_params)
-            if log_stats:
-                log_vars.update(self.grad_logs(decoder, g_dec, g_code))
+            g_code = self.code_grad(g_code)
             if not self.freeze_decoder:
-                self.apply_grads(dec_params, g_dec, optimizers['decoder'],
-                                 lr_schedulers.get('decoder'))
+                g_dec = self.apply_grads(dec_params, g_dec,
+                                         optimizers['decoder'],
+                                         lr_schedulers.get('decoder'))
+            elif log_stats:
+                g_dec = self.reduce_grads(g_dec)
+            if log_stats:
+                grad_logs.update(self.grad_logs(decoder, g_dec, g_code))
             code_, opt = adam_step(code_.detach(), g_code + prior_grad, opt,
                                    lr, betas)
 
@@ -378,9 +388,11 @@ class DiffusionNeRF(MultiSceneNeRF):
             code = activate(code_)
             self.update_init_code(code)
             log_vars.update(loss_dict)
-            log_vars.update(loss_decoder=loss_dec.detach(),
-                            train_psnr=psnr(out_rgbs.detach(), target),
-                            code_rms=torch.sqrt(torch.mean(code ** 2)))
+            log_vars['loss_decoder'] = loss_dec.detach()
+            log_vars = self.finish_logs(
+                log_vars, torch.mean((out_rgbs.detach() - target) ** 2),
+                torch.mean(code ** 2))
+            log_vars.update(grad_logs)
         scene_batch = dict(code_=code_, opt=opt, density_grid=grid,
                            density_bitfield=bitfield)
         return scene_batch, log_vars

@@ -14,6 +14,7 @@ from torch.profiler import record_function
 
 from ...convert import jax_param_names
 from ...ops import get_cam_rays
+from ...parallel.sharding import shard_bounds
 from ..code_activations import build_code_activation
 from ..decoders.renderer import (density_jitter, render_views,
                                  update_density_grid)
@@ -37,32 +38,46 @@ def build_decoder(cfg):
 
 
 def psnr(pred, target):
-    mse = torch.mean((pred - target) ** 2)
+    return psnr_of_mse(torch.mean((pred - target) ** 2))
+
+
+def psnr_of_mse(mse):
     return -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
 
 
 class DeviceSceneCache:
-    """The per-scene training state of ``cache_size`` scenes, resident on
-    one device (port of ``DeviceSceneCache``): raw codes, the code Adam's
-    moments and step counts, f16 density grids and occupancy bitfields.
-    The codes and moments are f32, or with ``cache_16bit`` f16 codes and
-    bf16 moments (JAX ``multiscene.py:159-326``): rows are gathered as f32
-    and written back rounded, the codes clipped to the storage type's
-    range first.  ``save`` writes the batch's rows in place.  Which scenes
-    have been initialised is kept on the host.  One process holds the
-    whole bank: a scene's id is its row.
+    """The per-scene training state of rank ``rank``'s share of
+    ``cache_size`` scenes, resident on one device (port of
+    ``DeviceSceneCache``): raw codes, the code Adam's moments and step
+    counts, f16 density grids and occupancy bitfields.  The codes and
+    moments are f32, or with ``cache_16bit`` f16 codes and bf16 moments
+    (JAX ``multiscene.py:159-326``): rows are gathered as f32 and written
+    back rounded, the codes clipped to the storage type's range first.
+    ``save`` writes the batch's rows in place.  Which scenes have been
+    initialised is kept on the host.
 
-    :meth:`state_dict` gives host numpy arrays under the JAX package's
-    keys (``code_``, ``m``, ``v``, ``step``, ``density_grid``,
-    ``density_bitfield``, ``seen``), the bf16 moments as f32, so that a
-    bank ``.npz`` one package writes loads in the other.
+    Of ``world_size`` ranks, rank ``rank`` holds the ``local_size``
+    scenes from ``offset`` on (JAX's ``np.round(np.linspace(0,
+    cache_size, world_size + 1))`` split, which the loader's shards
+    follow): scene id ``offset + i`` is row ``i``, and an id outside the
+    shard raises.  :meth:`write_scenes` takes rows, every other method
+    scene ids.
+
+    :meth:`state_dict` gives host numpy arrays of the shard's rows under
+    the JAX package's keys (``code_``, ``m``, ``v``, ``step``,
+    ``density_grid``, ``density_bitfield``, ``seen``), the bf16 moments as
+    f32, so that a rank's bank ``.npz`` one package writes loads in the
+    other's cache of the same rank.
     """
 
     KEYS = ('code_', 'm', 'v', 'step', 'density_grid', 'density_bitfield')
 
     def __init__(self, cache_size, code_size, grid_size, device='cpu',
-                 cache_16bit=False):
-        n, cs = cache_size, tuple(code_size)
+                 cache_16bit=False, rank=0, world_size=1):
+        start, stop = shard_bounds(cache_size, rank, world_size)
+        self.offset = start
+        self.local_size = stop - start
+        n, cs = self.local_size, tuple(code_size)
         self.cache_size = cache_size
         self.code_size = cs
         self.grid_size = grid_size
@@ -79,9 +94,12 @@ class DeviceSceneCache:
         self.seen = np.zeros(n, bool)
 
     def _index(self, scene_ids):
-        ids = np.asarray(scene_ids)
-        if ids.min() < 0 or ids.max() >= self.cache_size:
-            raise IndexError(f'scene ids {ids} outside the bank')
+        """The rows of ``scene_ids``."""
+        ids = np.asarray(scene_ids) - self.offset
+        if ids.min() < 0 or ids.max() >= self.local_size:
+            raise IndexError(
+                f'scene ids {np.asarray(scene_ids)} outside the bank shard '
+                f'[{self.offset}, {self.offset + self.local_size})')
         return ids
 
     def ensure_init(self, scene_ids, init_code_fn=None):
@@ -125,8 +143,8 @@ class DeviceSceneCache:
         self.seen[ids] = True
 
     def state_dict(self):
-        """Host numpy copies of the bank (bf16 moments as f32) and
-        ``seen``."""
+        """Host numpy copies of the shard's rows (bf16 moments as f32)
+        and ``seen``."""
         out = {}
         for k in self.KEYS:
             t = getattr(self, k)
@@ -146,9 +164,9 @@ class DeviceSceneCache:
         return torch.from_numpy(np.ascontiguousarray(val))
 
     def load_state_dict(self, d):
-        """Fill the bank from a :meth:`state_dict` (of either package; rows
-        missing at the end are zero, as JAX pads them); keys absent from
-        ``d`` keep their values."""
+        """Fill the shard from a :meth:`state_dict` (of either package and
+        the same rank; rows missing at the end are zero, as JAX pads them);
+        keys absent from ``d`` keep their values."""
         for k in self.KEYS:
             if k not in d:
                 continue
@@ -198,15 +216,15 @@ class DeviceSceneCache:
 
 class HostSceneCache(DeviceSceneCache):
     """The scene bank in host memory (port of the JAX package's
-    ``SceneCache``, ``cache_device='host'``): the rows and dtypes of
-    :class:`DeviceSceneCache`, in pinned CPU tensors when a card is
-    present, with its interface.  :meth:`load` moves a batch's rows to
+    ``SceneCache``, ``cache_device='host'``): the rows, dtypes and rank
+    shard of :class:`DeviceSceneCache`, in pinned CPU tensors when a card
+    is present, with its interface.  :meth:`load` moves a batch's rows to
     ``device`` (the model's) and :meth:`save` copies them back."""
 
     def __init__(self, cache_size, code_size, grid_size, device='cpu',
-                 cache_16bit=False):
+                 cache_16bit=False, rank=0, world_size=1):
         super().__init__(cache_size, code_size, grid_size, 'cpu',
-                         cache_16bit)
+                         cache_16bit, rank, world_size)
         self.device = torch.device(device)
         if torch.cuda.is_available():
             for k in self.KEYS:
@@ -238,7 +256,15 @@ class MultiSceneNeRF(nn.Module):
     buffers; scene codes and density grids are passed in explicitly.
     Evaluation renders with the EMA decoder.  The scene bank stays on the
     model's device (``cache_device`` 'auto' or 'device') or in host memory
-    ('host')."""
+    ('host').
+
+    ``group`` (a ``parallel.Group``, None in one process) makes the
+    training steps data-parallel: the batch is the rank's share of the
+    global one, and what the JAX package's mesh reduces over the scene
+    axis is reduced over the ranks (the network gradients, the code
+    activation's statistics, the density threshold, the mean code, the
+    log vars); all per-scene work stays local.  Without one every step is
+    what it was."""
 
     def __init__(self, cfg, train_cfg=None, test_cfg=None):
         super().__init__()
@@ -269,6 +295,7 @@ class MultiSceneNeRF(nn.Module):
             raise ValueError(f'cache_device {self.cache_device!r}')
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
+        self.group = None
         self._override_backup = {}
         act_state = self.code_activation.init_state()
         self._code_act_names = [] if act_state is None else [
@@ -404,17 +431,17 @@ class MultiSceneNeRF(nn.Module):
         if self.decoder_ema is not None:
             self.decoder_ema.load_state_dict(self.decoder.state_dict())
 
-    def make_cache(self, device):
-        """The scene bank for a model on ``device`` (f32, or 16-bit with
-        ``cache_16bit``): in host memory with ``cache_device='host'``
-        (:class:`HostSceneCache`), else on ``device``.  JAX's 'auto' puts
-        a bank over 6e9 bytes on the host; the port keeps every 'auto' bank
-        on the card, where the 2458-scene banks fit (10.1 GB f32, 5.7 GB
-        16-bit)."""
+    def make_cache(self, device, rank=0, world_size=1):
+        """Rank ``rank``'s shard of the scene bank for a model on
+        ``device`` (f32, or 16-bit with ``cache_16bit``): in host memory
+        with ``cache_device='host'`` (:class:`HostSceneCache`), else on
+        ``device``.  JAX's 'auto' puts a bank over 6e9 bytes on the host;
+        the port keeps every 'auto' bank on the card, where the 2458-scene
+        banks fit (10.1 GB f32, 5.7 GB 16-bit)."""
         cls = HostSceneCache if self.cache_device == 'host' \
             else DeviceSceneCache
         return cls(self.cache_size, self.code_size, self.grid_size, device,
-                   self.cache_16bit)
+                   self.cache_16bit, rank, world_size)
 
     def get_init_code_np(self, num, rng, init_code=None):
         """Fresh raw codes on the host: without ``init_code``, uniform in
@@ -513,31 +540,81 @@ class MultiSceneNeRF(nn.Module):
             perturb=torch.rand((S, min(n_dec, num_pixels)),
                                generator=generator, device=device))
 
-    @staticmethod
-    def apply_grads(params, grads, optimizer, scheduler):
+    def reduce_grads(self, grads):
+        """``grads`` averaged over the ranks (one all-reduce of a flat
+        bucket), or as given in one process."""
+        return grads if self.group is None else self.group.mean(grads)
+
+    def apply_grads(self, params, grads, optimizer, scheduler):
+        """An optimizer (and scheduler) step of ``params`` on ``grads``,
+        averaged over the ranks first (:meth:`reduce_grads`); returns the
+        gradients applied."""
+        grads = self.reduce_grads(grads)
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
+        return grads
 
-    @staticmethod
-    def grad_logs(decoder, g_dec, g_code):
+    def code_grad(self, g_code):
+        """A batch-mean loss's gradient on the rank's codes as that of the
+        global batch's mean: scaled by the rank's share."""
+        return g_code if self.group is None else g_code * self.group.share
+
+    def grad_logs(self, decoder, g_dec, g_code):
         """``log_grad_stats``' log vars of a render loss's gradients: JAX's
         ``grad_stats_logvars('decoder', g_dec)`` and ``('code',
-        g_code)``, ``g_dec`` in ``decoder.parameters()`` order."""
+        g_code)``, ``g_dec`` in ``decoder.parameters()`` order (reduced
+        over the ranks already), the codes' over every rank's codes."""
         grads = dict(zip(map(id, decoder.parameters()), g_dec))
         logs = grad_stats_logvars('decoder', jax_param_names(
             decoder, lambda p: grads[id(p)]))
-        logs.update(grad_stats_logvars('code', {'': g_code}))
+        logs.update(grad_stats_logvars('code', {'': g_code}, self.group))
         return logs
 
     def update_init_code(self, code):
         """The mean code's EMA (``mean_ema_momentum``) toward the batch's
-        mean activated code, with ``init_from_mean``."""
+        mean activated code (every rank's), with ``init_from_mean``."""
         if self.init_code is not None:
+            mean = code.detach().mean(dim=0)
+            if self.group is not None:
+                mean, = self.group.mean([mean])
             self.init_code = (1 - self.mean_ema_momentum) * self.init_code \
-                + self.mean_ema_momentum * code.detach().mean(dim=0)
+                + self.mean_ema_momentum * mean
+
+    def finish_logs(self, log_vars, mse=None, code_ms=None):
+        """A train step's rank-local log vars as logged.  Each value of
+        ``log_vars`` is a 0-dim tensor, a mean over the rank's batch, or a
+        (sum, count) pair, logged as sum / count (NaN with no count); with
+        ``mse`` (the render's mean squared error) ``train_psnr``, with
+        ``code_ms`` (the codes' mean square) ``code_rms``.  With a group
+        every one is first averaged over the ranks in one all-reduce: a
+        mean over the global batch, since the ranks' batches have one
+        size, and for a pair the ratio of the means is that of the sums.
+        The gradient statistics are not rank-local and are added after."""
+        keys = list(log_vars)
+        extra = [v for v in (mse, code_ms) if v is not None]
+        flat = [t for k in keys for t in (
+            log_vars[k] if isinstance(log_vars[k], tuple) else
+            (log_vars[k],))] + extra
+        if self.group is not None:
+            flat = self.group.mean(flat)
+        out, i = {}, 0
+        for k in keys:
+            if isinstance(log_vars[k], tuple):
+                total, count = flat[i], flat[i + 1]
+                out[k] = torch.where(count > 0, total / count, float('nan'))
+                i += 2
+            else:
+                out[k] = flat[i]
+                i += 1
+        if mse is not None:
+            out['train_psnr'] = psnr_of_mse(flat[i])
+            i += 1
+        if code_ms is not None:
+            out['code_rms'] = torch.sqrt(flat[i])
+        return out
 
     def train_step(self, scene_batch, data, optimizers, lr_schedulers=None,
                    generator=None, draws=None):
@@ -547,7 +624,8 @@ class MultiSceneNeRF(nn.Module):
         the activation's statistics updated from the raw codes, a density
         sweep (decay 0.9) and one render loss on a fresh ray batch, giving
         a ``decoder`` optimizer step and a last code Adam step, both with
-        the new statistics; then the ``init_code`` EMA.
+        the new statistics; then the ``init_code`` EMA.  With ``group``
+        the batch is the rank's share (the class docstring).
 
         Args and return as ``DiffusionNeRF.train_step``: ``optimizers`` /
         ``lr_schedulers`` are keyed 'decoder'; ``draws`` are
@@ -592,15 +670,17 @@ class MultiSceneNeRF(nn.Module):
                     density_thresh=density_thresh,
                     update_extra_interval=self.update_extra_interval,
                     partial_density_updates=tc.get('density_partial_update',
-                                                   False))
+                                                   False),
+                    group=self.group)
 
         with record_function('train_step.decoder'):
             with torch.no_grad():
                 code, new_state = self.code_activation(
-                    code_, old_state, update_stats=True)
+                    code_, old_state, update_stats=True, group=self.group)
                 grid, bitfield, _ = update_density_grid(
                     decoder, decoder.planes(code), grid, draws['jitter'],
-                    self.grid_size, density_thresh=density_thresh)
+                    self.grid_size, density_thresh=density_thresh,
+                    group=self.group)
             b_rays_o, b_rays_d, target = ray_sample(
                 rays_o, rays_d, cond_imgs, tc.get('n_decoder_rays', 4096),
                 sample_inds=draws['ray_inds'])
@@ -613,10 +693,11 @@ class MultiSceneNeRF(nn.Module):
                 loss_coef=loss_coef)
             dec_params = list(decoder.parameters())
             g_code, *g_dec = torch.autograd.grad(loss, [leaf] + dec_params)
+            g_code = self.code_grad(g_code)
+            g_dec = self.apply_grads(dec_params, g_dec, optimizers['decoder'],
+                                     lr_schedulers.get('decoder'))
             grad_logs = self.grad_logs(decoder, g_dec, g_code) \
                 if tc.get('log_grad_stats', False) else {}
-            self.apply_grads(dec_params, g_dec, optimizers['decoder'],
-                             lr_schedulers.get('decoder'))
             code_, opt = adam_step(code_.detach(), g_code, opt, lr, betas)
 
         self.code_act = new_state
@@ -624,10 +705,11 @@ class MultiSceneNeRF(nn.Module):
             code = self.code_activation(code_, new_state)
             self.update_init_code(code)
             log_vars = dict(loss_dict)
+            log_vars['loss'] = loss.detach()
+            log_vars = self.finish_logs(
+                log_vars, torch.mean((out_rgbs.detach() - target) ** 2),
+                torch.mean(code ** 2))
             log_vars.update(grad_logs)
-            log_vars.update(loss=loss.detach(),
-                            train_psnr=psnr(out_rgbs.detach(), target),
-                            code_rms=torch.sqrt(torch.mean(code ** 2)))
         scene_batch = dict(code_=code_, opt=opt, density_grid=grid,
                            density_bitfield=bitfield)
         return scene_batch, log_vars

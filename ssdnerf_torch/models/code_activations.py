@@ -4,10 +4,11 @@
 
 Each takes its state explicitly, as the JAX package's do: ``init_state()``
 (None, or ``NormalizedTanhCode``'s ``(running_mean, running_var)``, both
-(1,) f32), ``__call__(code_, state, update_stats)`` (with
-``update_stats`` it returns ``(code, new_state)``) and ``inverse(code,
-state)``.  The statistics are taken without gradient: no call site
-differentiates through an update.
+(1,) f32), ``__call__(code_, state, update_stats, group)`` (with
+``update_stats`` it returns ``(code, new_state)``; a data-parallel
+``group`` makes the statistics those of every rank's codes) and
+``inverse(code, state)``.  The statistics are taken without gradient: no
+call site differentiates through an update.
 """
 from dataclasses import dataclass
 
@@ -22,7 +23,7 @@ class TanhCode:
     def init_state(self, device='cpu'):
         return None
 
-    def __call__(self, code_, state=None, update_stats=False):
+    def __call__(self, code_, state=None, update_stats=False, group=None):
         code = torch.tanh(code_)
         if self.scale != 1:
             code = code * self.scale
@@ -38,7 +39,7 @@ class IdentityCode:
     def init_state(self, device='cpu'):
         return None
 
-    def __call__(self, code_, state=None, update_stats=False):
+    def __call__(self, code_, state=None, update_stats=False, group=None):
         return (code_, state) if update_stats else code_
 
     def inverse(self, code, state=None):
@@ -49,7 +50,9 @@ class IdentityCode:
 class NormalizedTanhCode:
     """``tanh`` of the codes normalised by running statistics of the raw
     codes: an EMA (``momentum``) of their mean and unbiased variance,
-    updated only with ``update_stats=True``."""
+    updated only with ``update_stats=True``, from the codes' count, sum
+    and sum of squares in f64 (with a data-parallel ``group``, the sums
+    over every rank's codes)."""
     mean: float = 0.0
     std: float = 1.0
     clip_range: float = 1.0
@@ -71,12 +74,25 @@ class NormalizedTanhCode:
                 'section 3 item 13)')
         return state
 
-    def __call__(self, code_, state, update_stats=False):
+    @staticmethod
+    def _stats(code_, group):
+        """The mean and unbiased variance of the codes (every rank's with
+        ``group``), from their count, sum and sum of squares in f64."""
+        x = code_.detach().double()
+        moments = [torch.tensor(float(x.numel()), dtype=x.dtype,
+                                device=x.device), x.sum(), (x * x).sum()]
+        if group is not None:
+            moments = group.sum(moments)
+        n, s, ss = moments
+        mean = s / n
+        var = (ss - s * mean) / (n - 1)
+        return mean.to(code_.dtype), var.to(code_.dtype)
+
+    def __call__(self, code_, state, update_stats=False, group=None):
         running_mean, running_var = self._unpack(state)
         if update_stats:
             with torch.no_grad():
-                mean = code_.mean()
-                var = code_.var(correction=1)
+                mean, var = self._stats(code_, group)
                 running_mean = running_mean * (1 - self.momentum) \
                     + self.momentum * mean
                 running_var = running_var * (1 - self.momentum) \

@@ -264,9 +264,11 @@ def _voxel_centers(grid_size, bound, device):
     return (coords.float() - (H - 1) / 2.0) * (2.0 * bound / H)
 
 
-def _ema_and_pack(density_grid, tmp, decay, density_thresh, tmp_valid=None):
-    """EMA-max merge + bitfield repack (threshold shared by the batch);
-    with ``tmp_valid`` only where it is true."""
+def _ema_and_pack(density_grid, tmp, decay, density_thresh, tmp_valid=None,
+                  group=None):
+    """EMA-max merge + bitfield repack (threshold shared by the batch:
+    with a data-parallel ``group``, by every rank's scenes); with
+    ``tmp_valid`` only where it is true."""
     fmax = torch.finfo(density_grid.dtype).max
     tmp = torch.clamp(tmp, max=fmax).to(density_grid.dtype)
     valid = density_grid >= 0
@@ -275,6 +277,8 @@ def _ema_and_pack(density_grid, tmp, decay, density_thresh, tmp_valid=None):
     density_grid = torch.where(
         valid, torch.maximum(density_grid * decay, tmp), density_grid)
     mean_density = torch.clamp(density_grid.float(), min=0).mean()
+    if group is not None:
+        mean_density, = group.mean([mean_density])
     thresh = torch.clamp(mean_density, max=density_thresh)
     bitfield = packbits(density_grid.float(), thresh)
     return density_grid, bitfield, mean_density
@@ -282,16 +286,18 @@ def _ema_and_pack(density_grid, tmp, decay, density_thresh, tmp_valid=None):
 
 @torch.no_grad()
 def update_density_grid(decoder, planes, density_grid, jitter, grid_size,
-                        density_thresh=0.01, decay=0.9):
+                        density_thresh=0.01, decay=0.9, group=None):
     """One full occupancy-grid sweep (density-only decode at every voxel
     centre plus ``jitter`` (H^3, 3)) + bitfield repack.  ``planes`` are
-    ``decoder.planes(code)``.
+    ``decoder.planes(code)``; the threshold's mean density is over every
+    rank's scenes with a data-parallel ``group``.
 
     Returns (density_grid, density_bitfield, mean_density)."""
     S = planes.shape[0]
     xyz = _voxel_centers(grid_size, decoder.bound, planes.device) + jitter
     tmp, _ = decoder.decode(planes, xyz.expand(S, -1, 3).contiguous())
-    return _ema_and_pack(density_grid, tmp, decay, density_thresh)
+    return _ema_and_pack(density_grid, tmp, decay, density_thresh,
+                         group=group)
 
 
 def partial_draws(grid_size, bound, num_scenes, generator=None,
@@ -327,14 +333,15 @@ def occupied_voxels(density_grid, occ_u):
 
 @torch.no_grad()
 def update_density_grid_partial(decoder, planes, density_grid, draws,
-                                grid_size, density_thresh=0.01, decay=0.9):
+                                grid_size, density_thresh=0.01, decay=0.9,
+                                group=None):
     """The stochastic partial occupancy update (JAX
     ``renderer.py:update_density_grid_partial``): V/4 uniform voxels
     shared by the scenes plus V/4 drawn from each scene's occupied set
     (:func:`occupied_voxels`), decoded density-only with intra-voxel
     jitter; their scatter-max (duplicates keep the largest) is merged by
     the EMA-max rule only at the voxels decoded.  ``draws`` are
-    :func:`partial_draws`'.
+    :func:`partial_draws`'; ``group`` as in :func:`update_density_grid`.
 
     Returns (density_grid, density_bitfield, mean_density)."""
     H = grid_size
@@ -348,7 +355,8 @@ def update_density_grid_partial(decoder, planes, density_grid, draws,
     sigmas, _ = decoder.decode(planes, xyz.contiguous())
     tmp = torch.full(density_grid.shape, -1.0, device=planes.device)
     tmp = tmp.scatter_reduce(1, idx, sigmas, 'amax')
-    return _ema_and_pack(density_grid, tmp, decay, density_thresh, tmp >= 0)
+    return _ema_and_pack(density_grid, tmp, decay, density_thresh, tmp >= 0,
+                         group)
 
 
 @torch.no_grad()

@@ -94,7 +94,7 @@ class GaussianDiffusion(nn.Module):
 
     def forward_train(self, x_0, t=None, noise=None, generator=None,
                       update_norm=True, norm_factor=None, dropout=None,
-                      concat_cond=None, x_t_detach=False):
+                      concat_cond=None, x_t_detach=False, group=None):
         """One diffusion training loss evaluation (gradients flow to the
         UNet and to ``x_0``).
 
@@ -115,8 +115,12 @@ class GaussianDiffusion(nn.Module):
             concat_cond: the UNet's condition image, or None.
             x_t_detach: x_t carries no gradient to x_0 (only the target
                 and the loss's x_0 do).
+            group: a data-parallel group: ``x_0`` is the rank's share of
+                the batch, and the scale-norm statistic is every rank's
+                (``DDPMMSELoss``).
 
-        Returns (loss, log_vars).
+        Returns (loss, log_vars); the quartile log vars are (sum, count)
+        pairs (``DDPMMSELoss``).
         """
         B = x_0.shape[0]
         if t is None:
@@ -138,7 +142,7 @@ class GaussianDiffusion(nn.Module):
         if norm_factor is None:
             norm_factor = self.norm_factor
         loss, new_norm, log_vars = self.ddpm_loss(
-            out, target, t, x_0, norm_factor, update_norm)
+            out, target, t, x_0, norm_factor, update_norm, group)
         if update_norm and new_norm is not None:
             with torch.no_grad():
                 norm_factor.copy_(new_norm)

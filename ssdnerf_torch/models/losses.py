@@ -60,6 +60,10 @@ class DDPMMSELoss:
     batch-averaged and, with ``scale_norm``, divided by the running
     ``norm_factor`` (an EMA of E[x_0^2]).  As in the reference the factor
     is updated BEFORE the divide, so the divisor is the updated one.
+    With a data-parallel ``group`` the batch is every rank's: E[x_0^2] is
+    the mean of the ranks' (their batches have one size).  The quartile
+    log vars are the rank's (sum, count) pairs, which the model's
+    ``finish_logs`` reduces and divides (NaN for an empty quartile).
     """
     weight: Optional[np.ndarray] = None     # (T,) timestep weights
     weight_scale: float = 1.0
@@ -70,7 +74,7 @@ class DDPMMSELoss:
     num_timesteps: int = 1000
 
     def __call__(self, pred, target, timesteps, x_0, norm_factor=None,
-                 update_norm=False):
+                 update_norm=False, group=None):
         """Returns (loss, new_norm_factor, log_vars); ``norm_factor`` is a
         (1,) tensor (None without ``scale_norm``)."""
         per_sample = 0.5 * torch.mean((pred - target) ** 2,
@@ -82,19 +86,22 @@ class DDPMMSELoss:
         loss = per_sample.mean()
 
         log_vars = {}
+        update = self.scale_norm and update_norm
+        if update:
+            norm = torch.mean(x_0.detach() ** 2)
+            if group is not None:
+                norm, = group.mean([norm])
         if self.log_quartiles:
             quartile = (timesteps.float() / self.num_timesteps * 4).long()
             ps = per_sample.detach()
-            for q in range(4):   # no host sync: NaN for an empty quartile
+            for q in range(4):
                 mask = quartile == q
-                mean = (ps * mask).sum() / mask.sum().clamp(min=1)
-                log_vars[f'loss_mse_quartile_{q}'] = torch.where(
-                    mask.any(), mean, float('nan'))
+                log_vars[f'loss_mse_quartile_{q}'] = (
+                    (ps * mask).sum(), mask.sum().float())
 
         new_norm = norm_factor
         if self.scale_norm:
             if update_norm:
-                norm = torch.mean(x_0.detach() ** 2)
                 new_norm = (1 - self.momentum) * norm_factor \
                     + self.momentum * norm
             loss = loss / new_norm.detach()[0]

@@ -3,6 +3,11 @@ the scene-bank hooks (save, reset, rebuild by test-time optimisation,
 reset to the mean code), scheduled config surgery, stats and text /
 tensorboard logs, directory backups, checkpoints and profiler traces, each
 called by the runner after every iteration.
+
+In a data-parallel run every hook runs on every rank, on the rank's own
+bank shard where it touches the bank; the text log's lines come from rank
+0, the checkpoint's model file is rank 0's (``Runner.save_checkpoint``),
+and the stats file is each rank's.
 """
 import json
 import os
@@ -96,7 +101,8 @@ class EMAHook(Hook):
 
 class SaveCacheHook(Hook):
     """Every ``interval`` iterations and at the end, one ``<scene>.npz`` a
-    seen scene of the bank in ``out_dir`` (the JAX package's keys:
+    seen scene of the rank's bank shard in ``out_dir`` (the JAX package's
+    keys:
     scene_id, scene_name, code_, density_grid, density_bitfield,
     optimizer_m / _v / _step), and with ``viz_dir`` the triplanes of every
     ``viz_step``-th scene as PNGs."""
@@ -125,15 +131,16 @@ class SaveCacheHook(Hook):
         sd = cache.state_dict()
 
         def name_of(li):
-            return names[li] if names is not None else f'{li:06d}'
+            gid = cache.offset + li
+            return names[gid] if names is not None else f'{gid:06d}'
 
-        for li in range(cache.cache_size):
+        for li in range(cache.local_size):
             if not sd['seen'][li]:
                 continue
             name = name_of(li)
             np.savez(
                 os.path.join(self.out_dir, name + '.npz'),
-                scene_id=li, scene_name=name,
+                scene_id=cache.offset + li, scene_name=name,
                 code_=sd['code_'][li],
                 density_grid=sd['density_grid'][li],
                 density_bitfield=sd['density_bitfield'][li],
@@ -142,7 +149,7 @@ class SaveCacheHook(Hook):
                 optimizer_step=sd['step'][li])
         if self.viz_dir is not None:
             from ..apis.eval_utils import visualize_triplane
-            sel = [li for li in range(0, cache.cache_size,
+            sel = [li for li in range(0, cache.local_size,
                                       max(self.viz_step, 1))
                    if sd['seen'][li]]
             if sel:
@@ -168,8 +175,9 @@ class ResetCacheHook(Hook):
 
 class UpdateCacheHook(Hook):
     """Every ``interval`` iterations and at the iterations of ``step``, the
-    whole bank rebuilt by test-time optimisation: ``val_inverse_code`` of
-    the dataset's scenes in chunks of ``batch_size`` rows under the
+    rank's bank shard rebuilt by test-time optimisation:
+    ``val_inverse_code`` of its scenes in chunks of ``batch_size`` rows
+    under the
     model's ``eval_mode``, their raw codes and density state written with
     the Adam state zeroed.  A chunk starting at row ``start`` draws as
     index ``10_000_000 + start`` (the JAX hook's ``fold_in``): from the
@@ -192,10 +200,10 @@ class UpdateCacheHook(Hook):
                         'optimization...')
         model.eval_mode()
         try:
-            for start in range(0, cache.cache_size, self.batch_size):
+            for start in range(0, cache.local_size, self.batch_size):
                 rows = list(range(start, min(start + self.batch_size,
-                                             cache.cache_size)))
-                batch = collate([dataset[i] for i in rows])
+                                             cache.local_size)))
+                batch = collate([dataset[cache.offset + i] for i in rows])
                 data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                     runner.device) for k, v in batch.items()
                     if isinstance(v, np.ndarray)}
@@ -216,8 +224,8 @@ class MeanCacheHook(Hook):
     """At the iterations of ``step`` (0: before the run), every code of
     the bank set to one code, the Adam state zeroed: the inverse
     activation of ``init_code * mean_scale`` with ``init_from_mean``, else
-    of the mean raw code of the seen scenes (zero when none is), after
-    ``load_from``'s files have filled the bank."""
+    of the mean raw code of the seen scenes of every rank's shard (zero
+    when none is), after ``load_from``'s files have filled the bank."""
 
     def __init__(self, step=(), load_from=None, **kwargs):
         self.steps = set(step)
@@ -239,8 +247,17 @@ class MeanCacheHook(Hook):
         if model.init_code is None:
             sd = cache.state_dict()
             seen = sd['seen']
-            mean = sd['code_'][seen].astype(np.float32).mean(0) \
-                if seen.any() else np.zeros(cache.code_size, np.float32)
+            codes = sd['code_'][seen].astype(np.float32)
+            group = getattr(runner, 'group', None)
+            if group is None:
+                mean = codes.mean(0) if seen.any() \
+                    else np.zeros(cache.code_size, np.float32)
+            else:
+                total, count = group.sum([
+                    torch.from_numpy(codes.astype(np.float64).sum(0)).view(
+                        cache.code_size),
+                    torch.tensor(float(seen.sum()), dtype=torch.float64)])
+                mean = (total / count.clamp(min=1)).float().cpu().numpy()
             code = torch.from_numpy(mean).to(runner.device)
         else:
             code = model.init_code * model.mean_scale
@@ -339,8 +356,8 @@ class DirCopyHook(Hook):
 
 
 class TextLoggerHook(Hook):
-    """Every ``interval`` iterations a log line: iterations a second since
-    the last line and the scalar log vars."""
+    """Every ``interval`` iterations a log line on rank 0: iterations a
+    second since the last line and the scalar log vars (every rank's)."""
     priority = 90
 
     def __init__(self, interval=50, **kwargs):
@@ -353,7 +370,7 @@ class TextLoggerHook(Hook):
         self._it0 = runner.iteration
 
     def after_train_iter(self, runner):
-        if not self.every_n_iters(runner, self.interval):
+        if runner.rank != 0 or not self.every_n_iters(runner, self.interval):
             return
         now = time.time()
         it = runner.iteration
@@ -367,8 +384,8 @@ class TextLoggerHook(Hook):
 
 class TensorboardLoggerHook(Hook):
     """Scalar log vars every ``interval`` iterations into
-    ``work_dir/tf_logs`` through ``tensorboardX``; without that package
-    the writer is None and the hook does nothing."""
+    ``work_dir/tf_logs`` through ``tensorboardX``, on rank 0; without that
+    package the writer is None and the hook does nothing."""
     priority = 90
 
     def __init__(self, interval=50, **kwargs):
@@ -376,6 +393,8 @@ class TensorboardLoggerHook(Hook):
         self.writer = None
 
     def before_run(self, runner):
+        if runner.rank != 0:
+            return
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
@@ -398,7 +417,8 @@ class TensorboardLoggerHook(Hook):
 class CheckpointHook(Hook):
     """A checkpoint every ``interval`` iterations (keeping the newest
     ``max_keep_ckpts`` when > 0) and at the end of the run, unless this
-    hook saved at that iteration already."""
+    hook saved at that iteration already; in a data-parallel run the ranks'
+    weights are compared there (``Runner.check_replicas``)."""
     priority = 70
 
     def __init__(self, interval=5000, max_keep_ckpts=-1, **kwargs):
@@ -409,6 +429,7 @@ class CheckpointHook(Hook):
     def after_train_iter(self, runner):
         if self.every_n_iters(runner, self.interval):
             runner.save_checkpoint()
+            runner.check_replicas()
             self._saved_at = runner.iteration
             if self.max_keep > 0:
                 runner.prune_checkpoints(self.max_keep)
@@ -416,6 +437,7 @@ class CheckpointHook(Hook):
     def after_run(self, runner):
         if self._saved_at != runner.iteration:
             runner.save_checkpoint()
+            runner.check_replicas()
 
 
 class ProfilerHook(Hook):

@@ -23,11 +23,19 @@ seeded from (seed, rank, iteration), so a resumed run draws what an
 uninterrupted one would (the JAX runner folds the iteration into its
 key).  ``draws_fn(iteration, data)`` may give the draws to replay instead
 (``DiffusionNeRF.train_draws``'s dict; the tests replay the JAX
-package's).  More than one process (ROADMAP section 1 item 6) raises.
+package's).
+
+With a data-parallel ``group`` (``parallel.Group``, set on the model
+too) each rank trains its loader's shard of the scenes on its bank
+shard; the steps reduce over the ranks, so every rank holds the same
+weights.  Rank 0 writes the model checkpoint and every rank its bank
+file (``iter_N_cache_rank{r}.npz``), its log and its stats; a resume
+reads rank 0's checkpoint and the rank's own bank file.
 """
 import collections
 from concurrent.futures import ThreadPoolExecutor
 import glob
+import hashlib
 import json
 import os
 import time
@@ -35,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from ..core.checkpoint import load_checkpoint, save_checkpoint
+from ..core.checkpoint import load_checkpoint, model_state, save_checkpoint
 from ..models.autodecoders.base import SceneOptState
 
 
@@ -104,15 +112,20 @@ class Runner:
     ``.after_run`` for the start and the end) and the resume's seconds.
     The spans are read without making the host wait for the device
     (:class:`SpanClock`); the end of :meth:`run` logs their summary
-    (:meth:`timing_summary`) as a ``Timing:`` JSON line."""
+    (:meth:`timing_summary`) as a ``Timing:`` JSON line.
+
+    ``group`` (a ``parallel.Group``; None in one process) is the run's
+    ranks: ``rank`` and ``world_size`` are then its."""
 
     def __init__(self, model, cache, data_loader, optimizers, schedulers,
                  work_dir, max_iters, hooks=(), scene_names=None, rank=0,
-                 world_size=1, seed=0, draws_fn=None):
-        if world_size != 1:
-            raise NotImplementedError(
-                'training on more than one process is not ported: ROADMAP '
-                'section 1 item 6')
+                 world_size=1, seed=0, draws_fn=None, group=None):
+        if group is not None:
+            rank, world_size = group.rank, group.world_size
+        elif world_size != 1:
+            raise ValueError(f'world_size {world_size} without a process '
+                             'group (parallel.init_distributed)')
+        self.group = group
         self.model = model
         self.stage2 = 'optimizer' not in model.train_cfg
         self.cache = cache
@@ -307,9 +320,12 @@ class Runner:
             torch.cuda.reset_peak_memory_stats(self.device)
         self._call_hooks('before_run')
         loader = iter(self.data_loader)
+        where = '' if self.group is None else \
+            f', backend {self.group.backend}, device {self.device}'
         self.log_text(
             f'Starting training at iter {self.iteration}/{self.max_iters} '
-            f'(rank {self.rank}/{self.world_size}, stage2={self.stage2})')
+            f'(rank {self.rank}/{self.world_size}{where}, '
+            f'stage2={self.stage2})')
         while self.iteration < self.max_iters:
             start = self.clock.mark()
             self.train_iter(next(loader))
@@ -350,23 +366,26 @@ class Runner:
         return os.path.join(self.work_dir, 'ckpt', f'iter_{it}.ckpt')
 
     def save_checkpoint(self):
-        """``ckpt/iter_{it}.ckpt`` (the model's and optimizers' groups),
-        ``ckpt/latest.ckpt`` linking to it, and the bank as
-        ``ckpt/iter_{it}_cache_rank{r}.npz``: versioned, so that a later
-        save cannot pair an older checkpoint with a newer bank."""
+        """On rank 0 ``ckpt/iter_{it}.ckpt`` (the model's and optimizers'
+        groups) and ``ckpt/latest.ckpt`` linking to it; on every rank its
+        bank shard as ``ckpt/iter_{it}_cache_rank{r}.npz``: versioned, so
+        that a later save cannot pair an older checkpoint with a newer
+        bank.  No collective: rank 0 may save alone."""
         path = self.ckpt_path()
-        save_checkpoint(path, self.model, self.iteration,
-                        meta=dict(rank=self.rank),
-                        optimizers=self.optimizers,
-                        schedulers=self.schedulers)
-        latest = os.path.join(self.work_dir, 'ckpt', 'latest.ckpt')
-        try:
-            if os.path.islink(latest) or os.path.exists(latest):
-                os.remove(latest)
-            os.symlink(os.path.basename(path), latest)
-        except OSError:
-            pass
+        if self.rank == 0:
+            save_checkpoint(path, self.model, self.iteration,
+                            meta=dict(rank=self.rank),
+                            optimizers=self.optimizers,
+                            schedulers=self.schedulers)
+            latest = os.path.join(self.work_dir, 'ckpt', 'latest.ckpt')
+            try:
+                if os.path.islink(latest) or os.path.exists(latest):
+                    os.remove(latest)
+                os.symlink(os.path.basename(path), latest)
+            except OSError:
+                pass
         if self.cache is not None:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
             np.savez(os.path.join(
                 self.work_dir, 'ckpt',
                 f'iter_{self.iteration}_cache_rank{self.rank}.npz'),
@@ -374,15 +393,54 @@ class Runner:
         self.log_text(f'Saved checkpoint to {path}')
 
     def prune_checkpoints(self, keep):
+        """Keep the newest ``keep`` checkpoints: rank 0 removes the older
+        model files, each rank its older bank files."""
         ckpts = sorted(
             glob.glob(os.path.join(self.work_dir, 'ckpt', 'iter_*.ckpt')),
             key=lambda p: int(os.path.basename(p)[5:-5]))
         for p in ckpts[:-keep]:
-            os.remove(p)
-            base = os.path.basename(p)[:-5]
-            for c in glob.glob(os.path.join(
-                    os.path.dirname(p), f'{base}_cache_rank*.npz')):
-                os.remove(c)
+            if self.rank == 0:
+                os.remove(p)
+            cache = f'{p[:-5]}_cache_rank{self.rank}.npz'
+            if os.path.exists(cache):
+                os.remove(cache)
+
+    def state_digest(self):
+        """SHA-256 of the state a checkpoint holds (``model_state``: the
+        networks, the scale-norm factor, the code activation's state, the
+        mean code and the optimizers' groups), leaf by leaf in key
+        order."""
+        digest = hashlib.sha256()
+
+        def walk(node):
+            if isinstance(node, dict):
+                for key in sorted(node):
+                    digest.update(str(key).encode())
+                    walk(node[key])
+            elif isinstance(node, (list, tuple)):
+                for item in node:
+                    walk(item)
+            elif node is not None:
+                digest.update(np.ascontiguousarray(node).tobytes())
+
+        walk(model_state(self.model, self.optimizers, self.schedulers))
+        return digest.hexdigest()
+
+    def check_replicas(self):
+        """With a group, compare every rank's :meth:`state_digest` (one
+        all-gather) and raise if they differ: the ranks' weights stay
+        identical by construction, and a difference means they have
+        diverged.  Logs the digest."""
+        if self.group is None:
+            return
+        mine = self.state_digest()
+        code = torch.tensor(np.frombuffer(bytes.fromhex(mine), np.int64))
+        digests = [bytes(t.cpu().numpy().tobytes()).hex()
+                   for t in self.group.all_gather(code)]
+        self.log_text(f'replica digest at iter {self.iteration}: {mine}')
+        if len(set(digests)) != 1:
+            raise RuntimeError(f'the ranks\' weights differ at iteration '
+                               f'{self.iteration}: {digests}')
 
     def resume(self, path):
         """Load a checkpoint strictly (every model and optimizer group must

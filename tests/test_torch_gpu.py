@@ -310,15 +310,25 @@ def test_attention_bf16_forward_lse_and_o32(cuda_device, T, hd):
     assert torch.equal(o, o32.bfloat16())
 
 
-def _kernel_names(run):
+def _kernel_names(run, tries=5):
     """The names of the kernels that ``run()`` launches, from a
-    torch.profiler trace, as one string."""
+    torch.profiler trace, as one string.  A trace that holds no device
+    (kernel) event, only runtime ones, is profiled again, up to ``tries``
+    times in all; with none that holds one the test fails, naming the
+    events of the last trace."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return ' '.join(e.key for e in prof.key_averages())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = prof.events()
+        kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        if kernels:
+            return ' '.join(kernels)
+    pytest.fail(f'no kernel in {tries} profiler traces; the last one held '
+                f'{sorted({e.name for e in events})}')
 
 
 @pytest.mark.parametrize('T,hd', DISPATCH_SHAPES)
@@ -1595,3 +1605,129 @@ def test_decoder_route_follows_its_shape(cuda_device):
     with pytest.raises(ValueError):
         volume_render(narrow, code.to(cuda_device), o.to(cuda_device),
                       d.to(cuda_device), bits.to(cuda_device), 64)
+
+
+def _two_rank_spec():
+    """Two tiny ``DiffusionNeRF`` steps of 8 scenes (the CPU tests'
+    configuration, f32 decoder, seeded weights and draws)."""
+    import numpy as np
+    from synthetic import TINY_MODEL_CFG, TINY_TRAIN_CFG, make_batch
+    from ssdnerf_torch.registry import build_model
+    cfg = copy.deepcopy(TINY_MODEL_CFG)
+    cfg['decoder']['compute_dtype'] = 'float32'
+    model = build_model(cfg, train_cfg=TINY_TRAIN_CFG, test_cfg={})
+    gen = torch.Generator().manual_seed(40)
+    model.init_weights(gen)
+    model.reset_ema()
+    S, V, H = 8, 2, 16
+    data = make_batch(num_scenes=S, num_views=V, h=H, w=H, seed=5)
+    code_ = 0.5 * torch.randn((S,) + model.code_size, generator=gen)
+    H3 = model.grid_size ** 3
+    opt = dict(type='Adam', lr=1e-3, weight_decay=0.)
+    return dict(
+        cfg=cfg, train_cfg=TINY_TRAIN_CFG, state=model.state_dict(),
+        opt_cfgs=dict(diffusion=opt, decoder=opt), lr_config=None,
+        draws=[model.train_draws(S, V * H * H, gen, num_views=V)
+               for _ in range(2)],
+        scene_batch=dict(code_=code_, m=torch.zeros_like(code_),
+                         v=torch.zeros_like(code_),
+                         step=torch.zeros(S, dtype=torch.int32),
+                         density_grid=torch.zeros((S, H3),
+                                                  dtype=torch.float16),
+                         density_bitfield=torch.zeros((S, H3 // 8),
+                                                      dtype=torch.uint8)),
+        data={k: torch.from_numpy(np.asarray(data[k])) for k in
+              ('cond_imgs', 'cond_poses', 'cond_intrinsics')})
+
+
+def test_two_rank_gloo_step_on_the_card_matches_one_process(cuda_device,
+                                                           tmp_path):
+    """Two ranks on the card (gloo with CUDA tensors, 60 s timeouts) take
+    two tiny 8-scene ``train_step``s as 4 + 4 against one process on the
+    card: losses rel 1e-4, codes and the networks' weights 1e-3 of each
+    one's largest entry (phase 6's card limits); both ranks' weights
+    bitwise equal."""
+    import os
+    import subprocess
+    import sys
+    from torch_parallel_worker import train_steps
+    from ssdnerf_torch.train import free_port
+    spec = _two_rank_spec()
+    job = str(tmp_path / 'job.pt')
+    torch.save(dict(steps=dict(step=spec)), job)
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    outs = [str(tmp_path / f'out{r}.pt') for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, 'torch_parallel_worker.py'),
+         str(r), '2', str(port), job, outs[r], 'cuda'],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode(errors='replace')
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    res = [torch.load(o, weights_only=False)['steps']['step'] for o in outs]
+    ref = train_steps(spec, device=cuda_device)
+    for a, b in zip(res[0]['logs'], ref['logs']):
+        for k in ('loss_diffusion', 'loss_decoder', 'pixel_loss',
+                  'train_psnr'):
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), k
+    code = torch.cat([r['batch']['code_'] for r in res])
+    ref_code = ref['batch']['code_']
+    assert (code - ref_code).abs().max() <= 1e-3 * ref_code.abs().max()
+    for name, t in ref['state'].items():
+        assert torch.equal(res[0]['state'][name], res[1]['state'][name]), \
+            name
+    for mod in ('diffusion.', 'decoder.'):
+        keys = [k for k in ref['state'] if k.startswith(mod)]
+        a = torch.cat([res[0]['state'][k].reshape(-1) for k in keys])
+        b = torch.cat([ref['state'][k].reshape(-1) for k in keys])
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max(), mod
+
+
+NCCL_CHECK = """
+import sys, datetime, torch
+sys.path.insert(0, {root!r})
+from ssdnerf_torch.apis.test import allgather_weighted_sums
+from ssdnerf_torch.parallel import init_distributed, shutdown
+group = init_distributed('cuda:0', None, 0, 1,
+                         init_method='tcp://localhost:{port}',
+                         timeout=datetime.timedelta(seconds=60))
+try:
+    assert group.backend == 'nccl', group.backend
+    x = torch.arange(6.0, device='cuda').reshape(2, 3)
+    y = torch.tensor([1.5, -2.0], device='cuda', dtype=torch.float64)
+    mx, my = group.mean([x, y])
+    sx, = group.sum([x])
+    assert mx.device.type == 'cuda' and torch.equal(mx, x)
+    assert torch.equal(my, y) and torch.equal(sx, x)
+    assert torch.equal(group.all_gather(x)[0], x)
+    sums, weights = allgather_weighted_sums({{'m': 3.0}}, {{'m': 2.0}}, group)
+    assert sums == {{'m': 3.0}} and weights == {{'m': 2.0}}
+    print('NCCL-OK')
+finally:
+    shutdown()
+"""
+
+
+def test_one_rank_nccl_group_all_reduce_on_the_card(cuda_device):
+    """A one-rank NCCL group on the card (the default backend for a CUDA
+    device, 60 s timeout), in a subprocess: the bucketed mean and sum
+    keep each tensor, its dtype and the card, the gather and the eval
+    sums' gather return what they were given."""
+    import os
+    import subprocess
+    import sys
+    from ssdnerf_torch.train import free_port
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, '-c', NCCL_CHECK.format(root=root,
+                                                 port=free_port())],
+        capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert 'NCCL-OK' in out.stdout

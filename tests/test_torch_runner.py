@@ -350,7 +350,7 @@ class _Runner:
         self.model, self.iteration, self.work_dir = model, iteration, \
             work_dir
         self.rank, self.last_log_vars, self.lines = 0, {}, []
-        self.saved = 0
+        self.saved, self.group = 0, None
 
     def log_text(self, msg):
         self.lines.append(msg)
@@ -489,7 +489,8 @@ def test_eval_hook_logs_and_restores(monkeypatch):
                             'train_cfg.extra_scene_step': 7}))
     seen = []
 
-    def fake_eval(m, dataset, batch_size, metrics, viz_dir, log_fn):
+    def fake_eval(m, dataset, batch_size, metrics, viz_dir, log_fn, group):
+        assert group is None
         seen.append((m.train_cfg.get('extra_scene_step'), batch_size))
         return dict(test_psnr=20.0 + len(seen))
 
@@ -578,9 +579,12 @@ class _Loader:
         self.dataset = dataset
 
 
-def test_unported_modes_raise(tmp_path):
-    """More than one process and ``--multi-host`` raise
-    NotImplementedError, naming their ROADMAP item.  Stage 2 (no
+def test_unported_modes_raise(tmp_path, monkeypatch):
+    """More than one process and ``--multi-host`` raised
+    NotImplementedError until they were ported (ROADMAP section 1 item 6):
+    now a runner of more than one process without its process group
+    raises, and ``--multi-host`` without the torchrun environment raises
+    instead of training one process.  Stage 2 (no
     ``train_cfg.optimizer``), the filesystem cache (no bank, with
     ``num_file_writers``) and ``cache_device='host'`` were unported too:
     they now build and step (stage 2 trains the UNet alone on the batch's
@@ -589,11 +593,13 @@ def test_unported_modes_raise(tmp_path):
     wrote in host memory)."""
     model, opts, scheds = _tiny_parts()
     bank = model.make_cache('cpu')
-    with pytest.raises(NotImplementedError, match='item 6'):
+    with pytest.raises(ValueError, match='process group'):
         Runner(model, bank, None, opts, scheds, str(tmp_path), 1,
                world_size=2)
-    with pytest.raises(NotImplementedError, match='item 6'):
-        train_cli.main(['unread.py', '--multi-host'])
+    for name in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK'):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match='RANK'):
+        train_cli.main(['unread.py', '--multi-host', '--device', 'cpu'])
 
     batch = make_batch(num_scenes=2, num_views=2, h=16, w=16)
     model = build_model(dict(copy.deepcopy(TINY_MODEL_CFG),
