@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ssdnerf_torch/csrc into build/kernels/, then
-runs fourteen phases, any failure of which exits non-zero:
+runs sixteen phases (13 and 16 after 15), any failure of which exits
+non-zero:
 
 1. device: a CUDA card is present; TF32 is switched off for matmuls and
    convolutions, so every plain f32 reference is full f32;
@@ -86,15 +87,16 @@ runs fourteen phases, any failure of which exits non-zero:
    then 1 scene, 2 guided steps and 1 ``val_optim`` step on the card and
    on the CPU with the same weights and draws, in the shipped bf16 decode
    and in f32 (rays cut to 4096 a guide or inverse step for the CPU);
-9. evaluation: a synthetic SRN-layout test set (8 scenes x 251 orbit
-   views of 128x128 at SRN intrinsics, rendered from phase 3's scenes,
-   PNGs by the port's writer), a checkpoint of the seed-0 model written by
-   the port and read back bitwise through ``init_model(checkpoint=)``,
-   the real-image Inception statistics of the set, then the port's CLI
+9. evaluation: a synthetic SRN-layout test set (8 scenes x 65 orbit
+   views of 128x128 at SRN intrinsics, cut from SRN cars_test's 251,
+   rendered from phase 3's scenes, PNGs by the port's writer), a
+   checkpoint of the seed-0 model written by the port and read back
+   bitwise through ``init_model(checkpoint=)``, the real-image Inception
+   statistics of the set, then the port's CLI
    (``ssdnerf_torch.test.main``) on ssdnerf_cars_uncond.py (DDIM cut to
-   EVAL_DDIM_STEPS, density rebuild, render of 251 views, FIDKID) and
+   EVAL_DDIM_STEPS, density rebuild, render of 65 views, FIDKID) and
    ssdnerf_cars_recons1v.py (view 64 conditions 'guide_optim', cut to
-   EVAL_GUIDE_STEPS / EVAL_OPTIM_STEPS steps, render of the other 250
+   EVAL_GUIDE_STEPS / EVAL_OPTIM_STEPS steps, render of the other 64
    views, PSNR / SSIM / substitute LPIPS; no FID, whose host work the
    uncond run does), at batch 8 with
    ``test_cfg.max_render_rays`` set from a measured render memory a ray;
@@ -161,7 +163,8 @@ runs fourteen phases, any failure of which exits non-zero:
    SH concat), on torch ops; (d) ``bg_coords``; (e) two stage-1
    iterations on the host bank and on the device bank; (f)
    ``val_inverse_code`` with ``code_dropout`` and the raise of its
-   ``train_step``; with each part's wall, device ms and launches;
+   ``train_step``; with each part's wall, device ms and launches (its
+   main-path runs' apart from the card sides of its checks);
 14. the viewer, the demos and the tools at flagship width (cuts printed):
    (a) ``core/gui.py``'s ``SSDNeRFViewer`` on the seeded flagship model:
    the camera from ``demo/camera_spiral``, ``generate`` (batch 1, 50 DDIM
@@ -187,7 +190,17 @@ runs fourteen phases, any failure of which exits non-zero:
    ``sharded_volume_render`` of 8 x 65,536 rays on the ranks of (a)
    against the unsharded render; (d) ``python -m
    ssdnerf_torch.parallel.dryrun 2`` at flagship width, after (b).  Every
-   subprocess runs under a timeout; a rank's failure fails the phase.
+   subprocess runs under a timeout; a rank's failure fails the phase;
+16. the last options of the JAX package, at full width with random seeded
+   weights (cuts printed; ``phase_options_rest``): (a) two 8-scene
+   flagship train steps with the L1 pixel loss and code weight decay,
+   card vs CPU at 1 scene; (b) the bf16 config with ``attn_kernel``
+   False: DDIM and a train step on the f32 attention kernels alone (the
+   bf16 ones must not launch), card vs CPU at 1 scene; (c) the flagship
+   UNet with 3x3 shortcuts and pool / nearest resampling, forward and
+   backward at batch 8, card vs CPU at batch 1; (d) ``ops.march_rays``
+   on the card against its plain version; each part's wall and launches
+   as phase 13's.
 
 Each phase's wall seconds are printed as it ends.  The line before the
 last is the card's name and power limit from nvidia-smi; the last line
@@ -247,6 +260,8 @@ from ssdnerf_torch.ops.kernels import march as k_march  # noqa: E402
 from ssdnerf_torch.ops import (  # noqa: E402
     get_cam_rays, near_far_from_aabb, sph_from_ray)
 from ssdnerf_torch.ops import packing as ops_packing  # noqa: E402
+from ssdnerf_torch import ops  # noqa: E402
+from ssdnerf_torch.models.architecture import unet as unet_mod  # noqa
 from ssdnerf_torch.models.autodecoders import base as ad_base  # noqa: E402
 from ssdnerf_torch.models.autodecoders import (  # noqa: E402
     diffusion_nerf as ad_dn)
@@ -1694,7 +1709,6 @@ def phase_unet_precision(unet_f32, unet_bf16, dev):
     (the switches flipped here only, in place of the UNet's pin), f32
     channels-last and bf16: the profiler's device time a call (mean of 3
     after a warm-up)."""
-    from ssdnerf_torch.models.architecture import unet as unet_mod
     g = torch.Generator().manual_seed(SEED + 8)
     x = torch.randn((8, unet_f32.in_channels, 128, 128), generator=g).to(dev)
     t = torch.randint(0, unet_f32.num_timesteps, (8,), generator=g).to(dev)
@@ -2014,7 +2028,9 @@ def phase_recons_card_vs_cpu(model_cpu, model_dev, data, dev, phase=8,
 # and reconstruction (the guide's and val_optim's backwards too)
 EVAL_UNCOND = ('march', 'decode_bf16', 'attention')
 EVAL_RECONS = RECONS
-EVAL_VIEWS = 251            # SRN cars_test: 251 views a scene
+SRN_TEST_VIEWS = 251        # SRN cars_test's views a scene
+EVAL_VIEWS = 65             # phase 9's: the fewest that hold recons1v's
+#                             conditioning view 64
 # the guided DDIM steps and val_optim steps of a reconstruction evaluated
 # through the test CLI (phase 9, phase 12 (c)): a cut of the configs' 75
 # and 25, which phases 8 and 12 (b) run in full
@@ -2192,13 +2208,14 @@ def flat_arrays(tree):
 
 
 def phase_eval(model, model_cpu, code, bitfield, dev, root):
-    """Evaluation at full width: a synthetic SRN test set (8 scenes x 251
-    views of 128^2 rendered from ``code``), a checkpoint of the seed-0
-    model written and read back, the real-image Inception statistics, then
-    the port's CLI (``ssdnerf_torch.test.main``) on ssdnerf_cars_uncond.py
-    and ssdnerf_cars_recons1v.py, timed by stage; one scene's mesh at 128^3
-    (``_save_scenes`` with ``save_mesh``); then the card against the CPU
-    (:func:`phase_eval_card_vs_cpu`) on the same test set.  ``model`` and
+    """Evaluation at full width: a synthetic SRN test set (8 scenes x
+    EVAL_VIEWS views of 128^2 rendered from ``code``), a checkpoint of the
+    seed-0 model written and read back, the real-image Inception
+    statistics, then the port's CLI (``ssdnerf_torch.test.main``) on
+    ssdnerf_cars_uncond.py and ssdnerf_cars_recons1v.py, timed by stage;
+    one scene's mesh at 128^3 (``_save_scenes`` with ``save_mesh``); then
+    the card against the CPU (:func:`phase_eval_card_vs_cpu`) on the same
+    test set.  ``model`` and
     ``model_cpu`` are the seed-0 recons1v models of phase 8.  The test set
     (``root/cars_test``) and its statistics (``root/inception_stats.pkl``)
     stay in ``root`` for phase 10."""
@@ -2221,8 +2238,8 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
     data_dir = root / 'cars_test'
     render_s, write_s = write_srn_set(model, code, bitfield, data_dir,
                                       EVAL_VIEWS, chunk=min(views, 16))
-    log(f'phase 9 test set: {S} scenes x {EVAL_VIEWS} views of '
-        f'{EVAL_SIZE}x{EVAL_SIZE} '
+    log(f'phase 9 test set: {S} scenes x {EVAL_VIEWS} views (cut from SRN '
+        f'cars_test\'s {SRN_TEST_VIEWS}) of {EVAL_SIZE}x{EVAL_SIZE} '
         f'rendered in {render_s:.2f} s, {S * EVAL_VIEWS} PNGs written in '
         f'{write_s:.2f} s')
 
@@ -2248,6 +2265,7 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
     data_opts = [f'data.{k}.{f}={v}' for k in ('val_uncond', 'val_cond')
                  for f, v in (('data_prefix', data_dir),
                               ('cache_path', cache))]
+    data_opts.append(f'data.val_uncond.num_test_imgs={EVAL_VIEWS}')
     extract = make_inception_extractor(None, device=dev)
     spent = []
 
@@ -2260,7 +2278,8 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
     t0 = time.perf_counter()
     stats_set = build_dataset(dict(cfg.data.val_uncond,
                                    data_prefix=str(data_dir),
-                                   cache_path=str(cache), load_imgs=True))
+                                   cache_path=str(cache), load_imgs=True,
+                                   num_test_imgs=EVAL_VIEWS))
     stats = inception_stats(stats_set, timed_extract, log=lambda m: None)
     read_s = time.perf_counter() - t0 - sum(spent)
     pkl = root / 'inception_stats.pkl'
@@ -2293,7 +2312,8 @@ def phase_eval(model, model_cpu, code, bitfield, dev, root):
             f'{config.relative_to(ROOT)} <ckpt> --cfg-options '
             + ' '.join(o.split('=')[0] for o in opts)
             + f' (reductions: feed_batch_size 32 -> 8, num_images '
-            f'{n}' + (f', max_render_rays {max_rays}' if max_rays > 0
+            f'{n}' + (f', data.val_uncond.num_test_imgs {SRN_TEST_VIEWS} -> '
+                      f'{EVAL_VIEWS}' if name == 'uncond' else '') + (f', max_render_rays {max_rays}' if max_rays > 0
                       else '') + depth_text
             + ('' if name == 'uncond' else ', evaluation.metrics None')
             + ')')
@@ -2551,8 +2571,11 @@ def phase10_config(root, run, max_rays, evaluate=True):
     cfg.train_cfg.cache_load_from = str(work / 'code')
     cfg.data.train.update(data_prefix=str(root / 'cars_train'),
                           cache_path=str(root / 'cars_train_cache.pkl'))
-    cfg.data.val_uncond.update(data_prefix=str(root / 'cars_test'),
-                               cache_path=str(root / 'cars_test_cache.pkl'))
+    cfg.data.val_uncond.update(
+        data_prefix=str(root / 'cars_test'),
+        cache_path=str(root / 'cars_test_cache.pkl'),
+        num_test_imgs=cut(cuts, 'data.val_uncond.num_test_imgs',
+                          cfg.data.val_uncond.num_test_imgs, EVAL_VIEWS))
     if max_rays > 0:
         cfg.test_cfg.max_render_rays = max_rays
     if evaluate:
@@ -4034,6 +4057,50 @@ def phase_tiled(dev, root, data, code, smi, max_rays):
 
 
 # ------------------------------------------------------------ phase 13
+class Parts:
+    """The walls and kernel launches of a phase's parts.  A part's
+    main-path runs go in ``main_path()`` windows, the card sides of its
+    checks in ``checking()`` windows, its timing repeats in neither: a
+    window sets the counts to 0 as it opens and adds them to the part's
+    tally as it closes."""
+
+    def __init__(self, phase):
+        self.phase, self.walls, self.main, self.checks = phase, {}, {}, {}
+
+    def start(self, tag):
+        self.tag, self.t0 = tag, time.perf_counter()
+        self.main[tag], self.checks[tag] = {}, {}
+
+    @contextlib.contextmanager
+    def _window(self, tally):
+        reset_launches()
+        yield
+        for name, count in launch_counts().items():
+            if count:
+                tally[name] = tally.get(name, 0) + count
+
+    def main_path(self):
+        return self._window(self.main[self.tag])
+
+    def checking(self):
+        return self._window(self.checks[self.tag])
+
+    def end(self):
+        """Prints the part's wall and launches; returns its main-path
+        launches."""
+        tag = self.tag
+        self.walls[tag] = time.perf_counter() - self.t0
+        log(f'phase {self.phase} ({tag}) wall {self.walls[tag]:.1f} s; '
+            f'main-path launches {self.main[tag]}; its checks\' '
+            f'{self.checks[tag]}')
+        return self.main[tag]
+
+    def total(self):
+        """Each kernel's main-path launches over every part."""
+        return {n: sum(p.get(n, 0) for p in self.main.values())
+                for n in WRAPPERS}
+
+
 OPTIONS_RES = 128           # the views' side, as phase 5's
 OPTIONS_ESS = 2             # (a)'s inner steps: a full refresh, a partial
 OPTIONS_INVERSE_STEPS = 4   # (f)'s val_inverse_code steps (the config's 400)
@@ -4145,24 +4212,17 @@ def phase_options(dev, data, code, bitfield):
         moves its code by a share of a step), and the raise of its
         ``train_step``.
 
-    Prints each part's wall, device ms and kernel launches.  Returns the
-    phase's launches (counts set to 0 just before it) and its record."""
-    cuts, out, walls, device_ms, part_launches = [], {}, {}, {}, {}
-    reset_launches()
+    Prints each part's wall, device ms and kernel launches (:class:`Parts`:
+    its main path's, and apart its checks').  Returns the phase's
+    main-path launches and its record."""
+    cuts, out, device_ms = [], {}, {}
+    parts = Parts(13)
     t_start = time.perf_counter()
     S = data['cond_imgs'].shape[0]
     view = OPTIONS_RES ** 2
 
-    def part(tag, t0, before):
-        walls[tag] = time.perf_counter() - t0
-        now = launch_counts()
-        part_launches[tag] = {n: now[n] - before[n] for n in now
-                              if now[n] != before[n]}
-        log(f'phase 13 ({tag}) wall {walls[tag]:.1f} s; launches '
-            f'{part_launches[tag]}')
-
     # (a) ------------------------------------------------------------
-    t0, before = time.perf_counter(), launch_counts()
+    parts.start('a')
     ess = cut(cuts, 'train_cfg.extra_scene_step', 15, OPTIONS_ESS)
     interval = cut(cuts, 'model.update_extra_interval', 16, 1)
     code_size = tuple(Config.fromfile(str(CONFIG)).model.code_size)
@@ -4197,15 +4257,16 @@ def phase_options(dev, data, code, bitfield):
     with mock_attr(ad_base, 'update_density_grid_partial',
                    lambda *a, **k: partial_calls.append(1) or partial(
                        *a, **k)):
-        step()
-        wall_ms, dev_ms, parts, groups, _ = profile_step(step)
+        with parts.main_path():
+            step()
+            wall_ms, dev_ms, ranges, groups, _ = profile_step(step)
     n_stats = 3 * (len(list(model.diffusion.parameters()))
                    + len(list(model.decoder.parameters())) + 1)
     stats = {k: v.item() for k, v in logs.items() if k.startswith('grad_')}
     moved = (model.decoder.scene_base - base0).abs().max().item()
     log(f'phase 13 (a) train step x{S} scenes: profiled wall {wall_ms:.1f} '
         f'ms, device {dev_ms:.1f} ms; by part: ' + ', '.join(
-            f'{k} {v:.1f} ms' for k, v in parts.items()))
+            f'{k} {v:.1f} ms' for k, v in ranges.items()))
     log(f'phase 13 (a) losses: ' + ' '.join(
         f'{k}={logs[k].item():.5g}' for k in LOSS_KEYS)
         + f'; {len(stats)} grad_* keys; partial refreshes '
@@ -4239,7 +4300,7 @@ def phase_options(dev, data, code, bitfield):
         o, s = build_optimizers(m, cfg.optimizer, cfg.lr_config)
         bd = to_device(b1, d)
         bd['opt'] = adam_init(bd['code_'])
-        with decode_dtype(m, 'float32'):
+        with decode_dtype(m, 'float32'), parts.checking():
             res, lg = m.train_step(bd, to_device(d1, d), o, s,
                                    draws=to_device(draws, d))
         runs[tag] = dict(logs={k: v.item() for k, v in lg.items()},
@@ -4275,10 +4336,10 @@ def phase_options(dev, data, code, bitfield):
                     bits_flipped=flips, grad_stats_worst=serr[worst],
                     grad_keys=len(stats))
     del opts, batch
-    part('a', t0, before)
+    parts.end()
 
     # (b) ------------------------------------------------------------
-    t0, before = time.perf_counter(), launch_counts()
+    parts.start('b')
     rays_o, rays_d = render_rays(S, 4, dev)
     dense = decoder_copy(model.decoder, compact_steps=None,
                          march_slots=slots, pack_slots=pack)
@@ -4288,13 +4349,14 @@ def phase_options(dev, data, code, bitfield):
         res['img'], res['grads'] = render_grads(dense, code, rays_o, rays_d,
                                                 bitfield, H)
 
-    wall_ms, dev_ms, parts, _, _ = profile_step(run_dense, ranges=())
+    with parts.main_path():
+        wall_ms, dev_ms, _, _, _ = profile_step(run_dense, ranges=())
     check(all(torch.isfinite(g).all().item() for g in res['grads'])
           and torch.isfinite(res['img']).all().item(),
           'phase 13 (b): not finite')
     per_ray = decoder_copy(model.decoder, compact_steps=64,
                            march_slots=slots, pack_slots=None)
-    with torch.no_grad():
+    with torch.no_grad(), parts.checking():
         img64 = volume_render(per_ray, code, rays_o, rays_d, bitfield,
                               H)['image']
         _, _, _, valid = dec_renderer.march_samples(
@@ -4320,8 +4382,10 @@ def phase_options(dev, data, code, bitfield):
                        march_slots=slots, pack_slots=pack,
                        compute_dtype='float32')
     for tag, d in (('card', dev), ('cpu', 'cpu')):
-        pair[tag] = render_grads(copy.deepcopy(dec).to(d), code[:1].to(d),
-                                 o1.to(d), d1r.to(d), bitfield[:1].to(d), H)
+        with parts.checking():
+            pair[tag] = render_grads(copy.deepcopy(dec).to(d),
+                                     code[:1].to(d), o1.to(d), d1r.to(d),
+                                     bitfield[:1].to(d), H)
     out['b'] = dict(device_ms=dev_ms, wall_ms=wall_ms,
                     vs_k64_few=few.max().item(),
                     vs_k64_many=many.max().item() if many.numel() else 0.0,
@@ -4329,10 +4393,10 @@ def phase_options(dev, data, code, bitfield):
                     card_vs_cpu=compare_render('(b)', pair['card'],
                                                pair['cpu']))
     del res, dense
-    part('b', t0, before)
+    parts.end()
 
     # (c) ------------------------------------------------------------
-    t0, before = time.perf_counter(), launch_counts()
+    parts.start('c')
     width = cfg.model.decoder.base_layers[-1]
     fields = dict(cfg.model.decoder, base_layers=[3 * code_size[1], width,
                                                   width],
@@ -4349,9 +4413,10 @@ def phase_options(dev, data, code, bitfield):
         res['img'], res['grads'] = render_grads(free_dev, code, ro8, rd8,
                                                 bitfield, H)
 
-    wall_ms, dev_ms, _, groups, _ = profile_step(run_free, ranges=())
-    now = launch_counts()
-    decodes = sum(now[n] - before[n] for n in now if n.startswith('decode'))
+    with parts.main_path():
+        wall_ms, dev_ms, _, groups, _ = profile_step(run_free, ranges=())
+    decodes = sum(c for n, c in parts.main['c'].items()
+                  if n.startswith('decode'))
     log(f'phase 13 (c) free-form decoder render {S}x{OPTIONS_RES}^2: '
         f'base_layers {fields["base_layers"]}, dir_layers None; profiled wall '
         f'{wall_ms:.1f} ms, device {dev_ms:.1f} ms; decode kernel launches '
@@ -4363,21 +4428,24 @@ def phase_options(dev, data, code, bitfield):
     pair = {}
     for tag, d, dec in (('card', dev, free_dev), ('cpu', 'cpu', free)):
         dec32 = decoder_copy(dec, compute_dtype='float32')
-        pair[tag] = render_grads(dec32, code[:1].to(d), o1.to(d), d1r.to(d),
-                                 bitfield[:1].to(d), H)
+        with parts.checking():
+            pair[tag] = render_grads(dec32, code[:1].to(d), o1.to(d),
+                                     d1r.to(d), bitfield[:1].to(d), H)
     out['c'] = dict(device_ms=dev_ms, wall_ms=wall_ms,
                     card_vs_cpu=compare_render('(c)', pair['card'],
                                                pair['cpu']))
     del res, free_dev
-    part('c', t0, before)
+    parts.end()
 
     # (d) ------------------------------------------------------------
-    t0, before = time.perf_counter(), launch_counts()
+    parts.start('d')
     bg = decoder_copy(model.decoder, bg_radius=4.0)
     with torch.no_grad():
-        got = volume_render(bg, code, rays_o, rays_d, bitfield, H)
-        plain = volume_render(model.decoder, code, rays_o, rays_d, bitfield,
-                              H)
+        with parts.main_path():
+            got = volume_render(bg, code, rays_o, rays_d, bitfield, H)
+        with parts.checking():
+            plain = volume_render(model.decoder, code, rays_o, rays_d,
+                                  bitfield, H)
     ref = sph_from_ray(rays_o.cpu(), rays_d.cpu(), 4.0)
     err = (got['bg_coords'].cpu() - ref).abs().max().item()
     log(f'phase 13 (d) bg_coords {tuple(got["bg_coords"].shape)}: card vs '
@@ -4389,10 +4457,10 @@ def phase_options(dev, data, code, bitfield):
     out['d'] = dict(card_vs_cpu=err)
     del model, model_cpu, got, plain
     torch.cuda.empty_cache()
-    part('d', t0, before)
+    parts.end()
 
     # (e) ------------------------------------------------------------
-    t0, before = time.perf_counter(), launch_counts()
+    parts.start('e')
     s1 = init_model(str(STAGE1), 'cpu', SEED).train()
     rows = cut(cuts, '(e) bank rows', 2458, 16)
     s1.cache_size = rows
@@ -4411,11 +4479,13 @@ def phase_options(dev, data, code, bitfield):
         losses = []
         for it in range(2):
             rng = np.random.RandomState(0)
-            bank.ensure_init(ids, lambda k: m.get_init_code_np(
-                k, rng, m.init_code_np()))
-            res, lg = m.train_step(bank.load(ids), d4, o, s, draws=draws[it])
-            bank.save(ids, res['code_'], res['opt'], res['density_grid'],
-                      res['density_bitfield'])
+            with parts.main_path():
+                bank.ensure_init(ids, lambda k: m.get_init_code_np(
+                    k, rng, m.init_code_np()))
+                res, lg = m.train_step(bank.load(ids), d4, o, s,
+                                       draws=draws[it])
+                bank.save(ids, res['code_'], res['opt'],
+                          res['density_grid'], res['density_bitfield'])
             losses.append(lg['loss'].item())
         runs[where] = (type(bank).__name__, losses, bank.state_dict())
         del m, bank
@@ -4439,10 +4509,10 @@ def phase_options(dev, data, code, bitfield):
           'phase 13 (e): Adam steps, seen')
     out['e'] = dict(losses_rel=loss_err, codes=float(code_err),
                     bits_flipped=flips, bit_equal=equal)
-    part('e', t0, before)
+    parts.end()
 
     # (f) ------------------------------------------------------------
-    t0, before = time.perf_counter(), launch_counts()
+    parts.start('f')
     steps = cut(cuts, '(f) test_cfg.n_inverse_steps', 400,
                 OPTIONS_INVERSE_STEPS)
     cfg_f = Config.fromfile(str(STAGE1))
@@ -4464,8 +4534,8 @@ def phase_options(dev, data, code, bitfield):
             kept.append(res[1])
             return res
 
-        with decode_dtype(m, 'float32'), mock_attr(ad_ms, 'inverse_code',
-                                                   keep):
+        with decode_dtype(m, 'float32'), mock_attr(
+                ad_ms, 'inverse_code', keep), parts.main_path():
             c, g, b, aux = m.val_inverse_code(to_device(d1, d),
                                               to_device(draws, d))
         runs[tag] = (c.cpu(), b.cpu(), aux['loss'].item(), kept[0].m.cpu())
@@ -4483,8 +4553,9 @@ def phase_options(dev, data, code, bitfield):
                                            dtype=torch.uint8, device=dev))
     b1['opt'] = adam_init(b1['code_'])
     try:
-        m.train_step(b1, to_device(d1, dev), o, s,
-                     generator=torch.Generator(device=dev).manual_seed(0))
+        with parts.checking():
+            m.train_step(b1, to_device(d1, dev), o, s,
+                         generator=torch.Generator(device=dev).manual_seed(0))
         raised = None
     except RuntimeError as e:
         raised = str(e)
@@ -4501,22 +4572,23 @@ def phase_options(dev, data, code, bitfield):
     out['f'] = dict(code_m=m_err, codes=code_err, loss_rel=loss_err,
                     bits_flipped=flips)
     del m, drop
-    part('f', t0, before)
+    parts.end()
 
-    launches = launch_counts()
+    launches = parts.total()
     wall = time.perf_counter() - t_start
     log(f'phase 13 cuts: ' + '; '.join(cuts))
     log(f'phase 13 device ms: ' + ', '.join(
         f'{k} {v:.1f}' for k, v in device_ms.items())
         + f'; walls: ' + ', '.join(f'({k}) {v:.1f} s'
-                                   for k, v in walls.items())
+                                   for k, v in parts.walls.items())
         + f'; decode launches ' + str({n: launches[n] for n in launches
                                        if n.startswith('decode')}))
     for name in OPTIONS_KERNELS:
         check(launches[name] > 0,
               f'phase 13: kernel {name} was not launched')
-    out.update(cuts=cuts, walls_s=walls, device_ms=device_ms,
-               part_launches=part_launches, wall_s=wall)
+    out.update(cuts=cuts, walls_s=parts.walls, device_ms=device_ms,
+               part_launches=parts.main, check_launches=parts.checks,
+               wall_s=wall)
     return launches, out
 
 
@@ -5050,7 +5122,7 @@ def phase_dp(model_cpu, data, code, bitfield, dev, root, max_rays, smi):
     # train_cfg and fields (earlier phases cut model_cpu's), its weights
     state = model_cpu.state_dict()
     model = dp_model(state, dev)
-    code_lr, _ = code_adam_cfg(model.train_cfg.get('optimizer'))
+    code_lr, _, _ = code_adam_cfg(model.train_cfg.get('optimizer'))
     S = data['cond_imgs'].shape[0]
     num_pixels = math.prod(data['cond_imgs'].shape[1:4])
     draws = [[model.train_draws(
@@ -5243,6 +5315,284 @@ def phase_dp(model_cpu, data, code, bitfield, dev, root, max_rays, smi):
         wall_s=time.perf_counter() - t_phase)
 
 
+REST_LOSS = dict(type='L1LossMod', loss_weight=20.0)
+REST_DECAY = 1e-2           # (a)'s code weight decay (no config sets one)
+REST_DDIM_STEPS = 5         # (b)'s DDIM steps (the config's 50)
+REST_UNET = {'model.diffusion.denoising.shortcut_kernel_size': 3,
+             'model.diffusion.denoising.downsample_conv': False,
+             'model.diffusion.denoising.upsample_conv': False}
+REST_TRAIN = ('march', 'decode_bf16', 'decode_bwd_bf16', 'attention',
+              'attention_bwd')
+REST_BF16_OFF = ('attention_bf16', 'attention_bwd_bf16')
+
+
+def phase_options_rest(dev, data, code, bitfield):
+    """Phase 16: the last options of the JAX package the port used to
+    refuse, on the flagship configs at full width with random seeded
+    weights, each set by ``cfg-options``-style overrides (cuts printed):
+
+    (a) configs/paper_cfgs/ssdnerf_cars_uncond.py with ``pixel_loss``
+        L1LossMod and the code Adam's ``weight_decay`` 1e-2: two
+        ``train_step``s of phase 5's 8 scenes (15 inner steps, as shipped;
+        the march, the bf16 decode and its backward, the f32 attention
+        and its backward must launch), then one step of 1 scene card vs
+        CPU at phase 6's limits (f32 decode);
+    (b) configs/new_cfgs/ssdnerf_cars_uncond_bf16.py with ``attn_kernel``
+        False: DDIM (REST_DDIM_STEPS steps) at batch 8 and one train step;
+        every attention level runs the f32 kernels, so rows 6 / 7 launch
+        and the bf16 ones (6b / 7b) must not; then 2 DDIM steps of 1 scene
+        card vs CPU within phase 7's rule (1.25 x the CPU's bf16-vs-f32
+        gap of its bf16 codes, at least half the gap from f32);
+    (c) the flagship UNet with 3x3 shortcuts and pool / nearest
+        resampling (no resampling convs): forward and backward at batch 8
+        (then a profiled repeat), then batch 1 card vs CPU: output within
+        1e-4 of its largest entry, the input's and the parameters'
+        gradients within 1e-3 (phase 6's rule);
+    (d) ``ssdnerf_torch.ops.march_rays`` of one 128^2 view of a phase-3
+        scene (256 steps, 128 slots, cone stepping and a start jitter) on
+        the card, the march kernel's occupancy bits (then timed), against
+        its plain version on the CPU: ts rtol 1e-6, at most 1e-3 of the
+        slots flipped.
+
+    Prints each part's wall and kernel launches (:class:`Parts`: its main
+    path's, and apart its checks').  Returns the phase's main-path
+    launches and its record."""
+    cuts, out = [], {}
+    parts = Parts(16)
+    t_start = time.perf_counter()
+    S = data['cond_imgs'].shape[0]
+
+    def scene_batch(model, n, d):
+        H = model.grid_size
+        code_ = model.code_activation.inverse(code[:n].to(d), model.code_act)
+        return dict(code_=code_, opt=adam_init(code_),
+                    density_grid=torch.zeros((n, H ** 3), dtype=torch.float16,
+                                             device=d),
+                    density_bitfield=torch.zeros((n, H ** 3 // 8),
+                                                 dtype=torch.uint8, device=d))
+
+    # (a) ------------------------------------------------------------
+    parts.start('a')
+    model_cpu, cfg = options_model({'model.pixel_loss': REST_LOSS,
+                                    'train_cfg.optimizer.weight_decay':
+                                    REST_DECAY})
+    check(type(model_cpu.pixel_loss).__name__ == 'L1Loss'
+          and code_adam_cfg(model_cpu.train_cfg['optimizer'])[2]
+          == REST_DECAY, 'phase 16 (a): L1 loss / weight decay not set')
+    model = copy.deepcopy(model_cpu).to(dev)
+    batch = scene_batch(model, S, dev)
+    code0 = batch['code_'].clone()
+    opts, scheds = build_optimizers(model, cfg.optimizer, cfg.lr_config)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    step_s, step_logs = [], []
+    with parts.main_path():
+        for i in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            batch, logs = model.train_step(batch, data, opts, scheds,
+                                           generator=gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            step_logs.append(logs)
+    for i, logs in enumerate(step_logs):
+        log(f'phase 16 (a) step {i}: {step_s[i]:.4f} s; ' + ' '.join(
+            f'{k}={logs[k].item():.5g}' for k in LOSS_KEYS))
+        for k in LOSS_KEYS:
+            check(math.isfinite(logs[k].item()), f'phase 16 (a): {k}')
+    moved = (batch['code_'] - code0).abs().max().item()
+    check(moved > 0, 'phase 16 (a): codes did not move')
+    del opts, batch, model
+    torch.cuda.empty_cache()
+    tc = model_cpu.train_cfg
+    cut(cuts, '(a) card vs cpu: scenes, inner steps, rays',
+        (S, tc['extra_scene_step'], tc['n_inverse_rays']), (1, 1, 1024))
+    with parts.checking():
+        phase_train_card_vs_cpu(model_cpu, cfg, data, code, dev, phase=16,
+                                dtypes=('float32',))
+    del model_cpu
+    got = parts.end()
+    for name in REST_TRAIN:
+        check(got.get(name, 0) > 0, f'phase 16 (a): kernel {name} was not '
+              'launched')
+    out['a'] = dict(step_s=step_s, codes_moved=moved)
+
+    # (b) ------------------------------------------------------------
+    parts.start('b')
+    steps = cut(cuts, '(b) test_cfg.num_timesteps', 50, REST_DDIM_STEPS)
+    cfg_b = Config.fromfile(str(CONFIG_BF16))
+    cfg_b.merge_from_dict({'model.diffusion.denoising.attn_kernel': False,
+                           'test_cfg.num_timesteps': steps})
+    model_cpu = make_model(SEED, cfg_b)
+    model = copy.deepcopy(model_cpu).to(dev)
+    attn = [m for m in model.diffusion.denoising.modules()
+            if isinstance(m, unet_mod.SelfAttention)]
+    check(attn and not any(m.attn_kernel for m in attn),
+          'phase 16 (b): attn_kernel not off')
+    noise = torch.randn((S,) + model.code_size,
+                        generator=torch.Generator().manual_seed(SEED + 62)
+                        ).to(dev)
+    opts, scheds = build_optimizers(model, cfg_b.optimizer, cfg_b.lr_config)
+    batch = scene_batch(model, S, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+    with parts.main_path():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codes = model.sample_codes(noise)
+        torch.cuda.synchronize()
+        ddim_s = time.perf_counter() - t
+        _, logs = model.train_step(batch, data, opts, scheds, generator=gen)
+        torch.cuda.synchronize()
+        step_b = time.perf_counter() - t - ddim_s
+    check(torch.isfinite(codes).all().item()
+          and codes.shape == (S,) + model.code_size, 'phase 16 (b): codes')
+    log(f'phase 16 (b) bf16 UNet, attn_kernel False: DDIM {steps} steps x '
+        f'{S} scenes {ddim_s:.3f} s; train step {step_b:.4f} s; '
+        + ' '.join(f'{k}={logs[k].item():.5g}' for k in LOSS_KEYS))
+    for k in LOSS_KEYS:
+        check(math.isfinite(logs[k].item()), f'phase 16 (b): {k}')
+    del opts, batch, model
+    torch.cuda.empty_cache()
+    cut(cuts, '(b) card vs cpu: scenes, DDIM steps', (S, steps), (1, 2))
+    cfg1 = dict(model_cpu.test_cfg, num_timesteps=2)
+    noise1 = noise[:1].cpu()
+    f32_cpu = copy.deepcopy(model_cpu)
+    for m in (f32_cpu.diffusion, f32_cpu.diffusion_ema):
+        m.denoising.dtype = torch.float32
+
+    def codes1(m, d):
+        m = copy.deepcopy(m).to(d)
+        m.test_cfg = cfg1
+        with parts.checking():
+            return m.sample_codes(noise1.to(d)).cpu()
+
+    card_c, cpu_c, f32_c = (codes1(model_cpu, dev), codes1(model_cpu, 'cpu'),
+                            codes1(f32_cpu, 'cpu'))
+    err, gap, far = l2(card_c, cpu_c), l2(cpu_c, f32_c), l2(card_c, f32_c)
+    log(f'phase 16 (b) card vs cpu (2 DDIM steps, 1 scene): codes rel_l2 '
+        f'{err:.3e} (tol 1.25 x gap {gap:.3e}); card from f32 {far:.3e} '
+        '(tol >= 0.5 x gap)')
+    check(err <= 1.25 * gap and far >= 0.5 * gap,
+          'phase 16 (b): card vs cpu')
+    del model_cpu, f32_cpu
+    got = parts.end()
+    for name in ('attention', 'attention_bwd', 'march', 'decode_bf16'):
+        check(got.get(name, 0) > 0, f'phase 16 (b): kernel {name} was not '
+              'launched')
+    for name in REST_BF16_OFF:
+        check(got.get(name, 0) == 0 and parts.checks['b'].get(name, 0) == 0,
+              f'phase 16 (b): kernel {name} launched with attn_kernel '
+              'False')
+    out['b'] = dict(ddim_s=ddim_s, train_step_s=step_b,
+                    card_vs_cpu=dict(rel_l2=err, gap=gap, from_f32=far))
+
+    # (c) ------------------------------------------------------------
+    parts.start('c')
+    model_cpu, _ = options_model(REST_UNET)
+    unet_cpu = model_cpu.diffusion.denoising
+    del model_cpu
+    check(unet_cpu.down_0.conv is None and unet_cpu.up_0.conv is None
+          and unet_cpu.in_res_2.shortcut.kernel_size == (3, 3),
+          'phase 16 (c): UNet options not set')
+    unet = copy.deepcopy(unet_cpu).to(dev)
+    g = torch.Generator().manual_seed(SEED + 64)
+    x = torch.randn((S, unet.in_channels) + unet.image_size, generator=g)
+    w = torch.randn(x.shape, generator=g)
+    t_b = torch.randint(0, unet.num_timesteps, (S,), generator=g)
+
+    def fwd_bwd(u, xs, ws, ts):
+        leaf = xs.detach().requires_grad_()
+        y = u(leaf, ts)
+        with unet_mod.precision():
+            grads = torch.autograd.grad((y * ws).sum(),
+                                        [leaf] + list(u.parameters()))
+        return y.detach(), grads
+
+    res = {}
+
+    def run():
+        res['out'] = fwd_bwd(unet, x.to(dev), w.to(dev), t_b.to(dev))
+
+    with parts.main_path():
+        run()
+    y, grads = res['out']
+    check(torch.isfinite(y).all().item() and all(
+        torch.isfinite(gr).all().item() for gr in grads),
+        'phase 16 (c): not finite')
+    wall_ms, dev_ms, _, groups, _ = profile_step(run, ranges=())
+    log(f'phase 16 (c) UNet (3x3 shortcut, pool / nearest) forward + '
+        f'backward x{S}: profiled wall {wall_ms:.1f} ms, device {dev_ms:.1f} '
+        'ms; by group: ' + ', '.join(
+            f'{k} {v:.1f}' for k, v in sorted(groups.items(),
+                                              key=lambda kv: -kv[1])))
+    cut(cuts, '(c) card vs cpu: batch', S, 1)
+    with parts.checking():
+        pair = {tag: fwd_bwd(copy.deepcopy(unet_cpu).to(d) if tag == 'card'
+                             else unet_cpu, x[:1].to(d), w[:1].to(d),
+                             t_b[:1].to(d))
+                for tag, d in (('card', dev), ('cpu', 'cpu'))}
+    (cy, cg), (py, pg) = pair['card'], pair['cpu']
+
+    def rel_max(a, b):
+        return ((a.cpu() - b).abs().max() / b.abs().max()).item()
+
+    c_errs = dict(output=rel_max(cy, py), input_grad=rel_max(cg[0], pg[0]),
+                  param_grads=rel_max(torch.cat([gr.reshape(-1)
+                                                 for gr in cg[1:]]),
+                                      torch.cat([gr.reshape(-1)
+                                                 for gr in pg[1:]])))
+    log('phase 16 (c) card vs cpu (batch 1): ' + ' '.join(
+        f'{k} {v:.2e}' for k, v in c_errs.items()))
+    check(c_errs['output'] <= 1e-4 and c_errs['input_grad'] <= 1e-3
+          and c_errs['param_grads'] <= 1e-3, 'phase 16 (c): card vs cpu')
+    del unet, unet_cpu, res, pair
+    torch.cuda.empty_cache()
+    got = parts.end()
+    for name in ('attention', 'attention_bwd'):
+        check(got.get(name, 0) > 0, f'phase 16 (c): kernel {name} was not '
+              'launched')
+    out['c'] = dict(device_ms=dev_ms, wall_ms=wall_ms, card_vs_cpu=c_errs)
+
+    # (d) ------------------------------------------------------------
+    parts.start('d')
+    rays_o, rays_d = render_rays(1, 1, dev)
+    rays_o, rays_d = rays_o[0], rays_d[0]
+    aabb = torch.tensor([-1.0] * 3 + [1.0] * 3, device=dev)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, 0.2)
+    jitter = torch.rand(nears.shape, generator=torch.Generator().manual_seed(
+        SEED + 65)).to(dev)
+    H = round((bitfield.shape[1] * 8) ** (1 / 3))
+    args = (rays_o, rays_d, nears, fars, bitfield[0], H, 1.0, 0.004, 256,
+            jitter)
+    with parts.main_path():
+        card = ops.march_rays(*args, num_slots=128)
+    march_ms = median_ms(lambda: ops.march_rays(*args, num_slots=128), dev,
+                         7)
+    plain = ops.march_rays(*[a.cpu() if torch.is_tensor(a) else a
+                             for a in args], num_slots=128)
+    flipped = (card.valid.cpu() != plain.valid).float().mean().item()
+    ts_err = ((card.ts.cpu() - plain.ts).abs()
+              / plain.ts.abs().clamp(min=1e-30)).max().item()
+    log(f'phase 16 (d) ops.march_rays {tuple(card.valid.shape)} on the card '
+        f'{march_ms:.3f} ms (median of 7); vs its plain version: ts rel '
+        f'{ts_err:.2e}, slots flipped {flipped:.2e}, valid share '
+        f'{plain.valid.float().mean().item():.4f}')
+    check(ts_err <= 1e-6 and flipped <= 1e-3, 'phase 16 (d): march_rays '
+          'card vs plain')
+    check(plain.valid.any().item(), 'phase 16 (d): no valid slot')
+    got = parts.end()
+    check(got.get('march', 0) > 0, 'phase 16 (d): the march kernel was not '
+          'launched')
+    out['d'] = dict(march_ms=march_ms, ts_rel=ts_err, flipped=flipped)
+
+    wall = time.perf_counter() - t_start
+    log('phase 16 cuts: ' + '; '.join(cuts))
+    log('phase 16 walls: ' + ', '.join(f'({k}) {v:.1f} s'
+                                       for k, v in parts.walls.items()))
+    out.update(cuts=cuts, walls_s=parts.walls, part_launches=parts.main,
+               check_launches=parts.checks, wall_s=wall)
+    return parts.total(), out
+
+
 def main():
     walls = {}
 
@@ -5377,6 +5727,10 @@ def main():
     torch.cuda.empty_cache()
     options_launches, options_out = phase_options(dev, data, code, bitfield)
     done(13)
+    # the last options the port used to refuse, at the flagship's width
+    torch.cuda.empty_cache()
+    rest_launches, rest_out = phase_options_rest(dev, data, code, bitfield)
+    done(16)
     # the viewer, its CLI and the demo, the learning validators
     del data
     torch.cuda.empty_cache()
@@ -5426,6 +5780,7 @@ def main():
                    tiled_train_launches=tiled_train_launches[name],
                    tiled_recons_launches=tiled_launches[name],
                    options_launches=options_launches[name],
+                   options_rest_launches=rest_launches[name],
                    viewer_launches=viewer_launches[name],
                    dp_launches=dp_launches[name],
                    **{k: kernels[name][k] for k in keys})
@@ -5440,6 +5795,7 @@ def main():
                     'recons': recons, 'eval': evals,
                     'train_cli': train_cli_out, 'stage1': stage1_out,
                     'tiled': tiled_out, 'options': options_out,
+                    'options_rest': rest_out,
                     'viewer': viewer_out, 'parallel': dp_out,
                     'phase_walls_s': walls}))
     log(smi)

@@ -19,7 +19,8 @@ the parameters' dtype, convolutions cast their input, weight and bias to
 it; GroupNorm computes in f32 and casts its output to it; the time
 embedding and the ResBlocks' embedding projections compute in f32; the
 output is f32.  An attention block computes in ``dtype`` only at a level
-the TPU attention kernel takes (``attention_supported``), else in f32.
+the TPU attention kernel takes (``attention_supported``) and with
+``attn_kernel`` on, else in f32.
 Each call pins the precision of its convolutions and products (see
 :func:`precision`) instead of inheriting PyTorch's process defaults.
 """
@@ -112,11 +113,12 @@ class TimeEmbedding(nn.Module):
 
 class ResBlock(nn.Module):
     """GN-SiLU-conv, scale-shift GN from the embedding, GN-SiLU-(dropout)-
-    conv, residual with a 1x1 shortcut when the width changes; the
-    convolutions in ``groups`` groups."""
+    conv, residual with a ``shortcut_kernel_size`` (1 or 3) shortcut conv
+    when the width changes; the convolutions in ``groups`` groups."""
 
     def __init__(self, in_channels, out_channels, emb_channels, norm_groups,
-                 use_scale_shift_norm=True, dropout=0.0, groups=1):
+                 use_scale_shift_norm=True, dropout=0.0, groups=1,
+                 shortcut_kernel_size=1):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.dropout = dropout
@@ -128,8 +130,9 @@ class ResBlock(nn.Module):
         self.norm_2 = _gn(norm_groups, out_channels)
         self.conv_2 = nn.Conv2d(out_channels, out_channels, 3, padding=1,
                                 groups=groups)
-        self.shortcut = (nn.Conv2d(in_channels, out_channels, 1,
-                                   groups=groups)
+        k = shortcut_kernel_size
+        self.shortcut = (nn.Conv2d(in_channels, out_channels, k,
+                                   padding=k // 2, groups=groups)
                          if in_channels != out_channels else None)
 
     def forward(self, x, emb, dtype=torch.float32, keep=None):
@@ -162,13 +165,18 @@ class SelfAttention(nn.Module):
     out its output channels as g blocks of [q, k, v], each ``num_heads``
     heads of ``hd`` channels; the output channels are (group, head, hd).
     Norm, qkv, attention and proj compute in ``dtype`` where
-    :func:`attention_supported` holds for g*H*W tokens, else in f32 (the
-    JAX module's ``f32_core``); the output has the input's dtype."""
+    ``attn_kernel`` is on and :func:`attention_supported` holds for g*H*W
+    tokens, else in f32 (the JAX module's ``f32_core``: with
+    ``attn_kernel`` off its XLA core runs at every level); the output has
+    the input's dtype.  ``attn_kernel`` takes the JAX module's values:
+    True and 'interpret' are on, False is off."""
 
-    def __init__(self, channels, num_heads=4, norm_groups=32, groups=1):
+    def __init__(self, channels, num_heads=4, norm_groups=32, groups=1,
+                 attn_kernel=True):
         super().__init__()
         self.num_heads = num_heads
         self.groups = groups
+        self.attn_kernel = bool(attn_kernel)
         self.norm = _gn(norm_groups, channels)
         self.qkv = nn.Conv1d(channels, 3 * channels, 1, groups=groups)
         self.proj = nn.Conv1d(channels, channels, 1, groups=groups)
@@ -177,7 +185,8 @@ class SelfAttention(nn.Module):
         B, C, H, W = x.shape
         T, nh, g = H * W, self.num_heads, self.groups
         hd = C // (g * nh)
-        cdtype = dtype if attention_supported(g * T, hd) else torch.float32
+        cdtype = dtype if self.attn_kernel and attention_supported(
+            g * T, hd) else torch.float32
         qkv = _conv(self.qkv, _norm(self.norm, x, cdtype).reshape(B, C, T),
                     cdtype)                                   # (B, 3C, T)
         # (q|k|v, B, nh, g, T, hd): the tokens of all groups in a row
@@ -195,33 +204,46 @@ class SelfAttention(nn.Module):
 
 
 class Downsample(nn.Module):
+    """A stride-2 3x3 conv, or without ``with_conv`` a 2x2 average pool
+    (no parameters; odd sizes floor, as Flax's VALID ``avg_pool``)."""
 
-    def __init__(self, channels, groups=1):
+    def __init__(self, channels, groups=1, with_conv=True):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1,
-                              groups=groups)
+                              groups=groups) if with_conv else None
 
     def forward(self, x, dtype=torch.float32):
+        if self.conv is None:
+            return F.avg_pool2d(x, 2, 2)
         return _conv(self.conv, x, dtype)
 
 
 class Upsample(nn.Module):
+    """Nearest x2, then a 3x3 conv with ``with_conv`` (without it no
+    parameters)."""
 
-    def __init__(self, channels, groups=1):
+    def __init__(self, channels, groups=1, with_conv=True):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1, groups=groups)
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1,
+                              groups=groups) if with_conv else None
 
     def forward(self, x, dtype=torch.float32):
-        return _conv(self.conv,
-                     F.interpolate(x, scale_factor=2, mode='nearest'), dtype)
+        x = F.interpolate(x, scale_factor=2, mode='nearest')
+        return x if self.conv is None else _conv(self.conv, x, dtype)
 
 
 class DenoisingUnet(nn.Module):
     """Config keys mirror the reference DenoisingUnetMod (see
     ``configs/_base_/models/ssdnerf_18ch.py``).  ``dtype`` ('float32' or
     'bfloat16') is the compute dtype; parameters stay as they are.
-    ``attn_kernel`` chooses the JAX module's attention backend; the port
-    has one, so it takes the default only.  ``image_size`` is an int or
+    ``attn_kernel`` is the JAX module's: True (the TPU kernel's numerics
+    where it runs) and 'interpret' compute each :class:`SelfAttention` in
+    ``dtype`` at the levels :func:`attention_supported` takes and in f32
+    elsewhere; False computes every level's in f32 (the JAX XLA core with
+    ``f32_core``).  Every level runs the attention kernel of its operands'
+    dtype.  ``downsample_conv`` / ``upsample_conv`` False take a 2x2
+    average pool / nearest x2 without a conv; ``shortcut_kernel_size`` (1
+    or 3) is the ResBlocks' shortcut conv.  ``image_size`` is an int or
     (H, W)."""
 
     def __init__(self, image_size=128, in_channels=18,
@@ -230,19 +252,16 @@ class DenoisingUnet(nn.Module):
                  use_rescale_timesteps=True, dropout=0.0,
                  embedding_channels=-1,
                  channels_cfg: Sequence[int] = (1, 2, 2, 4, 4), groups=1,
-                 norm_groups=32, use_scale_shift_norm=True, num_heads=4,
+                 norm_groups=32, shortcut_kernel_size=1,
+                 use_scale_shift_norm=True, num_heads=4,
                  downsample_conv=True, upsample_conv=True,
                  attention_res: Sequence[int] = (16, 8), dtype='float32',
                  attn_kernel=True):
         super().__init__()
-        if dtype not in ('float32', 'bfloat16') or attn_kernel is not True:
+        if dtype not in ('float32', 'bfloat16'):
             raise NotImplementedError(
-                f'DenoisingUnet: dtype {dtype!r} / attn_kernel '
-                f'{attn_kernel!r}: only float32 and bfloat16 with the '
-                'default attention backend are ported')
-        if not downsample_conv or not upsample_conv:
-            raise ValueError('DenoisingUnet: only conv down/up-sampling is '
-                             'ported')
+                f'DenoisingUnet: dtype {dtype!r}: only float32 and '
+                'bfloat16 are ported (ROADMAP section 3 item 26)')
         if isinstance(image_size, int):
             image_size = (image_size, image_size)
         self.image_size = tuple(image_size)
@@ -264,12 +283,12 @@ class DenoisingUnet(nn.Module):
         def res(name, cin, cout):
             self.add_module(name, ResBlock(cin, cout, emb_ch, norm_groups,
                                            use_scale_shift_norm, dropout,
-                                           groups))
+                                           groups, shortcut_kernel_size))
             self.res_scales[name] = scale
 
         def attn(name, ch):
             self.add_module(name, SelfAttention(ch, num_heads, norm_groups,
-                                                groups))
+                                                groups, attn_kernel))
 
         self.time_embedding = TimeEmbedding(base_channels, emb_ch)
         self.in_conv = nn.Conv2d(in_channels + concat_cond_channels,
@@ -285,7 +304,8 @@ class DenoisingUnet(nn.Module):
                 chans.append(ch)
                 i += 1
             if level != len(self.channels_cfg) - 1:
-                self.add_module(f'down_{level}', Downsample(ch, groups))
+                self.add_module(f'down_{level}', Downsample(
+                    ch, groups, downsample_conv))
                 chans.append(ch)
                 scale *= 2
         res('mid_res_0', ch, ch)
@@ -299,7 +319,8 @@ class DenoisingUnet(nn.Module):
                 if scale in self.attention_scale:
                     attn(f'out_attn_{i}', ch)
                 if level != len(self.channels_cfg) - 1 and idx == self.rpd:
-                    self.add_module(f'up_{level}', Upsample(ch, groups))
+                    self.add_module(f'up_{level}', Upsample(
+                        ch, groups, upsample_conv))
                     scale //= 2
                 i += 1
         self.out_norm = _gn(norm_groups, ch)

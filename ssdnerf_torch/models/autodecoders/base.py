@@ -32,23 +32,25 @@ def adam_init(code_):
 
 
 def code_adam_cfg(optimizer_cfg):
-    """(lr, betas) of the code Adam from ``train_cfg['optimizer']``.  A
-    weight decay, which no shipped config sets, is not ported and raises,
-    as ``runner.optim.build_optimizers`` does for the networks."""
+    """(lr, betas, weight_decay) of the code Adam from
+    ``train_cfg['optimizer']`` or ``test_cfg['optimizer']``."""
     optimizer_cfg = optimizer_cfg or {}
-    if optimizer_cfg.get('weight_decay'):
-        raise NotImplementedError('code weight decay is not ported')
     return (optimizer_cfg.get('lr', 1e-2),
-            tuple(optimizer_cfg.get('betas', (0.9, 0.999))))
+            tuple(optimizer_cfg.get('betas', (0.9, 0.999))),
+            optimizer_cfg.get('weight_decay', 0.0))
 
 
-def adam_step(code_, grad, state, lr, betas=(0.9, 0.999), eps=1e-8):
+def adam_step(code_, grad, state, lr, betas=(0.9, 0.999), eps=1e-8,
+              weight_decay=0.0):
     """One Adam step over stacked per-scene codes, torch.optim.Adam's
     formula and eps placement (``p -= lr / bc1 * m / (sqrt(v) / sqrt(bc2)
     + eps)``), with a step count per scene.  ``lr`` is a number or a (S,)
-    tensor of per-scene rates (:func:`scene_lr`).  Returns (code_,
-    state)."""
+    tensor of per-scene rates (:func:`scene_lr`).  ``weight_decay`` adds
+    ``weight_decay * code_`` to the gradient before the moments (Adam's
+    L2 decay, not AdamW's).  Returns (code_, state)."""
     b1, b2 = betas
+    if weight_decay:
+        grad = grad + weight_decay * code_
     step = state.step + 1
     m = b1 * state.m + (1 - b1) * grad
     v = b2 * state.v + (1 - b2) * grad * grad
@@ -259,18 +261,20 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
     added to every step's gradient.
     ``activate`` maps the raw codes to the decoder's (the code activation
     with the state the caller's step reads).  ``draws`` are
-    :func:`inverse_draws`'.  ``lr_scheduler_cfg`` (an
+    :func:`inverse_draws`'.  ``optimizer_cfg``'s ``weight_decay`` is added
+    to each step's gradient (:func:`adam_step`).  ``lr_scheduler_cfg`` (an
     ``ExponentialLR``) decays each scene's rate by its Adam step count
     (:func:`scene_lr`).  The decoder gets no update.  With a data-parallel
     ``group`` the codes are the rank's share of the batch: the render
     loss's gradient is scaled by the share (a batch-mean loss over every
     rank's scenes, as the prior gradient is), and the density refreshes'
-    threshold is shared by every rank.
+    threshold is shared by every rank; the decay, a term of each code's
+    own, is added after.
 
     Returns (code_, opt_state, density_grid, density_bitfield, aux) with
     the last step's losses in aux.
     """
-    lr, betas = code_adam_cfg(optimizer_cfg)
+    lr, betas, weight_decay = code_adam_cfg(optimizer_cfg)
     gamma = lr_gamma(lr_scheduler_cfg)
     num_pixels = math.prod(cond_imgs.shape[1:4])
     dropout = draws.get('dropout')
@@ -308,6 +312,7 @@ def inverse_code(decoder, activate, cond_rays_o, cond_rays_d,
         if prior_grad is not None:
             grad = grad + prior_grad
         code_, opt_state = adam_step(code_.detach(), grad, opt_state,
-                                     scene_lr(lr, gamma, opt_state), betas)
+                                     scene_lr(lr, gamma, opt_state), betas,
+                                     weight_decay=weight_decay)
         aux = dict(loss=loss.detach(), **loss_dict)
     return code_, opt_state, density_grid, density_bitfield, aux

@@ -257,7 +257,7 @@ class DiffusionNeRF(MultiSceneNeRF):
         lr_schedulers = lr_schedulers or {}
         stage2 = scene_batch is None
         if not stage2:
-            lr, betas = code_adam_cfg(tc.get('optimizer'))
+            lr, betas, decay = code_adam_cfg(tc.get('optimizer'))
         act = self.code_activation
         old_state = self.code_act
         if stage2:
@@ -382,7 +382,7 @@ class DiffusionNeRF(MultiSceneNeRF):
             if log_stats:
                 grad_logs.update(self.grad_logs(decoder, g_dec, g_code))
             code_, opt = adam_step(code_.detach(), g_code + prior_grad, opt,
-                                   lr, betas)
+                                   lr, betas, weight_decay=decay)
 
         with torch.no_grad():
             code = activate(code_)
@@ -565,8 +565,13 @@ class DiffusionNeRF(MultiSceneNeRF):
         return grad
 
     def _code_adam(self):
+        """(lr, betas, ExponentialLR gamma) of the test-time code Adam.
+        Its ``weight_decay`` is read by ``inverse_code`` alone: JAX's
+        polish and its ``val_optim`` steps without extra scene steps take
+        none (JAX ``diffusion_nerf.py:346, 533``; ROADMAP section 3 item
+        25)."""
         tcfg = self.test_cfg
-        lr0, betas = code_adam_cfg(tcfg.get('optimizer'))
+        lr0, betas, _ = code_adam_cfg(tcfg.get('optimizer'))
         return lr0, betas, lr_gamma(tcfg.get('lr_scheduler'))
 
     def polish_codes(self, code, polish):

@@ -640,7 +640,7 @@ class MultiSceneNeRF(nn.Module):
         tc = self.train_cfg
         check_dropout_draws(self.decoder, None)
         lr_schedulers = lr_schedulers or {}
-        lr, betas = code_adam_cfg(tc.get('optimizer'))
+        lr, betas, decay = code_adam_cfg(tc.get('optimizer'))
         code_ = scene_batch['code_']
         S = code_.shape[0]
         cond_imgs = data['cond_imgs']
@@ -698,7 +698,8 @@ class MultiSceneNeRF(nn.Module):
                                      lr_schedulers.get('decoder'))
             grad_logs = self.grad_logs(decoder, g_dec, g_code) \
                 if tc.get('log_grad_stats', False) else {}
-            code_, opt = adam_step(code_.detach(), g_code, opt, lr, betas)
+            code_, opt = adam_step(code_.detach(), g_code, opt, lr, betas,
+                                   weight_decay=decay)
 
         self.code_act = new_state
         with torch.no_grad():

@@ -1,5 +1,6 @@
 """Loss functions of the training step (port of
-``ssdnerf_tpu/models/losses.py``): the pixel loss ``MSELoss``, the code
+``ssdnerf_tpu/models/losses.py``): the pixel losses ``MSELoss`` and
+``L1Loss`` (``L1LossMod``), the code
 regularisers ``RegLoss`` and ``TVLoss``, and the diffusion loss ``DDPMMSELoss``
 (``DDPMMSELossMod``) with timestep-weight rescaling, quartile logs and the
 running scale-norm factor."""
@@ -16,6 +17,25 @@ class MSELoss:
 
     def __call__(self, pred, target):
         return torch.mean((pred - target) ** 2) * self.loss_weight
+
+
+@dataclass(frozen=True)
+class L1Loss:
+    """Mean absolute error with JAX's target semantics: ``target`` None or
+    0 gives ``|pred|``, -1 gives ``pred``, else ``|pred - target|``.  The
+    gradient of ``|d|`` at ``d == 0`` is JAX's +1, not torch's 0: exact
+    zero residuals are common (a ray that renders the background colour
+    against a background pixel)."""
+    loss_weight: float = 1.0
+
+    def __call__(self, pred, target=None):
+        if target is None or (isinstance(target, int) and target == 0):
+            d = pred
+        elif isinstance(target, int) and target == -1:
+            return torch.mean(pred) * self.loss_weight
+        else:
+            d = pred - target
+        return torch.mean(torch.where(d >= 0, d, -d)) * self.loss_weight
 
 
 @dataclass(frozen=True)
@@ -109,7 +129,7 @@ class DDPMMSELoss:
         return loss, new_norm, log_vars
 
 
-_PIXEL_LOSSES = {'MSELoss': MSELoss}
+_PIXEL_LOSSES = {'MSELoss': MSELoss, 'L1LossMod': L1Loss, 'L1Loss': L1Loss}
 _REG_LOSSES = {'RegLoss': RegLoss, 'TVLoss': TVLoss}
 
 

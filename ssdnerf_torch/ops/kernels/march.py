@@ -18,12 +18,14 @@ from . import _build
 
 
 def march_indices(rays_o, rays_d, t0, fars, dt_gamma, T, grid_size, bound,
-                  max_steps):
+                  max_steps, t=None):
     """Per-sample linear voxel indices of the first T march steps.
 
     Args:
         rays_o, rays_d: (S, R, 3); t0, fars: (S, R); dt_gamma: (S,) f32.
         T: steps per ray; max_steps sets the dt scale.
+        t: the (S, R, T) t of those steps where the caller has them
+            (``t_at_step`` of the same arguments), else computed here.
 
     Returns:
         (S, R, T) int32 voxel index, -1 where ``t >= far``.
@@ -32,8 +34,9 @@ def march_indices(rays_o, rays_d, t0, fars, dt_gamma, T, grid_size, bound,
     dt_min = 2.0 * SQRT3 / max_steps
     dt_max = 2.0 * SQRT3 / H
     mip_bound = min(1.0, float(bound))
-    k = torch.arange(T, dtype=torch.float32, device=t0.device)
-    t = t_at_step(t0, k, dt_gamma[:, None, None], dt_min, dt_max)
+    if t is None:
+        k = torch.arange(T, dtype=torch.float32, device=t0.device)
+        t = t_at_step(t0, k, dt_gamma[:, None, None], dt_min, dt_max)
 
     def voxel(c):
         x = torch.clamp(rays_o[..., None, c] + t * rays_d[..., None, c],
@@ -84,11 +87,11 @@ occupancy_lookup.launches = 0
 
 
 def march_valid_mask(rays_o, rays_d, t0, fars, density_bitfield, dt_gamma,
-                     T, grid_size, bound, max_steps):
+                     T, grid_size, bound, max_steps, t=None):
     """(S, R, T) bool: sample k of each ray lies in an occupied voxel and
-    before its far bound."""
+    before its far bound (``t`` as :func:`march_indices`'s)."""
     idx = march_indices(rays_o, rays_d, t0, fars, dt_gamma, T, grid_size,
-                        bound, max_steps)
+                        bound, max_steps, t)
     S, R = idx.shape[:2]
     valid = occupancy_lookup(idx.reshape(S, R * T),
                              density_bitfield.contiguous())

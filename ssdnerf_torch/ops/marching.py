@@ -3,9 +3,10 @@
 The march recurrence ``t_{k+1} = t_k + clamp(t_k * dt_gamma, dt_min,
 dt_max)`` has a closed form in three phases, so the t value of any step
 index is one expression.  The occupancy test itself is the march kernel
-(``ops/kernels/march.py``).
+(``ops/kernels/march.py``), which :func:`march_rays` calls.
 """
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +40,61 @@ def t_at_step(t0, step_k, dt_gamma, dt_min, dt_max):
     ts = torch.where(k < n1, t_lin1,
                      torch.where(k < n1 + n2, t_geo, t_lin2))
     return torch.where(g > 0, ts, t_lin1)
+
+
+def t_sequence(t0, dt_gamma, dt_min, dt_max, num_steps):
+    """(N,) start distances -> (N, num_steps) t of the first ``num_steps``
+    steps of the recurrence (:func:`t_at_step` at k = 0, 1, ...);
+    ``dt_gamma`` a number or a tensor."""
+    k = torch.arange(num_steps, dtype=torch.float32, device=t0.device)
+    return t_at_step(t0, k, torch.as_tensor(dt_gamma, dtype=torch.float32,
+                                            device=t0.device),
+                     dt_min, dt_max)
+
+
+class MarchResults(NamedTuple):
+    ts: torch.Tensor      # (N, num_slots) sample start distances
+    dts: torch.Tensor     # (N, num_slots) step sizes
+    valid: torch.Tensor   # (N, num_slots) bool: in an occupied voxel
+
+
+def march_rays(rays_o, rays_d, nears, fars, density_bitfield, grid_size,
+               bound=1.0, dt_gamma=0.0, max_steps=256, perturb_noise=None,
+               num_slots=None):
+    """March the rays of one scene through its occupancy bitfield (JAX
+    ``ops/marching.py:march_rays``).
+
+    Args:
+        rays_o, rays_d: (N, 3); nears, fars: (N,).
+        density_bitfield: (grid_size**3 // 8,) uint8, linear (x, y, z)
+            bit order.
+        dt_gamma: cone-stepping factor (a number or a 0-dim tensor).
+        max_steps: sets the dt scale, and the slot count by default.
+        perturb_noise: optional (N,) uniform [0, 1) jitter of the start.
+        num_slots: slots to march (default ``max_steps``).
+
+    Returns:
+        MarchResults of (N, num_slots) tensors.  A slot is valid when its
+        voxel is occupied and ``ts < fars``: the march kernel's occupancy
+        test on a CUDA tensor, its plain version on a CPU one.
+    """
+    from .kernels.march import march_valid_mask
+
+    num_slots = max_steps if num_slots is None else num_slots
+    dt_min = 2.0 * SQRT3 / max_steps
+    dt_max = 2.0 * SQRT3 / grid_size
+    gamma = torch.as_tensor(dt_gamma, dtype=torch.float32,
+                            device=nears.device).reshape(1)
+    t0 = nears
+    if perturb_noise is not None:
+        t0 = t0 + torch.clamp(t0 * gamma, dt_min, dt_max) * perturb_noise
+    ts = t_sequence(t0, gamma[0], dt_min, dt_max, num_slots)
+    dts = torch.clamp(ts * gamma, dt_min, dt_max)
+    valid = march_valid_mask(rays_o[None], rays_d[None], t0[None],
+                             fars[None], density_bitfield[None], gamma,
+                             num_slots, grid_size, bound, max_steps,
+                             ts[None])[0]
+    return MarchResults(ts=ts, dts=dts, valid=valid)
 
 
 def occupied_aabb(density_bitfield, grid_size, bound):

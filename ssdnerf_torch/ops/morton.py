@@ -2,7 +2,7 @@
 ``packbits`` / ``unpackbits`` of ``ssdnerf_tpu/ops/morton.py``): bit i of
 byte b is grid element ``8 * b + i``; and the Morton codes of the
 reference's voxel layout, which scene-cache files use
-(``tools/convert_cache.py``)."""
+(``tools/convert_cache.py``), and their inverse."""
 import torch
 
 
@@ -53,6 +53,24 @@ def morton3d(coords):
     c = coords.to(torch.int64)
     return (_expand_bits(c[..., 0]) | (_expand_bits(c[..., 1]) << 1)
             | (_expand_bits(c[..., 2]) << 2)).to(torch.int32)
+
+
+def _compact_bits(v):
+    """Inverse of :func:`_expand_bits`: every third bit of ``v`` (int64)
+    gathered into the low 10."""
+    v = v & 0x49249249
+    v = (v | (v >> 2)) & 0xC30C30C3
+    v = (v | (v >> 4)) & 0x0F00F00F
+    v = (v | (v >> 8)) & 0xFF0000FF
+    return (v | (v >> 16)) & 0x000003FF
+
+
+def morton3d_invert(indices):
+    """Inverse of :func:`morton3d`: (...,) Morton indices -> (..., 3)
+    int32 voxel coordinates (x, y, z)."""
+    i = indices.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([_compact_bits(i), _compact_bits(i >> 1),
+                        _compact_bits(i >> 2)], dim=-1).to(torch.int32)
 
 
 def morton_grid_indices(grid_size):

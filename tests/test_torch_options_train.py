@@ -211,7 +211,9 @@ def diffusion_pair(train_cfg=None, test_cfg=None, **cfg_over):
     jm = jax_build_model(jax_cfg(cfg), train_cfg=train_cfg or {},
                          test_cfg=test_cfg or {})
     txs, schedules = jax_build_optimizers(jm, opt_cfgs)
-    state = jm.init_state(jax.random.PRNGKey(0), opt_cfgs, schedules)
+    # one jit: eager, the Flax init compiles each op (~20 s)
+    state = dict(jax.jit(lambda k: jm.init_state(k, opt_cfgs, schedules))(
+        jax.random.PRNGKey(0)))
     rng = np.random.RandomState(167)
     tree = {}
     for name in ('decoder', 'diffusion'):

@@ -97,23 +97,23 @@ def rel(a, b, what, tol=1e-5):
                     what, tol)
 
 
-def diffusion_cfg():
-    """TINY_MODEL_CFG with an f32 decoder."""
-    cfg = copy.deepcopy(TINY_MODEL_CFG)
+def diffusion_cfg(**over):
+    """TINY_MODEL_CFG with an f32 decoder, and the model keys ``over``."""
+    cfg = dict(copy.deepcopy(TINY_MODEL_CFG), **over)
     cfg['update_extra_interval'] = INTERVAL
     cfg['decoder']['compute_dtype'] = 'float32'
     return cfg
 
 
-def diffusion_pair():
+def diffusion_pair(model=None, train_cfg=TRAIN_CFG):
     """The JAX model with its state and optimizers, and the port's spec
     with the same weights (``test_torch_train``'s models: f32 decoders,
     the JAX init plus seeded noise, a density head that leaves part of
-    each grid empty)."""
-    cfg = diffusion_cfg()
+    each grid empty); ``model``: keys over the tiny model's config."""
+    cfg = diffusion_cfg(**(model or {}))
     jcfg = copy.deepcopy(cfg)
     jcfg['decoder'].update(backend='xla')
-    jm = jax_build_model(jcfg, train_cfg=TRAIN_CFG, test_cfg={})
+    jm = jax_build_model(jcfg, train_cfg=train_cfg, test_cfg={})
     txs, schedules = jax_build_optimizers(jm, OPT_CFGS, LR_CONFIG)
     # one jit: eager, the Flax init compiles each op (~30 s)
     state = dict(jax.jit(lambda k: jm.init_state(k, OPT_CFGS, schedules))(
@@ -127,7 +127,7 @@ def diffusion_pair():
     dens['bias'] = dens['bias'] - 2.0
     dens['kernel'] = dens['kernel'] * 10.0
     state = dict(state, **jax.tree_util.tree_map(jnp.asarray, tree))
-    tm = build_model(cfg, train_cfg=TRAIN_CFG, test_cfg={})
+    tm = build_model(cfg, train_cfg=train_cfg, test_cfg={})
     load_jax_params(tm, tree)
 
     data_np = make_batch(num_scenes=S, num_views=V, h=H, w=W, seed=5)
@@ -142,7 +142,7 @@ def diffusion_pair():
         key, sub = jax.random.split(key)
         keys.append(sub)
         draws.append(_jax_step_draws(jm, sub, V * H * W, S=S))
-    spec = dict(cfg=cfg, train_cfg=TRAIN_CFG, state=tm.state_dict(),
+    spec = dict(cfg=cfg, train_cfg=train_cfg, state=tm.state_dict(),
                 opt_cfgs=OPT_CFGS, lr_config=LR_CONFIG, draws=draws,
                 scene_batch=dict(
                     code_=_t(code0), m=torch.zeros(code0.shape),
@@ -262,6 +262,21 @@ def runs(tmp_path_factory):
                                eval=eval_spec), tmp)
     single = {name: train_steps(s) for name, s in steps.items()}
     single_eval = evaluate(eval_spec)
+    state, jbatch, jlogs = jax_steps(jx)
+    r = render_jax
+    jrender = jax.jit(lambda p, c, o, d, b: jax_render(
+        r['jdec'], p, c, o, d, b, r['grid']))(
+        r['params'], jnp.asarray(r['code']), jnp.asarray(r['o']),
+        jnp.asarray(r['d']), jnp.asarray(r['bitfield']))
+    return dict(results=finish_ranks(*started), single=single, specs=steps,
+                single_eval=single_eval,
+                jax=dict(state=state, batch=jbatch, logs=jlogs,
+                         render=jrender))
+
+
+def jax_steps(jx):
+    """JAX's two 8-scene steps of :func:`diffusion_pair`'s JAX side: its
+    state, scene batch and last log vars."""
     jm, state, txs = jx['jm'], jx['state'], jx['txs']
     code0 = jnp.asarray(jx['code0'])
     jbatch = dict(code_=code0, opt=jax_adam_init(code0),
@@ -274,15 +289,7 @@ def runs(tmp_path_factory):
         s, b, d, k, txs['diffusion'], txs['decoder']))
     for sub in jx['keys']:
         state, jbatch, jlogs = step(state, jbatch, jdata, sub)
-    r = render_jax
-    jrender = jax.jit(lambda p, c, o, d, b: jax_render(
-        r['jdec'], p, c, o, d, b, r['grid']))(
-        r['params'], jnp.asarray(r['code']), jnp.asarray(r['o']),
-        jnp.asarray(r['d']), jnp.asarray(r['bitfield']))
-    return dict(results=finish_ranks(*started), single=single,
-                single_eval=single_eval,
-                jax=dict(state=state, batch=jbatch, logs=jlogs,
-                         render=jrender))
+    return state, jbatch, jlogs
 
 
 def check_against_single(results, single, key):
@@ -348,15 +355,23 @@ def test_diffusion_step_two_ranks_match_jax_global_batch(runs):
     the one-process port's own error, where that is larger), code moments
     2e-3 max-normalised, f16 grids rtol 5e-3, bitfields and step counters
     exactly, network weights atol 1e-5."""
-    state, jbatch, jlogs = (runs['jax'][k] for k in ('state', 'batch',
-                                                      'logs'))
-    logs = runs['results'][0]['steps']['diffusion']['logs'][-1]
+    check_against_jax(runs['results'], runs['single'], runs['jax'],
+                      'diffusion', runs['specs']['diffusion'])
+
+
+def check_against_jax(results, single, jax_out, key, spec):
+    """The ranks' steps of ``spec``, named ``key`` (from
+    :func:`diffusion_pair`), against ``jax_out``, JAX's
+    (:func:`jax_steps`), at the bounds of
+    ``test_diffusion_step_two_ranks_match_jax_global_batch``."""
+    state, jbatch, jlogs = (jax_out[k] for k in ('state', 'batch', 'logs'))
+    logs = results[0]['steps'][key]['logs'][-1]
     for name in ('loss_diffusion', 'loss_decoder', 'pixel_loss', 'reg_loss',
                  'loss_mse_quartile_0', 'train_psnr'):
         np.testing.assert_allclose(logs[name], float(jlogs[name]),
                                    rtol=1e-4, err_msg=name)
-    got = cat_ranks(runs['results'], 'diffusion')
-    tstate = runs['results'][0]['steps']['diffusion']['state']
+    got = cat_ranks(results, key)
+    tstate = results[0]['steps'][key]['state']
     np.testing.assert_allclose(tstate['diffusion.norm_factor'].numpy(),
                                np.asarray(state['ddpm_loss']), rtol=1e-6)
     jopt = jbatch['opt']
@@ -367,8 +382,7 @@ def test_diffusion_step_two_ranks_match_jax_global_batch(runs):
     # step is further from JAX (Adam's steps amplify the f32 noise of small
     # gradients: 2.7e-5 at 3 of 24576 elements), within 1e-6 of its error
     jc = np.asarray(jbatch['code_'])
-    err_one = np.abs(
-        runs['single']['diffusion']['batch']['code_'].numpy() - jc)
+    err_one = np.abs(single[key]['batch']['code_'].numpy() - jc)
     err_two = np.abs(got['code_'].numpy() - jc)
     assert np.all(err_two <= np.maximum(1e-5, err_one + 1e-6)), \
         float(np.max(err_two - np.maximum(1e-5, err_one + 1e-6)))
@@ -378,7 +392,7 @@ def test_diffusion_step_two_ranks_match_jax_global_batch(runs):
         atol=1e-4)
     np.testing.assert_array_equal(got['density_bitfield'].numpy(),
                                   np.asarray(jbatch['density_bitfield']))
-    tm = build_model(diffusion_cfg(), train_cfg=TRAIN_CFG, test_cfg={})
+    tm = build_model(spec['cfg'], train_cfg=spec['train_cfg'], test_cfg={})
     tm.load_state_dict(tstate)
     for module, name in ((tm.decoder, 'decoder'),
                          (tm.diffusion.denoising, 'diffusion')):

@@ -27,7 +27,8 @@ from ssdnerf_tpu.ops.pallas.decode import triplane_decode
 from ssdnerf_tpu.registry import build_model as jax_build_model
 from ssdnerf_tpu.runner.optim import build_optimizers as jax_build_optimizers
 from ssdnerf_torch.convert import load_jax_params, load_params
-from ssdnerf_torch.models.autodecoders.base import adam_init
+from ssdnerf_torch.models.autodecoders.base import (adam_init, adam_step,
+                                                  code_adam_cfg)
 from ssdnerf_torch.models.architecture.unet import SelfAttention
 from ssdnerf_torch.models.decoders.renderer import volume_render
 from ssdnerf_torch.models.decoders.triplane import TriPlaneDecoder
@@ -666,19 +667,24 @@ def test_device_scene_cache_round_trip(models):
 
 
 def test_weight_decay_raises(models):
-    """A code weight decay is not ported: ``train_step`` raises before it
-    updates anything.  For the networks a weight decay builds
-    ``torch.optim.AdamW`` (``optax.adamw``, as JAX's ``make_optimizer``
-    does; its update is held in ``test_torch_runner.py``)."""
+    """A code weight decay no longer raises: the train step's code Adam
+    reads it from ``train_cfg['optimizer']`` and adds ``weight_decay *
+    code_`` to the gradient before the moments, as JAX's ``adam_step``
+    (whole steps against JAX's in ``test_torch_options_rest.py``).  For
+    the networks a weight decay builds ``torch.optim.AdamW``
+    (``optax.adamw``, as JAX's ``make_optimizer`` does; its update is held
+    in ``test_torch_runner.py``)."""
     tm = models[3]
-    saved = tm.train_cfg
-    tm.train_cfg = dict(saved, optimizer=dict(type='Adam', lr=1e-2,
-                                              weight_decay=1e-4))
-    try:
-        with pytest.raises(NotImplementedError, match='weight decay'):
-            tm.train_step({}, {}, {})
-    finally:
-        tm.train_cfg = saved
+    assert code_adam_cfg(dict(type='Adam', lr=1e-2, weight_decay=1e-4)) \
+        == (1e-2, (0.9, 0.999), 1e-4)
+    assert code_adam_cfg(tm.train_cfg['optimizer'])[2] == 0.0
+    g = torch.Generator().manual_seed(0)
+    code_ = torch.randn((2, 3, 4), generator=g)
+    grad = torch.randn((2, 3, 4), generator=g)
+    got = adam_step(code_, grad, adam_init(code_), 1e-2, weight_decay=1e-4)
+    ref = adam_step(code_, grad + 1e-4 * code_, adam_init(code_), 1e-2)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].m, ref[1].m, rtol=0, atol=0)
     opts, _ = build_optimizers(tm, dict(decoder=dict(type='Adam', lr=1e-3,
                                                      weight_decay=1e-4)))
     assert isinstance(opts['decoder'], torch.optim.AdamW)
